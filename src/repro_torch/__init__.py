@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of the federated minimax package (`repro`).
+
+The JAX package `repro` stays the reference; this package mirrors its
+module layout and names so every ported module has an obvious
+counterpart.  It imports `torch`, never `jax` and nothing from `repro`.
+Entry points that create tensors run on CUDA unless the caller passes
+`device="cpu"` (see `device.resolve_device`); with no CUDA and no
+explicit device they raise instead of falling back to the CPU.
+
+Ported so far (the FedGDA-GT slice): `core` (types, projections, the
+phase-split engine, GDA / Local SGDA / FedGDA-GT constructors, the
+Proposition 1 fixed-point tools), `fed.strategies` (FullSync, LocalOnly,
+GradientTracking), `problems` (Sec 5.1 quadratic, Appendix C toy),
+`kernels` (the hand-written CUDA `gt_update`) and `convert` (state from
+the JAX package, as numpy).  Everything else raises NotImplementedError
+naming its ROADMAP queue item.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

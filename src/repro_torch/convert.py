@@ -1,0 +1,69 @@
+"""Carry state across from the JAX package, as numpy.
+
+`np.asarray` of a JAX array gives numpy, except that bf16 and fp8 arrays
+come back as `ml_dtypes` arrays, which `torch.from_numpy` rejects: those
+are reinterpreted bit for bit through uint16 / uint8 views.  Nothing here
+imports JAX or the JAX package: callers hand over numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .core.types import MinimaxProblem, tree_map
+from .device import DeviceLike, resolve_device
+
+#: ml_dtypes names -> (same-width unsigned view, torch dtype)
+_BIT_VIEWS = {
+    "bfloat16": (np.uint16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, torch.float8_e5m2),
+}
+
+
+def tensor_from_numpy(
+    a, device: DeviceLike = None, dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """One numpy (or ml_dtypes) array as a tensor on `device` (default
+    CUDA), optionally cast to `dtype`.  The values are copied exactly."""
+    device = resolve_device(device)
+    a = np.asarray(a)
+    view = _BIT_VIEWS.get(a.dtype.name)
+    if view is not None:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(view[0]).copy())
+        t = t.view(view[1])
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def tree_from_numpy(
+    tree: Any, device: DeviceLike = None, dtype: Optional[torch.dtype] = None
+) -> Any:
+    """Every leaf of `tree` (dicts / lists / tuples of numpy arrays) as a
+    tensor on `device`, optionally cast to `dtype`."""
+    device = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)
+
+
+def problem_from_numpy(
+    kind: str,
+    agent_data: Any,
+    device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
+) -> MinimaxProblem:
+    """The port's `MinimaxProblem` of `kind` ("quadratic" | "toy") on the
+    JAX package's agent data (numpy), e.g. the `repro.problems` builders'
+    `agent_data` after `np.asarray`."""
+    if kind == "quadratic":
+        from .problems.quadratic import _loss
+    elif kind == "toy":
+        from .problems.toy import _loss
+    else:
+        raise ValueError(f"unknown problem kind {kind!r} (quadratic | toy)")
+    data = tree_from_numpy(dict(agent_data), device, dtype)
+    m = int(next(iter(data.values())).shape[0])
+    return MinimaxProblem(loss=_loss, agent_data=data, num_agents=m)

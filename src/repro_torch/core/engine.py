@@ -1,0 +1,404 @@
+"""Phase-split federated minimax round engine (port of
+`repro/core/engine.py`, deterministic subset).
+
+One communication round is four phases over an explicit `RoundState`:
+
+  broadcast             server ships (x^t, y^t) to the agents
+  exchange_corrections  (if the strategy corrects drift) agents exchange
+                        gradients once at the anchor point and form the
+                        tracking correction c_i = gbar - g_i, optionally
+                        stored in a reduced dtype
+  local_steps           K local GDA steps, each adding c_i to the local
+                        gradient (fused-k0 anchor step when the correction
+                        is exact)
+  aggregate             server averages and projects
+
+`make_round` is their composition.  Each `jax.lax.scan` of the reference
+is a Python loop here.  Per-agent gradients are autodiff, as the
+reference's `jax.vmap(jax.grad)`: `types.vmap_grad_xy` gives the values
+of `torch.func.vmap(torch.func.grad)` in one backward pass.
+
+Fused k=0 (exact): when the correction is exact, the first local gradient
+is evaluated at the same point as the tracking gradient, so g_i + c_i ==
+gbar and the first step is z <- z -/+ eta * gbar (`anchor_step`), saving
+one gradient evaluation and one update per round.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP queue
+item): stochastic gradients and momentum, elastic step budgets and
+availability masks, the sparse / pod layouts, client sampling, and
+`constrain_agents` (SPMD sharding).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..device import not_ported
+from .types import (
+    LossFn,
+    ProjFn,
+    Pytree,
+    identity_proj,
+    tree_broadcast_agents,
+    tree_leaves,
+    tree_map,
+    vmap_grad_xy,
+)
+
+#: sentinel distinguishing "no override" from an explicit None weight
+#: override in `broadcast` (None means uniform averaging)
+_UNSET = object()
+
+
+def default_update(z: Pytree, g: Pytree, c: Pytree, eta, sign: float) -> Pytree:
+    """z <- z + sign*eta*(g + c); sign=-1 descent (x), +1 ascent (y).
+
+    The plain op-by-op update of the reference engine, in the leaves'
+    own dtype.  `make_phases` defaults to the kernel-backed
+    `kernels.make_gt_update_fn()` instead, which equals this bit for bit
+    on f64 and f32 leaves."""
+    return tree_map(
+        lambda u, gv, cv: u + sign * eta * (gv + cv.to(gv.dtype)), z, g, c
+    )
+
+
+def agent_mean(tree: Pytree, weights) -> Pytree:
+    """Uniform mean over the agent axis (weights None) or a weighted sum
+    with participation weights."""
+    if weights is None:
+        return tree_map(lambda u: torch.mean(u, dim=0), tree)
+    return tree_map(
+        lambda u: torch.tensordot(weights.to(u.dtype), u, dims=1), tree
+    )
+
+
+def agent_weighted_sum(tree: Pytree, weights) -> Pytree:
+    """Partial aggregate of one agent SHARD: the weighted sum (weights
+    None: plain sum — divide by the global m after combining shards)."""
+    if weights is None:
+        return tree_map(lambda u: torch.sum(u, dim=0), tree)
+    return tree_map(
+        lambda u: torch.tensordot(weights.to(u.dtype), u, dims=1), tree
+    )
+
+
+def anchor_step(zs: Pytree, gbar: Pytree, eta, sign: float) -> Pytree:
+    """The fused k=0 local step: every agent moves by the global gradient."""
+    return tree_map(
+        lambda u, gb: u + sign * eta * gb[None].to(u.dtype), zs, gbar
+    )
+
+
+#: fp8 e4m3 rounds magnitudes above this to NaN (448 is its largest
+#: finite value; 464 is the midpoint to the next, unrepresentable, step)
+_FP8_E4M3_OVERFLOW = 464.0
+
+
+def _cast_correction(c: torch.Tensor, cdt) -> torch.Tensor:
+    """`c.to(cdt)`, with fp8 e4m3 overflow giving NaN on every device as in
+    JAX and in torch's CUDA cast (some torch CPU builds saturate to +-448
+    instead; ROADMAP Queue 3)."""
+    if cdt == torch.float8_e4m3fn:
+        c = torch.where(c.abs() > _FP8_E4M3_OVERFLOW, float("nan"), c)
+    return c.to(cdt)
+
+
+def tracking_corrections(
+    gx: Pytree, gy: Pytree, gbar_x: Pytree, gbar_y: Pytree, cdt=None
+):
+    """The raw tracking corrections c_i = gbar - g_i per agent, optionally
+    stored reduced (`cdt`)."""
+
+    def corr(gbar, gi):
+        c = gbar[None] - gi
+        if cdt is not None:
+            c = _cast_correction(c, cdt)
+        return c
+
+    return tree_map(corr, gbar_x, gx), tree_map(corr, gbar_y, gy)
+
+
+def _not_ported_fn(name: str, item: str) -> Callable:
+    def fn(*args, **kwargs):
+        raise not_ported(f"engine.{name}", item)
+
+    fn.__name__ = name
+    fn.__doc__ = f"Not ported yet (ROADMAP {item})."
+    return fn
+
+
+agent_where = _not_ported_fn("agent_where", "Queue 1 item 8")
+fixed_size_mask = _not_ported_fn("fixed_size_mask", "Queue 1 item 5")
+renormalized_weights = _not_ported_fn("renormalized_weights", "Queue 1 item 5")
+pod_weighted_sums = _not_ported_fn("pod_weighted_sums", "Queue 1 item 9")
+pods_total = _not_ported_fn("pods_total", "Queue 1 item 9")
+noise_eval_keys = _not_ported_fn("noise_eval_keys", "Queue 1 item 7")
+make_noise_vgrad = _not_ported_fn("make_noise_vgrad", "Queue 1 item 7")
+
+
+@dataclasses.dataclass
+class RoundState:
+    """Explicit state threaded through the round phases.
+
+    Populated progressively: `broadcast` fills xs/ys/weights,
+    `exchange_corrections` fills cx/cy/gbar_x/gbar_y/fused,
+    `local_steps` advances xs/ys, `aggregate` consumes the lot."""
+
+    x: Pytree                      # global iterates at round start
+    y: Pytree
+    state: Pytree                  # strategy state
+    xs: Pytree = None              # per-agent iterates [m, ...]
+    ys: Pytree = None
+    weights: Optional[torch.Tensor] = None  # participation weights (None=uniform)
+    cx: Pytree = None              # tracking corrections [m, ...]
+    cy: Pytree = None
+    gbar_x: Pytree = None          # anchor-point global gradients
+    gbar_y: Pytree = None
+    fused: bool = False            # anchor shortcut applies
+
+
+class RoundPhases(NamedTuple):
+    """The four phase functions for one strategy (see module docstring).
+
+    broadcast(x, y, agent_data, state, *, weights=...) -> RoundState
+    exchange_corrections(rs, agent_data) -> RoundState
+    local_steps(rs, agent_data) -> RoundState
+    aggregate(rs) -> (x1, y1, state)"""
+
+    broadcast: Callable
+    exchange_corrections: Callable
+    local_steps: Callable
+    aggregate: Callable
+
+
+def _num_agents(agent_data: Pytree) -> int:
+    return tree_leaves(agent_data)[0].shape[0]
+
+
+def _reject_elastic(step_budgets, active, noise_keys, active_indices):
+    if step_budgets is not None or active is not None:
+        raise not_ported("elastic step budgets / availability", "Queue 1 item 8")
+    if noise_keys is not _UNSET and noise_keys is not None:
+        raise not_ported("stochastic noise keys", "Queue 1 item 7")
+    if active_indices is not None:
+        raise not_ported("the sparse O(active) layout", "Queue 1 item 9")
+
+
+def make_phases(
+    loss: LossFn,
+    strategy,
+    num_local_steps: int,
+    eta_x: float,
+    eta_y: Optional[float] = None,
+    *,
+    proj_x: ProjFn = identity_proj,
+    proj_y: ProjFn = identity_proj,
+    update_fn: Optional[Callable] = None,
+    constrain_agents: Optional[Callable] = None,
+) -> RoundPhases:
+    """Build the four round phases for `strategy` (see RoundPhases).
+
+    `update_fn` (the corrected local step) defaults to the kernel-backed
+    `kernels.make_gt_update_fn()`: on f64 and f32 leaves its math is
+    exactly `default_update`'s (bit for bit); on narrower leaves it
+    follows the Pallas kernel (f32 math, cast back to the leaf dtype)."""
+    if eta_y is None:
+        eta_y = eta_x
+    if update_fn is None:
+        # lazy: kernels.ops maps pytrees with core.types
+        from ..kernels.ops import make_gt_update_fn
+
+        update_fn = make_gt_update_fn()
+    if constrain_agents is not None:
+        raise not_ported("constrain_agents (SPMD sharding)", "Queue 1 item 13")
+    if getattr(strategy, "noise", None) is not None:
+        raise not_ported("stochastic strategies", "Queue 1 item 7")
+    if float(getattr(strategy, "momentum", 0.0) or 0.0):
+        raise not_ported("local momentum", "Queue 1 item 7")
+    vgrad = vmap_grad_xy(loss)
+
+    if getattr(strategy, "sync_every_step", False):
+        # FullSync: K communicated steps, each a centralized GDA update;
+        # broadcast/exchange are identities and the whole round lives in
+        # local_steps (each "local" step IS a global aggregate).
+        def gda_step(x, y, agent_data, weights=None):
+            m = _num_agents(agent_data)
+            g = vgrad(
+                tree_broadcast_agents(x, m), tree_broadcast_agents(y, m),
+                agent_data,
+            )
+            gx = agent_mean(g.gx, weights)
+            gy = agent_mean(g.gy, weights)
+            x1 = proj_x(tree_map(lambda u, v: u - eta_x * v, x, gx))
+            y1 = proj_y(tree_map(lambda u, v: u + eta_y * v, y, gy))
+            return x1, y1
+
+        def broadcast(x, y, agent_data, state, *, weights=_UNSET,
+                      step_budgets=None, active=None, noise_keys=_UNSET,
+                      active_indices=None):
+            del agent_data
+            _reject_elastic(step_budgets, active, noise_keys, active_indices)
+            w = None if weights is _UNSET else weights
+            return RoundState(x=x, y=y, state=state, weights=w)
+
+        def exchange_corrections(rs, agent_data):
+            del agent_data
+            return rs
+
+        def local_steps(rs, agent_data):
+            x, y = rs.x, rs.y
+            for _ in range(num_local_steps):
+                x, y = gda_step(x, y, agent_data, rs.weights)
+            return dataclasses.replace(rs, x=x, y=y)
+
+        def aggregate(rs):
+            return rs.x, rs.y, rs.state
+
+        return RoundPhases(broadcast, exchange_corrections, local_steps, aggregate)
+
+    use_corr = bool(getattr(strategy, "use_correction", False))
+    cdt = getattr(strategy, "correction_dtype", None)
+
+    def broadcast(x, y, agent_data, state, *, weights=_UNSET,
+                  step_budgets=None, active=None, noise_keys=_UNSET,
+                  active_indices=None):
+        _reject_elastic(step_budgets, active, noise_keys, active_indices)
+        m = _num_agents(agent_data)
+        if weights is _UNSET:
+            weights, state = strategy.sample_weights(state, m)
+        xs = tree_broadcast_agents(x, m)
+        ys = tree_broadcast_agents(y, m)
+        return RoundState(x=x, y=y, state=state, xs=xs, ys=ys, weights=weights)
+
+    def exchange_corrections(rs, agent_data):
+        if not use_corr:
+            return rs
+        m = _num_agents(agent_data)
+        if m > 1:
+            # one gradient exchange at the anchor point
+            g0 = vgrad(rs.xs, rs.ys, agent_data)
+            gbar_x = agent_mean(g0.gx, rs.weights)
+            gbar_y = agent_mean(g0.gy, rs.weights)
+            cx, cy = tracking_corrections(g0.gx, g0.gy, gbar_x, gbar_y, cdt)
+            cx, cy, state = strategy.transform_correction(cx, cy, rs.state)
+            return dataclasses.replace(
+                rs, cx=cx, cy=cy, gbar_x=gbar_x, gbar_y=gbar_y,
+                fused=bool(strategy.exact_correction), state=state,
+            )
+        # m == 1: the correction is identically zero and elided
+        cx = tree_map(torch.zeros_like, rs.xs)
+        cy = tree_map(torch.zeros_like, rs.ys)
+        return dataclasses.replace(rs, cx=cx, cy=cy)
+
+    def local_steps(rs, agent_data):
+        xs, ys = rs.xs, rs.ys
+        start = 0
+        if rs.fused:
+            xs = anchor_step(xs, rs.gbar_x, eta_x, -1.0)
+            ys = anchor_step(ys, rs.gbar_y, eta_y, +1.0)
+            start = 1
+        for _ in range(start, num_local_steps):
+            g = vgrad(xs, ys, agent_data)
+            if use_corr:
+                xs = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
+                ys = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
+            else:
+                xs = tree_map(lambda u, v: u - eta_x * v, xs, g.gx)
+                ys = tree_map(lambda u, v: u + eta_y * v, ys, g.gy)
+        return dataclasses.replace(rs, xs=xs, ys=ys)
+
+    def aggregate(rs):
+        x1 = proj_x(agent_mean(rs.xs, rs.weights))
+        y1 = proj_y(agent_mean(rs.ys, rs.weights))
+        return x1, y1, rs.state
+
+    return RoundPhases(broadcast, exchange_corrections, local_steps, aggregate)
+
+
+def make_round(
+    loss: LossFn,
+    strategy,
+    num_local_steps: int,
+    eta_x: float,
+    eta_y: Optional[float] = None,
+    *,
+    proj_x: ProjFn = identity_proj,
+    proj_y: ProjFn = identity_proj,
+    update_fn: Optional[Callable] = None,
+    constrain_agents: Optional[Callable] = None,
+    explicit_state: Optional[bool] = None,
+) -> Callable:
+    """Build one communication round for `strategy`: the composition of
+    the four phases (`make_phases`; `update_fn` defaults as there).
+
+    Returns `round(x, y, agent_data) -> (x, y)` for stateless strategies;
+    `explicit_state=True` gives `round(x, y, agent_data, state) ->
+    (x, y, state)`."""
+    stateful = bool(getattr(strategy, "stateful", False))
+    if explicit_state is None:
+        explicit_state = stateful
+    if stateful and not explicit_state:
+        raise ValueError(
+            f"strategy {strategy!r} carries cross-round state; build with "
+            "explicit_state=True and thread `state` through the rounds"
+        )
+    phases = make_phases(
+        loss,
+        strategy,
+        num_local_steps,
+        eta_x,
+        eta_y,
+        proj_x=proj_x,
+        proj_y=proj_y,
+        update_fn=update_fn,
+        constrain_agents=constrain_agents,
+    )
+
+    def core(x, y, agent_data, state):
+        rs = phases.broadcast(x, y, agent_data, state)
+        rs = phases.exchange_corrections(rs, agent_data)
+        rs = phases.local_steps(rs, agent_data)
+        return phases.aggregate(rs)
+
+    if explicit_state:
+        return core
+
+    def round(x, y, agent_data):
+        x1, y1, _ = core(x, y, agent_data, {})
+        return x1, y1
+
+    return round
+
+
+def stack_metrics(history: list) -> Pytree:
+    """Stack a list of per-round metric trees along a new leading axis,
+    on the device (no host sync)."""
+    return tree_map(lambda *vals: torch.stack(vals), *history)
+
+
+def run_strategy_rounds(
+    round_fn: Callable,
+    x0: Pytree,
+    y0: Pytree,
+    agent_data: Pytree,
+    num_rounds: int,
+    state0: Optional[Pytree] = None,
+    metric_fn: Optional[Callable] = None,
+):
+    """Run a stateful round (built with `explicit_state=True`) for
+    `num_rounds`, threading the strategy state.
+
+    Returns ((x, y, state), metrics) with metrics evaluated on the input
+    of each round plus once at the end, stacked on the device."""
+    x, y, s = x0, y0, ({} if state0 is None else state0)
+    history = []
+    for _ in range(num_rounds):
+        if metric_fn is not None:
+            history.append(metric_fn(x, y))
+        x, y, s = round_fn(x, y, agent_data, s)
+    if metric_fn is None:
+        return (x, y, s), None
+    history.append(metric_fn(x, y))
+    return (x, y, s), stack_metrics(history)

@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` holds a plain `extern "C"` launcher and compiles
+into its own shared library (no PyTorch headers, so a build takes
+seconds).  Libraries land in `build/torch_kernels/` at the root of the
+checkout, keyed by a hash of the source and the flags, and are built at
+first use: a fresh checkout builds everything it runs.  `build()` starts
+one nvcc per source, all at once, and waits for them together.  A failed
+build raises with nvcc's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+#: nvcc's output (ptxas register / spill report) of the builds this
+#: process ran, by kernel name
+build_logs: Dict[str, str] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    """nvcc on PATH, else under the toolkit PyTorch finds (CUDA_HOME,
+    CUDA_PATH or the default install)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from `csrc/<name>.cu` lives (its file name
+    carries a hash of the source and the flags)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> Dict[str, Path]:
+    """Build the named kernels that are not built yet, one nvcc each, all
+    started together; returns their library paths."""
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_logs[n] = out
+        if proc.returncode != 0:
+            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{out}")
+            continue
+        # atomic: a concurrent builder of the same source writes the same
+        # bytes under its own temporary name
+        os.replace(tmp, todo[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, building it at first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)[name]))
+        _libs[name] = lib
+    return lib

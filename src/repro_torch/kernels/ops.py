@@ -1,0 +1,28 @@
+"""Pytree wrappers around the port's kernels (port of
+`repro/kernels/ops.py`)."""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+from ..core.types import tree_map
+from .gt_update import gt_update
+
+Pytree = Any
+
+
+def make_gt_update_fn() -> Callable:
+    """The kernel-backed `update_fn` of the round engine:
+    update(z, g, c, eta, sign) applies `gt_update` leafwise.
+
+    Unlike the JAX wrapper there is no padding to [rows, 128] (the kernel
+    masks its own tail) and c is not cast up before the call: the kernel
+    reads it in its stored type (bf16 / fp8), which is the point of the
+    fusion."""
+
+    def update(z: Pytree, g: Pytree, c: Pytree, eta, sign: float) -> Pytree:
+        return tree_map(
+            lambda u, gv, cv: gt_update(u, gv, cv, eta=float(eta), sign=sign),
+            z, g, c,
+        )
+
+    return update
