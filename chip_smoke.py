@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, then drives the
-port's main path — FedGDA-GT rounds (Algorithm 2) with the hand-written
-`gt_update` kernel — on the paper's problems and at a width where the
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, started together), holds each against its plain PyTorch
+version on the card, then drives the port's main paths: FedGDA-GT rounds
+(Algorithm 2) with the hand-written `gt_update` kernel, and the
+communication-efficient rounds (CompressedGT / QuantizedGT, the packed
+wire transport) with the `compress_correction`, `pack_payload` and
+`unpack_payload` kernels, on the paper's problems and at a width where the
 card does real work.  Every phase prints one JSON line; any failed check
-exits non-zero without the final line.  The last two lines are the
-card's `nvidia-smi` name and power limit, then
+exits non-zero without the final line.  The last two lines are the card's
+`nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -18,26 +21,51 @@ Phases:
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
              (every dtype pair, both signs) and a ragged 2^20+17; times
              with CUDA events against the HBM bound
-  theorem1   d=20, m=8, K=10, eta=2e-4, 4000 rounds through the kernel in
+  compress_correction, pack_payload, unpack_payload
+             each kernel vs its plain version, bit for bit: every
+             correction dtype, top-k and rand-k, bits 2-32, every
+             encoding, at the main path's [16, 4096] f64, ragged rows,
+             rows longer than shared memory and rows with NaN; times at
+             [16, 4096] f64 and [16384, 4096] f32 against the HBM bound
+             and `torch.topk` of |c + e| (the library yardstick)
+  theorem1   d=20, m=8, K=10, eta=2e-4, 1000 rounds through the kernel in
              f64 on the committed JAX fixture: final gap < 1e-18, steady
              linear rate, per-round gaps within rtol 1e-5 of JAX's
   sec51      the paper's Sec 5.1 scale (d=50, n=500, m=20, K=20, eta=1e-4,
-             1500 rounds): FedGDA-GT's gap < 1e-8 x Local SGDA's and GDA's
+             750 rounds): FedGDA-GT's gap < 1e-8 x Local SGDA's and GDA's
   prop1      Appendix C toy: Local SGDA (K=10, eta=1e-3) reaches the
              closed-form fixed point, where the Prop 1 residual vanishes;
              K=1 GDA (eta=0.1) reaches the minimax point 3.3
+  compressed_claims
+             the compressed fixture runs through the kernels: per-round
+             gaps within rtol 1e-5 of JAX's (Theorem 1 problem, 300
+             rounds; d=6 quadratic, 1000 rounds) and the JAX package's
+             claims (error feedback tightens the floor tenfold, 8-bit
+             floor < 1e-4, the others < 1e-1)
   main_path  d=4096, n=8192, m=16 in f64 (G is 2.1 GB), K=10, 10 rounds,
              eta = 1/lambda_max: iterates through the kernel equal those
              through the plain default_update bit for bit, and the kernel
              launches exactly rounds*(K-1)*2 times
   profile    device time by kernel over one main-path round, and the
              device's busy share of it
-  kernels    one entry per ported kernel (launches on the main path, error
+  compressed_main_path
+             the same problem, 10 rounds each of (a) CompressedGT top-k
+             0.1 with error feedback (compress_correction) and (b)
+             QuantizedGT 8-bit top-k 0.25 over the packed wire
+             (pack_payload / unpack_payload): iterates equal the
+             use_kernel=False run's bit for bit, each kernel launches
+             exactly rounds x 2 times, the gap falls, and the PackedTree
+             moves exactly the LeafSpec price
+  compressed_profile
+             device time by kernel over one round of (b)
+  kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes)
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -48,6 +76,19 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TOL_GAP_RTOL = 1e-5        # per-round gap vs JAX, on rounds with gap > 1e-14
+#: rounds of the fixture runs, cut from the fixtures' lengths to keep the
+#: whole script near half its 1200 s limit on a one-card machine; every
+#: gap reaches its floor well before (JAX's trajectories: Theorem 1 by
+#: round 500, Sec 5.1 FedGDA-GT by 500, the compressed floors by 750 on
+#: the d=6 quadratic and by 250 on the Theorem 1 problem)
+THEOREM1_ROUNDS = 1000   # of 4000
+SEC51_ROUNDS = 750       # of 1500
+COMPRESSED_ROUNDS = {"thm1": 300, "quad6": 1000}  # of 500 and 1500
+#: the large leaf of the compressed-correction kernel timings: 256 MB per
+#: f32 operand
+LARGE = (16384, 4096)
+#: the CUDA sources the port builds (src/repro_torch/kernels/csrc/<name>.cu)
+KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload")
 
 
 def emit(obj) -> None:
@@ -103,18 +144,19 @@ def phase_setup(torch, card: str) -> dict:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    paths = _build.build("gt_update")
+    paths = _build.build(*KERNEL_SOURCES)
     build_s = time.perf_counter() - t0
-    ptxas = [
-        ln.strip() for ln in _build.build_logs.get("gt_update", "").splitlines()
-        if "registers" in ln or "spill" in ln
-    ]
+    ptxas = {
+        name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
+               if "registers" in ln or "spill" in ln][:16]
+        for name in KERNEL_SOURCES
+    }
     return {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "device_count": torch.cuda.device_count(),
         "kernel_build_s": build_s,
         "libraries": {k: str(p.relative_to(ROOT)) for k, p in paths.items()},
-        "ptxas": ptxas[:12],
+        "ptxas": ptxas,
     }
 
 
@@ -158,12 +200,344 @@ def phase_gt_update(torch, card: str, cases) -> list:
     return rows
 
 
-def fixture_problem(name: str, fix: dict):
-    from repro_torch.convert import problem_from_numpy
+# ------------------------------------------ compressed-correction kernels
+IVIEW_BYTES = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+ENCODINGS = ("quant", "quant_dense", "sparse", "dense")
+#: bit-packing needs bits < 32
+PACK_CASES = [(enc, b) for enc in ENCODINGS for b in (2, 4, 8, 16, 32)
+              if b < 32 or not enc.startswith("quant")]
 
-    return problem_from_numpy(
-        "quadratic", {"G": fix[f"{name}_G"], "Ab": fix[f"{name}_Ab"]}, DEVICE
-    )
+
+def dtypes_of(torch) -> dict:
+    return {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16,
+            "fp8": torch.float8_e4m3fn}
+
+
+def bitwise(torch, a, b) -> bool:
+    """a and b are the same bits (NaN payloads included)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = getattr(torch, IVIEW_BYTES[a.element_size()])
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def max_abs_err(torch, got, want) -> float:
+    """max |got - want| over float outputs (NaN against NaN counts 0);
+    inf where an integer output or a NaN position differs."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if not g.is_floating_point() or g.element_size() == 1:
+            if not bitwise(torch, g, w):
+                return float("inf")
+            continue
+        gd, wd = g.double(), w.double()
+        d = torch.where(torch.isnan(gd) & torch.isnan(wd), 0.0, (gd - wd).abs())
+        d = torch.nan_to_num(d, nan=float("inf"))
+        if d.numel():
+            err = max(err, float(d.max()))
+    return err
+
+
+def make_leaf(torch, R, C, dt, feedback, seed, nan_every=0, udt=None):
+    """One correction leaf on the card: c with a row of ties and an
+    all-zero row, optional feedback, f64 (or udt) uniforms."""
+    from repro_torch.kernels import ref
+
+    udt = udt or torch.float64
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    scale = 50.0 if dt == "fp8" else 100.0
+    c = torch.randn(R, C, generator=gen, device=DEVICE, dtype=torch.float64) * scale
+    c[0, : min(5, C)] = 3.0
+    if R > 1:
+        c[1] = 0.0
+    if nan_every:
+        c[-1, ::nan_every] = float("nan")
+    c = ref.cast_to(c, dtypes_of(torch)[dt])
+    e = None
+    if feedback:
+        e = torch.randn(R, C, generator=gen, device=DEVICE, dtype=torch.float64)
+        e = ref.cast_to(e * (scale * 0.1), c.dtype)
+    us = torch.rand(R, C, generator=gen, device=DEVICE, dtype=torch.float64).to(udt)
+    ur = torch.rand(R, C, generator=gen, device=DEVICE, dtype=torch.float64).to(udt)
+    return c, e, us, ur
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def compress_cases(torch):
+    """(tag, leaf args, k, bits, mode) of the compress_correction matrix:
+    every dtype x mode x bits x feedback at the main path's [16, 4096],
+    ragged rows, rows with NaN, f32 uniforms and rows longer than shared
+    memory (streamed)."""
+    for dt, mode, bits, fb in itertools.product(
+            dtypes_of(torch), ("topk", "randk"), (2, 4, 8, 16, 32), (True, False)):
+        for k in (1, 410, 2048, 4096):
+            yield f"{dt} {mode} b{bits} fb{fb} 16x4096 k{k}", (16, 4096, dt, fb, 1), k, bits, mode
+    for (R, C), dt, mode, bits in itertools.product(
+            [(5, 4097), (3, 1000), (2, 37)], ("f64", "f32", "bf16"),
+            ("topk", "randk"), (4, 32)):
+        for k in sorted({1, max(1, C // 10), C}):
+            yield f"{dt} {mode} b{bits} {R}x{C} k{k}", (R, C, dt, True, 2), k, bits, mode
+    for dt, mode in itertools.product(("f64", "f32", "bf16"), ("topk", "randk")):
+        yield f"{dt} {mode} nan-row", (3, 1000, dt, True, 3, 3), 250, 8, mode
+        yield f"{dt} {mode} f32-uniforms", (3, 1000, dt, True, 4, 0, "f32"), 250, 8, mode
+    for (R, C, dt, mode) in [(4, 40000, "f64", "randk"), (2, 60000, "f32", "topk")]:
+        for bits in (4, 32):
+            yield f"{dt} {mode} b{bits} {R}x{C} streamed", (R, C, dt, True, 5), C // 10, bits, mode
+
+
+def pack_cases(torch):
+    """(tag, leaf args, k, bits, mode, encoding, index dtype) of the
+    pack_payload / unpack_payload matrix, shaped as compress_cases'."""
+    for dt, (enc, bits), mode in itertools.product(
+            dtypes_of(torch), PACK_CASES, ("topk", "randk")):
+        for j, k in enumerate((410, 1024, 4096)):
+            idt = (torch.uint16, torch.int32)[j % 2]
+            yield (f"{dt} {mode} b{bits} {enc} 16x4096 k{k}", (16, 4096, dt, True, 6),
+                   k, bits, mode, enc, idt)
+    for (R, C), dt, (enc, bits) in itertools.product(
+            [(5, 4097), (3, 1000), (2, 37)], ("f64", "f32"), PACK_CASES):
+        for k in sorted({1, max(1, C // 4), C}):
+            yield (f"{dt} b{bits} {enc} {R}x{C} k{k}", (R, C, dt, False, 7), k, bits,
+                   "topk", enc, torch.int32)
+    for dt, enc, mode in itertools.product(("f64", "f32", "bf16"), ENCODINGS,
+                                           ("topk", "randk")):
+        yield (f"{dt} {mode} {enc} nan-row", (3, 1000, dt, True, 8, 3), 250, 8,
+               mode, enc, torch.int32)
+    for (R, C, dt, mode), (enc, bits) in itertools.product(
+            [(4, 40000, "f64", "randk"), (2, 60000, "f32", "topk")],
+            [("quant", 4), ("quant_dense", 4), ("sparse", 32), ("dense", 8)]):
+        yield (f"{dt} {mode} b{bits} {enc} {R}x{C} streamed", (R, C, dt, True, 9),
+               C // 10, bits, mode, enc, torch.uint16)
+
+
+def _leaf_from(torch, args):
+    R, C, dt, fb, seed, *rest = args
+    nan_every = rest[0] if rest else 0
+    udt = torch.float32 if len(rest) > 1 and rest[1] == "f32" else None
+    return make_leaf(torch, R, C, dt, fb, seed, nan_every, udt)
+
+
+def time_case(torch, run, plain, library, nbytes_moved, reps, plain_reps, card):
+    """Times of one kernel case: CUDA-event means of the kernel, its plain
+    version and the library yardstick, against the HBM bound."""
+    ms = time_ms(torch, run, reps=reps)
+    plain_ms = time_ms(torch, plain, reps=plain_reps, warmup=1)
+    library_ms = None if library is None else time_ms(torch, library, reps=reps)
+    bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": nbytes_moved, "bound_ms": bound_ms,
+            "share_of_3.35TB_s": bound_ms / ms, "card": card}
+
+
+def phase_compress_correction(torch, card: str, shared: dict) -> dict:
+    from repro_torch.kernels import compress_correction_2d, ref
+    from repro_torch.kernels.compress_correction import staged_in_shared_memory
+
+    n = 0
+    for tag, args, k, bits, mode in compress_cases(torch):
+        c, e, us, ur = _leaf_from(torch, args)
+        got = compress_correction_2d(c, e, us, ur, k=k, bits=bits, mode=mode)
+        want = ref.compress_correction_ref(c, e, us, ur, k=k, bits=bits, mode=mode)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("chat", "resid")):
+            check(bitwise(torch, g, w), f"compress_correction {tag}: {name} differs "
+                                        "from the plain version")
+        n += 1
+    check(not staged_in_shared_memory(40000, torch.float64, True)
+          and staged_in_shared_memory(4096, torch.float64, True),
+          "compress_correction: shared-memory staging not as expected")
+    timing = {}
+    # (a)'s shape: [16, 4096] f64, top-k 0.1, error feedback, no quantization;
+    # and a large f32 leaf, top-k and rand-k 8-bit
+    for name, (R, C, dt), k, bits, mode, reps in [
+            ("main", (16, 4096, "f64"), 410, 32, "topk", 200),
+            ("large_topk", (*LARGE, "f32"), 410, 32, "topk", 10),
+            ("large_randk8", (*LARGE, "f32"), 410, 8, "randk", 10)]:
+        c, e, us, ur = make_leaf(torch, R, C, dt, True, 10)
+        us_k = us if mode == "randk" else None
+        ur_k = ur if bits < 32 else None
+        ceff_abs = (c.to(ref.compute_dtype(c.dtype)) + e.to(ref.compute_dtype(c.dtype))).abs()
+        got = compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits, mode=mode)
+        want = ref.compress_correction_ref(c, e, us_k, ur_k, k=k, bits=bits, mode=mode)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, f"compress_correction {name}: max |err| {err}")
+        timing[name] = {
+            "shape": [R, C], "dtype": dt, "k": k, "bits": bits, "mode": mode,
+            "max_abs_err": err,
+            **time_case(
+                torch,
+                lambda: compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits, mode=mode),
+                lambda: ref.compress_correction_ref(c, e, us_k, ur_k, k=k, bits=bits, mode=mode),
+                lambda: torch.topk(ceff_abs, k, dim=-1),
+                nbytes(c, e, us_k, ur_k) + 2 * nbytes(c), reps,
+                20 if R == 16 else 3, card),
+        }
+        del c, e, us, ur, ceff_abs, got, want
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["compress_correction"] = timing
+    return {"cases_bitwise": n, "timing": timing,
+            "library": "torch.topk(|c + e|, k) (the select alone)"}
+
+
+def phase_pack_payload(torch, card: str, shared: dict) -> dict:
+    from repro_torch.kernels import pack_payload_2d, ref
+
+    n = 0
+    for tag, args, k, bits, mode, enc, idt in pack_cases(torch):
+        c, e, us, ur = _leaf_from(torch, args)
+        kw = dict(k=k, bits=bits, mode=mode, encoding=enc, index_dtype=idt)
+        got = pack_payload_2d(c, e, us, ur, **kw)
+        want = ref.pack_payload_ref(c, e, us, ur, **kw)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("data", "idx", "scale", "resid")):
+            check(bitwise(torch, g, w), f"pack_payload {tag}: {name} differs from "
+                                        "the plain version")
+        n += 1
+    timing = {}
+    # (b)'s shape: [16, 4096] f64, 8-bit, top-k 0.25, quant with uint16
+    # indices; and a large f32 leaf
+    for name, (R, C, dt), reps in [("main", (16, 4096, "f64"), 200),
+                                   ("large", (*LARGE, "f32"), 10)]:
+        c, e, us, ur = make_leaf(torch, R, C, dt, True, 11)
+        k = C // 4
+        kw = dict(k=k, bits=8, mode="topk", encoding="quant", index_dtype=torch.uint16)
+        ct = ref.compute_dtype(c.dtype)
+        ceff_abs = (c.to(ct) + e.to(ct)).abs()
+        got = pack_payload_2d(c, e, None, ur, **kw)
+        want = ref.pack_payload_ref(c, e, None, ur, **kw)
+        err = max_abs_err(torch, got, want)
+        check(err == 0.0, f"pack_payload {name}: max |err| {err}")
+        timing[name] = {
+            "shape": [R, C], "dtype": dt, "k": k, "bits": 8, "mode": "topk",
+            "encoding": "quant", "max_abs_err": err,
+            **time_case(
+                torch, lambda: pack_payload_2d(c, e, None, ur, **kw),
+                lambda: ref.pack_payload_ref(c, e, None, ur, **kw),
+                lambda: torch.topk(ceff_abs, k, dim=-1),
+                nbytes(c, e, ur, *got), reps, 20 if R == 16 else 3, card),
+        }
+        shared.setdefault("payloads", {})[name] = (want[:3], C, c.dtype, k)
+        del c, e, us, ur, ceff_abs, got, want
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["pack_payload"] = timing
+    return {"cases_bitwise": n, "timing": timing,
+            "library": "torch.topk(|c + e|, k) (the select alone)"}
+
+
+def phase_unpack_payload(torch, card: str, shared: dict) -> dict:
+    from repro_torch.kernels import ref, unpack_payload_2d
+
+    n = 0
+    for tag, args, k, bits, mode, enc, idt in pack_cases(torch):
+        c, e, us, ur = _leaf_from(torch, args)
+        payload = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits, mode=mode,
+                                       encoding=enc, index_dtype=idt)[:3]
+        dk = dict(cols=c.shape[1], dtype=c.dtype, k=k, bits=bits, encoding=enc)
+        got = unpack_payload_2d(*payload, **dk)
+        want = ref.decode_payload_ref(*payload, **dk)
+        torch.cuda.synchronize()
+        check(bitwise(torch, got, want), f"unpack_payload {tag}: differs from the "
+                                         "plain version")
+        n += 1
+    timing = {}
+    for name, reps in (("main", 200), ("large", 10)):
+        payload, C, dtype, k = shared["payloads"][name]
+        dk = dict(cols=C, dtype=dtype, k=k, bits=8, encoding="quant")
+        got = unpack_payload_2d(*payload, **dk)
+        want = ref.decode_payload_ref(*payload, **dk)
+        err = max_abs_err(torch, (got,), (want,))
+        check(err == 0.0, f"unpack_payload {name}: max |err| {err}")
+        timing[name] = {
+            "shape": [payload[0].shape[0], C], "dtype": str(dtype), "k": k,
+            "bits": 8, "encoding": "quant", "max_abs_err": err,
+            # no single PyTorch call unpacks bit-packed levels
+            **time_case(torch, lambda: unpack_payload_2d(*payload, **dk),
+                        lambda: ref.decode_payload_ref(*payload, **dk), None,
+                        nbytes(*payload, got), reps, 20 if name == "main" else 3,
+                        card),
+        }
+        del got, want
+    shared.pop("payloads")
+    torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["unpack_payload"] = timing
+    return {"cases_bitwise": n, "timing": timing}
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels import (
+        compress_correction_2d, gt_update, pack_payload_2d, unpack_payload_2d)
+
+    return {"gt_update": gt_update.launches,
+            "compress_correction": compress_correction_2d.launches,
+            "pack_payload": pack_payload_2d.launches,
+            "unpack_payload": unpack_payload_2d.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import (
+        compress_correction_2d, gt_update, pack_payload_2d, unpack_payload_2d)
+
+    for fn in (gt_update, compress_correction_2d, pack_payload_2d,
+               unpack_payload_2d):
+        fn.launches = 0
+
+
+def parting_round(np, got, want, rtol: float):
+    """First round where got leaves want by more than rtol (on rounds with
+    gap > 1e-14), or None."""
+    want = want[: len(got)]
+    rel = np.abs(got - want) / np.where(want > 1e-14, want, 1.0)
+    bad = np.nonzero((want > 1e-14) & (rel > rtol))[0]
+    return int(bad[0]) if bad.size else None
+
+
+def phase_compressed_claims(torch, np) -> dict:
+    from repro_torch.fixtures import (
+        QUAD6_RUNS, RUNS, THM1_RUNS, compressed_run_gaps, load_compressed_rounds)
+
+    fix = load_compressed_rounds()
+    out, final = {}, {}
+    for which, runs in (("thm1", THM1_RUNS), ("quad6", QUAD6_RUNS)):
+        for run in runs:
+            zero_counts()
+            t0 = time.perf_counter()
+            gap = compressed_run_gaps(run, which, DEVICE,
+                                      rounds=COMPRESSED_ROUNDS[which])
+            wall = time.perf_counter() - t0
+            counts = kernel_counts()
+            want = fix[f"{which}_{run}_gap"][: len(gap)]
+            sel = want > 1e-14
+            err = float(np.max(np.abs(gap[sel] - want[sel]) / want[sel]))
+            part = parting_round(np, gap, want, TOL_GAP_RTOL)
+            wire = RUNS[run][1].get("wire_transport", False)
+            used = (counts["pack_payload"] and counts["unpack_payload"]) if wire \
+                else counts["compress_correction"]
+            check(used, f"compressed_claims {which} {run}: kernels not launched "
+                        f"({counts})")
+            check(part is None, f"compressed_claims {which} {run}: gap parts from "
+                                f"JAX's at round {part}: {gap[part]!r} vs "
+                                f"{want[part]!r}")
+            out[f"{which}_{run}"] = {
+                "final_gap": float(gap[-1]), "jax_final_gap": float(want[-1]),
+                "max_rel_err_vs_jax": err, "rounds": len(gap) - 1,
+                "ms_per_round": wall / (len(gap) - 1) * 1e3, "launches": counts}
+            final[f"{which}_{run}"] = (float(gap[0]), float(gap[-1]))
+    q = {k[len("quad6_"):]: v for k, v in final.items() if k.startswith("quad6_")}
+    claims = {
+        "cgt_error_feedback_tenfold": q["cgt_topk_ef"][1] < q["cgt_topk_noef"][1] / 10,
+        "qgt_error_feedback_tenfold": q["qgt4_topk_wire"][1] < q["qgt4_topk_noef"][1] / 10,
+        "qgt8_floor_below_1e-4": q["qgt8"][0] > 1e2 and q["qgt8"][1] < 1e-4,
+    }
+    for run in ("cgt_topk_ef", "cgt_randk", "qgt4_half_topk", "qgt4_half_randk"):
+        claims[f"{run}_below_1e-1"] = q[run][0] > 1e2 and q[run][1] < 1e-1
+    for name, ok in claims.items():
+        check(ok, f"compressed_claims: claim {name} fails")
+    return {"runs": out, "claims": claims, "tolerance": TOL_GAP_RTOL,
+            "cut": "300 of the fixture's 500 rounds (Theorem 1 problem), 1000 "
+                   "of 1500 (d=6; the claims are checked at round 1000)"}
 
 
 def run_gaps(torch, core, prob, rnd, rounds: int):
@@ -183,37 +557,41 @@ def trajectory_error(np, got, want) -> float:
 
 def phase_theorem1(torch, np, fix: dict) -> dict:
     from repro_torch import core
+    from repro_torch.fixtures import fixture_problem
     from repro_torch.kernels import gt_update
 
-    prob = fixture_problem("thm1", fix)
+    prob = fixture_problem("thm1", DEVICE)[0]
     rnd = core.make_fedgda_gt_round(prob.loss, 10, 2e-4)
     gt_update.launches = 0
     t0 = time.perf_counter()
-    gap = run_gaps(torch, core, prob, rnd, 4000)
+    gap = run_gaps(torch, core, prob, rnd, THEOREM1_ROUNDS)
     wall = time.perf_counter() - t0
     launches = gt_update.launches
     seg = gap[(gap > 1e-14) & (gap < 1e2)]
     rates = np.diff(np.log(seg))
-    err = trajectory_error(np, gap, fix["thm1_gap"])
-    check(launches == 4000 * 9 * 2, f"theorem1: {launches} kernel launches")
+    want = fix["thm1_gap"][: len(gap)]
+    err = trajectory_error(np, gap, want)
+    check(launches == THEOREM1_ROUNDS * 9 * 2, f"theorem1: {launches} kernel launches")
     check(gap[-1] < 1e-18, f"theorem1: final gap {gap[-1]:.3e} >= 1e-18")
     check(bool(np.all(rates < 0)), "theorem1: a log-gap rate is not negative")
     check(np.std(rates) < 0.25 * abs(np.mean(rates)), "theorem1: rate not steady")
     check(err <= TOL_GAP_RTOL, f"theorem1: gap off JAX's by {err:.3e} relative")
     return {
-        "final_gap": float(gap[-1]), "jax_final_gap": float(fix["thm1_gap"][-1]),
+        "rounds": THEOREM1_ROUNDS, "cut": "1000 of the fixture's 4000 rounds",
+        "final_gap": float(gap[-1]), "jax_final_gap": float(want[-1]),
         "mean_log_rate": float(np.mean(rates)), "rate_std": float(np.std(rates)),
         "max_rel_err_vs_jax": err, "tolerance": TOL_GAP_RTOL,
         "gt_update_launches": launches, "wall_s": wall,
-        "ms_per_round": wall / 4000 * 1e3,
+        "ms_per_round": wall / THEOREM1_ROUNDS * 1e3,
     }
 
 
 def phase_sec51(torch, np, fix: dict) -> dict:
     from repro_torch import core
+    from repro_torch.fixtures import fixture_problem
 
-    prob = fixture_problem("sec51", fix)
-    eta, K, T = 1e-4, 20, 1500
+    prob = fixture_problem("sec51", DEVICE)[0]
+    eta, K, T = 1e-4, 20, SEC51_ROUNDS
     rounds = {
         "gt": core.make_fedgda_gt_round(prob.loss, K, eta),
         "ls": core.make_local_sgda_round(prob.loss, K, eta, eta),
@@ -225,11 +603,12 @@ def phase_sec51(torch, np, fix: dict) -> dict:
         gaps[name] = run_gaps(torch, core, prob, rnd, T)
         walls[name] = time.perf_counter() - t0
     final = {k: float(v[-1]) for k, v in gaps.items()}
-    err = trajectory_error(np, gaps["gt"], fix["sec51_gap"])
+    err = trajectory_error(np, gaps["gt"], fix["sec51_gap"][: T + 1])
     check(final["gt"] < 1e-8 * final["ls"], f"sec51: gt {final['gt']:.3e} vs ls {final['ls']:.3e}")
     check(final["gt"] < 1e-8 * final["gda"], f"sec51: gt {final['gt']:.3e} vs gda {final['gda']:.3e}")
     check(err <= TOL_GAP_RTOL, f"sec51: gt gap off JAX's by {err:.3e} relative")
-    return {"final_gap": final, "gt_max_rel_err_vs_jax": err,
+    return {"rounds": T, "cut": "750 of the fixture's 1500 rounds",
+            "final_gap": final, "gt_max_rel_err_vs_jax": err,
             "tolerance": TOL_GAP_RTOL, "wall_s": walls}
 
 
@@ -316,7 +695,8 @@ def phase_main_path(torch, card: str, shared: dict, dim: int, samples: int,
     kernel_s = time.perf_counter() - t0
     launches = {"gt_update": gt_update.launches}
     shared.update(launches=launches, round=kernel_round,
-                  data=prob.agent_data, x0=x0)
+                  data=prob.agent_data, x0=x0, problem=prob, eta=eta,
+                  minimax=(xs, ys), K=K)
 
     t0 = time.perf_counter()
     _, want = core.run_rounds(plain_round, x0, x0, prob.agent_data, rounds, record)
@@ -351,18 +731,18 @@ def phase_main_path(torch, card: str, shared: dict, dim: int, samples: int,
     return info
 
 
-def phase_profile(torch, shared: dict) -> dict:
-    """Device time by kernel over one main-path round (torch.profiler);
-    busy share = summed kernel time over the round's wall time, both under
-    the profiler."""
+def profile_round(torch, run_round, kernel_names) -> dict:
+    """Device time by kernel over one round (torch.profiler); busy share =
+    summed kernel time over the round's wall time, both under the
+    profiler.  `kernel_names` maps a report key to a substring of the
+    CUDA kernel's name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rnd, data, x0 = shared["round"], shared["data"], shared["x0"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rnd(x0, x0, data)
+        run_round()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -375,20 +755,149 @@ def phase_profile(torch, shared: dict) -> dict:
         kernels.append({"name": ev.key[:90], "count": ev.count, "ms": us / 1e3})
     kernels.sort(key=lambda k: -k["ms"])
     busy_ms = sum(k["ms"] for k in kernels)
-    gt_ms = sum(k["ms"] for k in kernels if "gt_update_kernel" in k["name"])
     if not kernels:
         return {"device_time": "not measured (the profiler saw no CUDA kernel)",
                 "round_wall_ms": wall_ms}
-    return {
-        "round_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "gt_update_ms": gt_ms, "gt_update_share_of_busy": gt_ms / busy_ms,
-        "kernel_launches": sum(k["count"] for k in kernels),
-        "top": kernels[:8],
+    out = {"round_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms}
+    for key, sub in kernel_names.items():
+        ms = sum(k["ms"] for k in kernels if sub in k["name"])
+        out[f"{key}_ms"] = ms
+        out[f"{key}_share_of_busy"] = ms / busy_ms
+    out.update(kernel_launches=sum(k["count"] for k in kernels), top=kernels[:10])
+    return out
+
+
+def phase_profile(torch, shared: dict) -> dict:
+    """One main-path round (FedGDA-GT through gt_update) under the profiler."""
+    rnd, data, x0 = shared["round"], shared["data"], shared["x0"]
+    return profile_round(torch, lambda: rnd(x0, x0, data),
+                         {"gt_update": "gt_update_kernel"})
+
+
+def phase_compressed_main_path(torch, card: str, shared: dict, rounds: int) -> dict:
+    """10 rounds of (a) CompressedGT top-k 0.1 with error feedback and (b)
+    QuantizedGT 8-bit top-k 0.25 over the packed wire, on the main path's
+    problem, through the kernels and through their plain versions."""
+    from repro_torch import core
+    from repro_torch.fed import CompressedGT, LeafSpec, PackedTree, QuantizedGT
+    from repro_torch.fed.transport import measured_bytes_per_round
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m, dim = prob.agent_data, prob.num_agents, x0.shape[0]
+
+    def record(x, y):
+        return {"x": x, "y": y,
+                "gap": core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)}
+
+    runs = {
+        "a_compressed_topk": (CompressedGT(compression_ratio=0.1, mode="topk"),
+                              {"compress_correction": 2 * rounds,
+                               "pack_payload": 0, "unpack_payload": 0}),
+        "b_quantized_wire": (QuantizedGT(bits=8, ratio=0.25, mode="topk",
+                                         wire_transport=True),
+                             {"compress_correction": 0,
+                              "pack_payload": 2 * rounds,
+                              "unpack_payload": 2 * rounds}),
     }
+    out = {}
+    for tag, (strategy, expected) in runs.items():
+        plain = dataclasses.replace(strategy, use_kernel=False)
+        rnd = core.make_round(prob.loss, strategy, K, eta, explicit_state=True)
+        rnd_plain = core.make_round(prob.loss, plain, K, eta, explicit_state=True)
+        # one warm-up round each
+        rnd(x0, x0, data, strategy.init_state(x0, x0, m))
+        rnd_plain(x0, x0, data, plain.init_state(x0, x0, m))
+        # the main path: counts at 0 just before, read just after
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        (_, _, st), got = core.run_strategy_rounds(
+            rnd, x0, x0, data, rounds, strategy.init_state(x0, x0, m), record)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        t0 = time.perf_counter()
+        (_, _, st_plain), want = core.run_strategy_rounds(
+            rnd_plain, x0, x0, data, rounds, plain.init_state(x0, x0, m), record)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same = all(torch.equal(got[k], want[k]) for k in ("x", "y")) and all(
+            torch.equal(st[k].cpu(), st_plain[k].cpu()) for k in st)
+        gap = got["gap"].cpu().numpy()
+        check(same, f"compressed_main_path {tag}: kernel iterates differ from "
+                    "the plain versions'")
+        for name, n in expected.items():
+            check(launches[name] == n, f"compressed_main_path {tag}: "
+                  f"{launches[name]} {name} launches, expected {n}")
+        check(bool(torch.isfinite(got["x"]).all() and torch.isfinite(got["y"]).all()),
+              f"compressed_main_path {tag}: non-finite iterates")
+        check(gap[-1] < gap[0], f"compressed_main_path {tag}: gap {gap[0]:.3e} -> "
+                                f"{gap[-1]:.3e}")
+        info = {"strategy": repr(strategy), "rounds": rounds, "K": K,
+                "ms_per_round_kernels": kernel_s / rounds * 1e3,
+                "ms_per_round_plain": plain_s / rounds * 1e3,
+                "gap_first": float(gap[0]), "gap_last": float(gap[-1]),
+                "bitwise_kernels_vs_plain": same, "launches": launches,
+                "card": card}
+        if strategy.wire_transport:
+            spec = LeafSpec.build((dim,), x0.dtype, 0.25, 8, "topk")
+            check(spec.encoding == "quant" and spec.index_dtype == torch.uint16,
+                  f"compressed_main_path {tag}: LeafSpec {spec}")
+            c = torch.randn(m, dim, dtype=x0.dtype, device=DEVICE)
+            px, py, _ = strategy.transform_correction(
+                c, c, strategy.init_state(x0, x0, m))
+            check(isinstance(px, PackedTree), f"compressed_main_path {tag}: no wire")
+            price = spec.stacked(m).wire_bytes()
+            check(px.wire_bytes() == price == m * spec.wire_bytes()
+                  and py.wire_bytes() == price,
+                  f"compressed_main_path {tag}: wire {px.wire_bytes()} B, "
+                  f"price {price} B")
+            measured = measured_bytes_per_round(strategy, x0, x0, K,
+                                                include_headers=False)
+            check(measured == strategy.bytes_per_round(x0, x0, K),
+                  f"compressed_main_path {tag}: measured {measured} B per round")
+            info.update(encoding=spec.encoding, index_dtype=str(spec.index_dtype),
+                        wire_bytes_per_leaf=px.wire_bytes(), price_bytes=price,
+                        dense_bytes_per_leaf=m * dim * x0.element_size(),
+                        bytes_per_round_per_agent=measured)
+            shared["compressed_round"] = (rnd, strategy)
+        out[tag] = info
+    return out
 
 
-def kernel_entries(torch, launches: dict, state: dict, card: str) -> list:
+def phase_compressed_profile(torch, shared: dict) -> dict:
+    """One round of the wire run (b) under the profiler."""
+    rnd, strategy = shared["compressed_round"]
+    x0, data, m = shared["x0"], shared["data"], shared["problem"].num_agents
+    st = strategy.init_state(x0, x0, m)
+    return profile_round(torch, lambda: rnd(x0, x0, data, st), {
+        "pack_payload": "pack_kernel", "unpack_payload": "unpack_kernel",
+        "gt_update": "gt_update_kernel"})
+
+
+#: the compressed-correction kernels: (source, TPU kernel it replaces,
+#: the main-path run whose launches it reports, library yardstick or why
+#: there is none)
+COMPRESSED_KERNELS = {
+    "compress_correction": (
+        "src/repro_torch/kernels/csrc/compress_correction.cu",
+        "src/repro/kernels/compress_correction.py:85", "a_compressed_topk",
+        "torch.topk(|c + e|, k): the select alone"),
+    "pack_payload": (
+        "src/repro_torch/kernels/csrc/pack_payload.cu",
+        "src/repro/kernels/pack_payload.py:66", "b_quantized_wire",
+        "torch.topk(|c + e|, k): the select alone"),
+    "unpack_payload": (
+        "src/repro_torch/kernels/csrc/pack_payload.cu",
+        "src/repro/kernels/pack_payload.py:141", "b_quantized_wire",
+        "null: no single PyTorch call unpacks bit-packed levels"),
+}
+
+
+def kernel_entries(torch, launches: dict, state: dict, card: str,
+                   shared: dict) -> list:
     from repro_torch.kernels import gt_update, ref
 
     z, g, c, eta = state["z"], state["g"], state["c"], state["eta"]
@@ -410,8 +919,26 @@ def kernel_entries(torch, launches: dict, state: dict, card: str) -> list:
         "bound_ms": gt_update_bytes(z, c) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         # no single PyTorch call computes z + s*(g + c)
-        "library_ms": None, "card": card,
-    }]
+        "library_ms": None, "library": "null: no single PyTorch call computes "
+                                       "z + s*(g + c)", "card": card,
+    }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS]
+
+
+def compressed_entry(name: str, shared: dict, card: str) -> dict:
+    """The kernels-line entry of one compressed-correction kernel: its
+    launches on its main-path run, and its error and times at that run's
+    shape ([16, 4096] f64), measured in its own phase."""
+    source, replaces, run, library = COMPRESSED_KERNELS[name]
+    t = shared["timing"][name]["main"]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": shared["compressed"][run]["launches"][name],
+        "max_abs_err": t["max_abs_err"], "tolerance": 0.0,
+        "bitwise_vs_plain": t["max_abs_err"] == 0.0, "shape": t["shape"],
+        "dtypes": [t["dtype"]], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
+        "library_ms": t["library_ms"], "library": library, "card": card,
+    }
 
 
 def main() -> int:
@@ -462,17 +989,28 @@ def main() -> int:
 
     run("setup", lambda: phase_setup(torch, card))
     run("gt_update", lambda: phase_gt_update(torch, card, cases))
+    run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
+    run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
+    if "payloads" in shared:
+        run("unpack_payload", lambda: phase_unpack_payload(torch, card, shared))
     run("theorem1", lambda: phase_theorem1(torch, np, fix))
     run("sec51", lambda: phase_sec51(torch, np, fix))
     run("prop1", lambda: phase_prop1(torch))
+    run("compressed_claims", lambda: phase_compressed_claims(torch, np))
     run("main_path", lambda: phase_main_path(
         torch, card, shared, dim=4096, samples=8192, agents=16, K=10, rounds=10))
     if "state" in shared:
         run("profile", lambda: phase_profile(torch, shared))
-        kernels = run("kernels", lambda: kernel_entries(
-            torch, shared["launches"], shared["state"], card))
-        if kernels is not None:
-            emit({"kernels": kernels})
+        compressed = run("compressed_main_path", lambda: phase_compressed_main_path(
+            torch, card, shared, rounds=10))
+        if compressed is not None:
+            shared["compressed"] = compressed
+            run("compressed_profile", lambda: phase_compressed_profile(torch, shared))
+        if compressed is not None and len(shared.get("timing", {})) == 3:
+            kernels = run("kernels", lambda: kernel_entries(
+                torch, shared["launches"], shared["state"], card, shared))
+            if kernels is not None:
+                emit({"kernels": kernels})
     emit({"phase": "total", "ok": ok, "s": time.perf_counter() - t_start})
     if not ok:
         return 1

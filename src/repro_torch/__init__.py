@@ -7,12 +7,15 @@ Entry points that create tensors run on CUDA unless the caller passes
 `device="cpu"` (see `device.resolve_device`); with no CUDA and no
 explicit device they raise instead of falling back to the CPU.
 
-Ported so far (the FedGDA-GT slice): `core` (types, projections, the
-phase-split engine, GDA / Local SGDA / FedGDA-GT constructors, the
-Proposition 1 fixed-point tools), `fed.strategies` (FullSync, LocalOnly,
-GradientTracking), `problems` (Sec 5.1 quadratic, Appendix C toy),
-`kernels` (the hand-written CUDA `gt_update`) and `convert` (state from
-the JAX package, as numpy).  Everything else raises NotImplementedError
+Ported so far: `core` (types, projections, the phase-split engine, GDA /
+Local SGDA / FedGDA-GT constructors, the Proposition 1 fixed-point
+tools), `fed.strategies` (FullSync, LocalOnly, GradientTracking, and the
+communication-efficient CompressedGT / QuantizedGT), `fed.transport` (the
+packed wire format), `prng` (JAX's threefry keys and uniforms, bit for
+bit), `problems` (Sec 5.1 quadratic, Appendix C toy), `kernels` (the
+hand-written CUDA `gt_update`, `compress_correction_2d`,
+`pack_payload_2d` and `unpack_payload_2d`) and `convert` (state from the
+JAX package, as numpy).  Everything else raises NotImplementedError
 naming its ROADMAP queue item.
 """
 from .device import resolve_device

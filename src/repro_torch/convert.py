@@ -67,3 +67,21 @@ def problem_from_numpy(
     data = tree_from_numpy(dict(agent_data), device, dtype)
     m = int(next(iter(data.values())).shape[0])
     return MinimaxProblem(loss=_loss, agent_data=data, num_agents=m)
+
+
+def strategy_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
+    """A strategy state of the JAX package (as numpy) as the port's: the
+    per-agent trees ("ex" / "ey" error-feedback buffers, bf16 / fp8 kept
+    bit for bit) on `device` (default CUDA), and an RNG "key" (uint32[2])
+    as the port's `prng` key (int64 words, on the CPU).  Both sides then
+    start a round from the same state."""
+    out = {}
+    for name, value in state.items():
+        if name == "key":
+            words = np.asarray(value).astype(np.int64)
+            if words.shape != (2,):
+                raise ValueError(f"a key is uint32[2], got shape {words.shape}")
+            out[name] = torch.from_numpy(words.copy())
+        else:
+            out[name] = tree_from_numpy(value, device)
+    return out

@@ -7,7 +7,10 @@ One communication round is four phases over an explicit `RoundState`:
   exchange_corrections  (if the strategy corrects drift) agents exchange
                         gradients once at the anchor point and form the
                         tracking correction c_i = gbar - g_i, optionally
-                        stored in a reduced dtype
+                        stored in a reduced dtype, then transformed by the
+                        strategy (compressed, quantized; a packed wire
+                        payload comes back with a `decode` hook and is
+                        decoded here)
   local_steps           K local GDA steps, each adding c_i to the local
                         gradient (fused-k0 anchor step when the correction
                         is exact)
@@ -91,30 +94,20 @@ def anchor_step(zs: Pytree, gbar: Pytree, eta, sign: float) -> Pytree:
     )
 
 
-#: fp8 e4m3 rounds magnitudes above this to NaN (448 is its largest
-#: finite value; 464 is the midpoint to the next, unrepresentable, step)
-_FP8_E4M3_OVERFLOW = 464.0
-
-
-def _cast_correction(c: torch.Tensor, cdt) -> torch.Tensor:
-    """`c.to(cdt)`, with fp8 e4m3 overflow giving NaN on every device as in
-    JAX and in torch's CUDA cast (some torch CPU builds saturate to +-448
-    instead; ROADMAP Queue 3)."""
-    if cdt == torch.float8_e4m3fn:
-        c = torch.where(c.abs() > _FP8_E4M3_OVERFLOW, float("nan"), c)
-    return c.to(cdt)
-
-
 def tracking_corrections(
     gx: Pytree, gy: Pytree, gbar_x: Pytree, gbar_y: Pytree, cdt=None
 ):
     """The raw tracking corrections c_i = gbar - g_i per agent, optionally
-    stored reduced (`cdt`)."""
+    stored reduced (`cdt`): fp8 e4m3 overflow gives NaN keeping the sign on
+    every device, as in JAX and in torch's CUDA cast (some torch CPU builds
+    saturate to +-448 instead; ROADMAP Queue 3)."""
+    # lazy: the kernels package imports core
+    from ..kernels.ref import cast_to
 
     def corr(gbar, gi):
         c = gbar[None] - gi
         if cdt is not None:
-            c = _cast_correction(c, cdt)
+            c = cast_to(c, cdt)
         return c
 
     return tree_map(corr, gbar_x, gx), tree_map(corr, gbar_y, gy)
@@ -283,6 +276,13 @@ def make_phases(
             gbar_y = agent_mean(g0.gy, rs.weights)
             cx, cy = tracking_corrections(g0.gx, g0.gy, gbar_x, gbar_y, cdt)
             cx, cy, state = strategy.transform_correction(cx, cy, rs.state)
+            # wire-transport strategies hand back packed payloads
+            # (`fed.transport.PackedTree`, duck-typed on its `decode`
+            # hook): scatter them back to dense corrections
+            if hasattr(cx, "decode"):
+                cx = cx.decode()
+            if hasattr(cy, "decode"):
+                cy = cy.decode()
             return dataclasses.replace(
                 rs, cx=cx, cy=cy, gbar_x=gbar_x, gbar_y=gbar_y,
                 fused=bool(strategy.exact_correction), state=state,

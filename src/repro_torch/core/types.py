@@ -50,6 +50,35 @@ def tree_leaves(tree: Pytree) -> list:
     return [tree]
 
 
+def tree_flatten(tree: Pytree):
+    """(leaves, unflatten) in JAX's leaf order, where dict keys are
+    visited sorted (`tree_leaves` follows insertion order).  Code that
+    numbers leaves the way the JAX package does, such as the per-leaf
+    seed folds of the compressors, flattens with this;
+    `unflatten(new_leaves)` rebuilds the original structure."""
+    leaves = []
+
+    def walk(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            done = {k: walk(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v) for v in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        leaves.append(t)
+        return len(leaves) - 1
+
+    skeleton = walk(tree)
+
+    def unflatten(new_leaves):
+        return tree_map(lambda i: new_leaves[i], skeleton)
+
+    return leaves, unflatten
+
+
 def tree_reduce(fn: Callable, tree: Pytree):
     leaves = tree_leaves(tree)
     out = leaves[0]

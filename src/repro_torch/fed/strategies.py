@@ -1,6 +1,7 @@
 """Communication strategies for the round engine (port of
-`repro/fed/strategies.py`: the base protocol plus FullSync, LocalOnly and
-GradientTracking).
+`repro/fed/strategies.py`: the base protocol plus FullSync, LocalOnly,
+GradientTracking and the compressed-correction family CompressedGT /
+QuantizedGT).
 
 A `CommStrategy` says WHAT the agents communicate each round and HOW
 local drift is corrected; `core.engine.make_round` reads only these hooks:
@@ -14,11 +15,17 @@ local drift is corrected; `core.engine.make_round` reads only these hooks:
   init_state(x,y,m)  build that state
   sample_weights(state, m) -> (weights | None, state)
   transform_correction(cx, cy, state) -> (cx, cy, state)
+                     cx / cy may come back as `transport.PackedTree` wire
+                     payloads (objects with a `.decode()` hook) instead of
+                     dense trees; the engine decodes before use
+  sharded_state_keys state entries with a leading per-agent axis
   bytes_per_round(x, y, K)  analytic star-topology payload per agent
+                     (`transport.measured_bytes_per_round` measures the
+                     packed buffers)
 
-The other families of the reference (client sampling, compressed and
-quantized corrections, the stochastic family) raise NotImplementedError
-from `resolve_strategy`, naming their ROADMAP queue item.
+The other families of the reference (client sampling, the stochastic
+family) raise NotImplementedError from `resolve_strategy`, naming their
+ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -27,17 +34,31 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ..core.types import Pytree, tree_leaves
+from .. import prng
+from ..core.types import Pytree, tree_flatten, tree_leaves, tree_map
 from ..device import not_ported
+from ..kernels.compress_correction import compress_leaf
+from .transport import LeafSpec, PackedTree, dense_payload_bytes, encode_leaf
 
 Weights = Optional[torch.Tensor]
 State = dict
 
+_payload_bytes = dense_payload_bytes
 
-def _payload_bytes(tree: Pytree) -> int:
-    """Dense payload bytes of one model copy (`fed/transport.py`
-    `dense_payload_bytes` of the reference)."""
-    return sum(u.numel() * u.element_size() for u in tree_leaves(tree))
+
+def _compressed_payload_bytes(tree: Pytree, ratio: float, bits: int = 32,
+                              value_dtype=None) -> int:
+    """Bytes of a `ratio`-sparsified, `bits`-bit stochastically quantized
+    copy of `tree` (bits >= 32: sparsification only), leaf by leaf at the
+    cheapest encoding of `transport.LeafSpec`, the object that also shapes
+    the encoder's buffers, so priced bytes equal packed buffer lengths.
+    `value_dtype` overrides the leaf dtype: the correction exchange is
+    priced at the strategy's `correction_dtype` when one is set."""
+    return sum(
+        LeafSpec.build(tuple(u.shape), value_dtype or u.dtype, ratio,
+                       bits).wire_bytes()
+        for u in tree_leaves(tree)
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +80,12 @@ class CommStrategy:
 
     def init_state(self, x: Pytree, y: Pytree, m: int) -> State:
         return {}
+
+    @property
+    def sharded_state_keys(self) -> Tuple[str, ...]:
+        """Top-level state entries whose leaves carry a leading per-agent
+        axis (the rest, such as RNG keys, stay server-side)."""
+        return ()
 
     def sample_weights(self, state: State, m: int) -> Tuple[Weights, State]:
         """None means exact uniform averaging over all m agents."""
@@ -112,6 +139,253 @@ class GradientTracking(CommStrategy):
         return 4 * _payload_bytes((x, y))
 
 
+@dataclasses.dataclass(frozen=True)
+class _CorrectionCompressor(CommStrategy):
+    """Shared machinery of the strategies that transform the tracking
+    correction leaf by leaf: sparsification and / or stochastic
+    quantization with error feedback.
+
+    Subclasses (CompressedGT, QuantizedGT) declare the knobs and the
+    `_ratio` / `_bits` hooks; this base owns the state (per-agent feedback
+    buffers "ex" / "ey" in the correction dtype, and the RNG "key", a JAX
+    threefry key as `prng` keeps it), the per-leaf loop and the kernels.
+    Each leaf is laid out as [m * rows, cols] with last-axis rows as the
+    selection / quantization groups (`transport.wire_rows_cols`).  Its
+    draws are JAX's, bit for bit: one `split` of the key per round, then
+    `fold_in(sub, 2*i + tag)` for leaf i of x (tag 0) or y (tag 1), and
+    f64 `uniform`s from `fold_in(leaf_key, 0)` (rand-k scores) and
+    `fold_in(leaf_key, 1)` (rounding), with leaves numbered in JAX's order.
+
+    `use_kernel` (default True) runs the hand-written kernels:
+    `compress_correction_2d`, or with `wire_transport` `pack_payload_2d` /
+    `unpack_payload_2d`.  They launch on CUDA tensors and run their plain
+    versions on CPU tensors; `use_kernel=False` runs the plain versions on
+    any device (the card's kernel-against-plain check).  The reference's
+    `kernel_interpret` (TPU interpret mode) has no counterpart.  With
+    `wire_transport`, `transform_correction` returns `PackedTree`s, real
+    packed payloads; wire on and off give the same iterates bit for bit.
+
+    Not ported: the elastic re-anchoring hooks `rebase_state` and
+    `realign_state_rows` (ROADMAP Queue 1 items 8 and 9)."""
+
+    use_kernel: bool = True       # the CUDA kernels (plain versions on CPU)
+    wire_transport: bool = False  # emit packed payloads, not dense trees
+    use_correction = True
+    # knob defaults, overridden by the subclasses' dataclass fields
+    mode = "topk"
+    error_feedback = True
+    seed = 0
+
+    def __post_init__(self):
+        if self.mode not in ("topk", "randk"):
+            raise ValueError(f"unknown compression mode {self.mode!r}")
+
+    @property
+    def _ratio(self) -> float:
+        """Kept fraction of correction entries per leaf (1.0 = dense)."""
+        raise NotImplementedError
+
+    @property
+    def _bits(self) -> int:
+        """Stochastic-quantization bit-width (>= 32 = no quantization)."""
+        return 32
+
+    @property
+    def _sparsifying(self) -> bool:
+        return self._ratio < 1.0
+
+    @property
+    def _quantizing(self) -> bool:
+        return self._bits < 32
+
+    @property
+    def _active(self) -> bool:
+        return self._sparsifying or self._quantizing
+
+    @property
+    def _needs_rng(self) -> bool:
+        # rand-k selection scores and / or stochastic-rounding draws
+        return self._quantizing or (self._sparsifying and self.mode == "randk")
+
+    @property
+    def exact_correction(self) -> bool:
+        # a lossy transform voids the anchor-point cancellation
+        return not self._active
+
+    @property
+    def _compressor_state(self) -> bool:
+        return self._active and (self.error_feedback or self._needs_rng)
+
+    @property
+    def stateful(self) -> bool:
+        return self._compressor_state
+
+    @property
+    def sharded_state_keys(self) -> Tuple[str, ...]:
+        if self._active and self.error_feedback:
+            return ("ex", "ey")
+        return ()
+
+    def init_state(self, x, y, m):
+        state: State = {}
+        if not self._compressor_state:
+            return state
+        if self.error_feedback:
+            # in the correction dtype: the engine casts the correction
+            # before transform_correction
+            def zeros(p):
+                return tree_map(
+                    lambda u: torch.zeros((m,) + tuple(u.shape),
+                                          dtype=self.correction_dtype or u.dtype,
+                                          device=u.device),
+                    p,
+                )
+
+            state["ex"] = zeros(x)
+            state["ey"] = zeros(y)
+        if self._needs_rng:
+            state["key"] = prng.PRNGKey(self.seed)
+        return state
+
+    def transform_correction(self, cx, cy, state):
+        if not self._active:
+            return cx, cy, state
+        state = dict(state)
+        sub = None
+        if self._needs_rng:
+            key, sub = prng.split(state["key"])
+            state["key"] = key
+
+        def compress(tree, err, tag):
+            leaves, unflatten = tree_flatten(tree)
+            eleaves = (tree_flatten(err)[0] if err is not None
+                       else [None] * len(leaves))
+            chats, resids, specs = [], [], []
+            for i, (c, e) in enumerate(zip(leaves, eleaves)):
+                m = c.shape[0]
+                spec = LeafSpec.build(tuple(c.shape[1:]), c.dtype, self._ratio,
+                                      self._bits, self.mode)
+                flat = c.reshape(m * spec.rows, spec.cols)
+                k, n = spec.k, spec.cols
+                leaf_key = None if sub is None else prng.fold_in(sub, 2 * i + tag)
+                u_sel = u_rnd = None
+                if self.mode == "randk" and k < n:
+                    u_sel = prng.uniform(prng.fold_in(leaf_key, 0), flat.shape,
+                                         device=flat.device)
+                if self._quantizing:
+                    u_rnd = prng.uniform(prng.fold_in(leaf_key, 1), flat.shape,
+                                         device=flat.device)
+                e_flat = None if e is None else e.reshape(flat.shape)
+                if self.wire_transport:
+                    specs.append(spec.stacked(m))
+                    chat, resid = encode_leaf(flat, e_flat, u_sel, u_rnd,
+                                              specs[-1],
+                                              use_kernel=self.use_kernel)
+                else:
+                    chat, resid = compress_leaf(
+                        flat, e_flat, u_sel, u_rnd, k=k, bits=self._bits,
+                        mode=self.mode, use_kernel=self.use_kernel,
+                    )
+                    chat = chat.reshape(c.shape)
+                chats.append(chat)
+                resids.append(None if e is None else resid.reshape(c.shape))
+            resid = unflatten(resids) if err is not None else None
+            if self.wire_transport:
+                out = PackedTree(chats, specs, unflatten,
+                                 [tuple(c.shape) for c in leaves],
+                                 use_kernel=self.use_kernel)
+            else:
+                out = unflatten(chats)
+            return out, resid
+
+        ex = state.get("ex") if self.error_feedback else None
+        ey = state.get("ey") if self.error_feedback else None
+        cx, ex = compress(cx, ex, 0)
+        cy, ey = compress(cy, ey, 1)
+        if self.error_feedback:
+            state["ex"], state["ey"] = ex, ey
+        return cx, cy, state
+
+    def rebase_state(self, state, active, prev_active=None):
+        raise not_ported("elastic re-anchoring (rebase_state)", "Queue 1 item 8")
+
+    def realign_state_rows(self, state, prev_ids, ids):
+        raise not_ported("sparse-layout re-anchoring (realign_state_rows)",
+                         "Queue 1 item 9")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedGT(_CorrectionCompressor):
+    """Gradient tracking with top-k / random-k sparsified corrections and
+    (optional) error feedback.
+
+    Each round the correction c_i = gbar - g_i is sparsified to a
+    `compression_ratio` fraction of its entries (exactly k per agent row,
+    earliest index winning ties) before the local steps; what is dropped
+    accumulates in a per-agent feedback buffer e_i and is re-injected the
+    next round.  compression_ratio >= 1 is the identity configuration:
+    the round is exactly GradientTracking."""
+
+    compression_ratio: float = 0.1
+    mode: str = "topk"  # "topk" | "randk"
+    error_feedback: bool = True
+    seed: int = 0
+    name = "compressed_gt"
+
+    @property
+    def _ratio(self) -> float:
+        return self.compression_ratio
+
+    def bytes_per_round(self, x, y, num_local_steps):
+        # up: sparsified grad + local model; down: sparsified global grad
+        # + averaged model (only the tracked-gradient exchange compresses)
+        dense = _payload_bytes((x, y))
+        return 2 * dense + 2 * _compressed_payload_bytes(
+            (x, y), self.compression_ratio, value_dtype=self.correction_dtype,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedGT(_CorrectionCompressor):
+    """Gradient tracking with QSGD-style stochastically quantized (and
+    optionally sparsified) corrections and error feedback.
+
+    The kept entries of each correction row map to a symmetric `bits`-bit
+    grid with the row's max-abs scale and round stochastically (floor +
+    Bernoulli(frac)), so E[Q(c)] = c; the quantization error joins the
+    sparsification residual in the feedback buffer.  `ratio` < 1 also
+    keeps only a top-k / rand-k fraction first.  bits >= 32 and ratio >= 1
+    is the identity configuration: the round is exactly GradientTracking."""
+
+    bits: int = 8
+    ratio: float = 1.0
+    mode: str = "topk"  # "topk" | "randk" (only used when ratio < 1)
+    error_feedback: bool = True
+    seed: int = 0
+    name = "quantized_gt"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.bits < 2:
+            raise ValueError(
+                f"quantization needs bits >= 2 (sign + magnitude), got {self.bits}"
+            )
+
+    @property
+    def _ratio(self) -> float:
+        return self.ratio
+
+    @property
+    def _bits(self) -> int:
+        return self.bits
+
+    def bytes_per_round(self, x, y, num_local_steps):
+        dense = _payload_bytes((x, y))
+        return 2 * dense + 2 * _compressed_payload_bytes(
+            (x, y), self.ratio, self.bits, value_dtype=self.correction_dtype,
+        )
+
+
 def _stochastic(kw) -> bool:
     """Whether the kwargs ask for a noise model (`fed/noise.py`
     `resolve_noise` of the reference: a model name or a nonzero scale)."""
@@ -119,6 +393,18 @@ def _stochastic(kw) -> bool:
         kw.get("noise") not in (None, "", "none")
         or bool(kw.get("noise_sigma"))
         or bool(kw.get("noise_fraction"))
+    )
+
+
+def _compressed(kw) -> dict:
+    """The knobs the compressed-correction aliases share."""
+    return dict(
+        mode=kw.get("compression_mode", "topk"),
+        error_feedback=kw.get("error_feedback", True),
+        correction_dtype=kw.get("correction_dtype"),
+        seed=kw.get("seed", 0),
+        use_kernel=kw.get("use_kernel", True),
+        wire_transport=kw.get("wire_transport", False),
     )
 
 
@@ -134,14 +420,20 @@ _ALIASES = {
     "gradient_tracking": lambda kw: GradientTracking(
         correction_dtype=kw.get("correction_dtype"),
     ),
+    "compressed_gt": lambda kw: CompressedGT(
+        compression_ratio=kw.get("compression_ratio", 0.1), **_compressed(kw),
+    ),
+    "quantized_gt": lambda kw: QuantizedGT(
+        bits=kw.get("quantization_bits", 8),
+        ratio=kw.get("compression_ratio", 1.0),
+        **_compressed(kw),
+    ),
 }
 
 #: families of the reference not ported yet -> their ROADMAP item
 _NOT_PORTED = {
     "partial_gt": "Queue 1 item 5",
     "partial_participation": "Queue 1 item 5",
-    "compressed_gt": "Queue 1 item 5",
-    "quantized_gt": "Queue 1 item 5",
     "sagda": "Queue 1 item 7",
     "local_sgda_plus": "Queue 1 item 7",
 }
@@ -152,14 +444,20 @@ def resolve_strategy(spec, **kwargs) -> CommStrategy:
 
     Ported names: "gda" / "sync_gda" / "full_sync", "local_sgda" /
     "local_only", "fedgda_gt" / "gradient_tracking" (kwarg
-    `correction_dtype`).  The reference's other names raise
-    NotImplementedError; unknown names raise ValueError."""
+    `correction_dtype`), "compressed_gt" (compression_ratio,
+    compression_mode, error_feedback, correction_dtype, seed, use_kernel,
+    wire_transport) and "quantized_gt" (the same plus quantization_bits;
+    compression_ratio defaults to 1).  The reference's other names, and
+    noise kwargs, raise NotImplementedError; unknown names raise
+    ValueError."""
     if isinstance(spec, CommStrategy):
         return spec
     if isinstance(spec, str) and spec in _NOT_PORTED:
         raise not_ported(f"strategy {spec!r}", _NOT_PORTED[spec])
     if spec in ("fedgda_gt", "gradient_tracking") and _stochastic(kwargs):
         raise not_ported("stochastic gradient tracking", "Queue 1 item 7")
+    if spec in ("compressed_gt", "quantized_gt") and _stochastic(kwargs):
+        raise not_ported(f"stochastic {spec}", "Queue 1 item 7")
     try:
         factory = _ALIASES[spec]
     except (KeyError, TypeError):

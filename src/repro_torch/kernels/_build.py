@@ -3,10 +3,10 @@
 Each `csrc/<name>.cu` holds a plain `extern "C"` launcher and compiles
 into its own shared library (no PyTorch headers, so a build takes
 seconds).  Libraries land in `build/torch_kernels/` at the root of the
-checkout, keyed by a hash of the source and the flags, and are built at
-first use: a fresh checkout builds everything it runs.  `build()` starts
-one nvcc per source, all at once, and waits for them together.  A failed
-build raises with nvcc's output.
+checkout, keyed by a hash of the source, the shared headers and the
+flags, and are built at first use: a fresh checkout builds everything it
+runs.  `build()` starts one nvcc per source, all at once, and waits for
+them together.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -48,9 +48,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives (its file name
-    carries a hash of the source and the flags)."""
+    carries a hash of the source, the shared `*.cuh` headers and the
+    flags)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,11 +1,24 @@
-"""Pytree wrappers around the port's kernels (port of
-`repro/kernels/ops.py`)."""
+"""Public wrappers around the port's kernels (port of
+`repro/kernels/ops.py`): the pytree `update_fn` over `gt_update`, and the
+compressed-correction and wire-payload kernels the strategies call leaf
+by leaf (`compress_correction_2d`, `pack_payload_2d`,
+`unpack_payload_2d`)."""
 from __future__ import annotations
 
 from typing import Any, Callable
 
 from ..core.types import tree_map
+from .compress_correction import compress_correction_2d, compress_leaf
 from .gt_update import gt_update
+from .pack_payload import pack_payload_2d, unpack_payload_2d
+
+__all__ = [
+    "compress_correction_2d",
+    "compress_leaf",
+    "make_gt_update_fn",
+    "pack_payload_2d",
+    "unpack_payload_2d",
+]
 
 Pytree = Any
 

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels on the card, held against their plain versions.
+"""The port's CUDA kernels on the card, held against their plain versions
+(`gt_update`, `compress_correction_2d`, `pack_payload_2d`,
+`unpack_payload_2d`, bit for bit), and rounds through them against rounds
+through the plain versions.
 
 Every test here needs a CUDA card and skips without one (a skip is not a
 pass).  The file imports torch and the port only — no JAX — so it runs on
@@ -6,12 +9,21 @@ a machine without JAX, without the repository's JAX conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import itertools
+
 import pytest
 import torch
 
 from repro_torch import core
-from repro_torch.fed import GradientTracking
-from repro_torch.kernels import gt_update, ref
+from repro_torch.fed import CompressedGT, GradientTracking, PackedTree, QuantizedGT
+from repro_torch.kernels import (
+    compress_correction_2d,
+    gt_update,
+    pack_payload_2d,
+    ref,
+    unpack_payload_2d,
+)
+from repro_torch.kernels.compress_correction import staged_in_shared_memory
 from repro_torch.problems import make_quadratic_problem
 
 pytestmark = pytest.mark.torch
@@ -130,3 +142,178 @@ def test_cuda_engine_uses_the_kernel_by_default(cuda_device):
     core.make_round(prob.loss, GradientTracking(), 3, 1e-4)(x, x, prob.agent_data)
     # m == 1: no fused anchor step, every local step is an update
     assert gt_update.launches == 3 * 2
+
+
+# ------------------------------------------- compressed-correction kernels
+IVIEW = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+ENCODINGS = ["quant", "quant_dense", "sparse", "dense"]
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN payloads included)."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(IVIEW[a.element_size()]),
+        b.contiguous().view(IVIEW[b.element_size()])))
+
+
+def _leaf(dev, R, C, dt, feedback, seed, nan_every=0, udt=torch.float64):
+    """c with a row of ties and an all-zero row, feedback, uniforms."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 50.0 if dt == "fp8" else 100.0
+    c = torch.randn(R, C, generator=gen, device=dev, dtype=torch.float64) * scale
+    c[0, : min(5, C)] = 3.0
+    if R > 1:
+        c[1] = 0.0
+    if nan_every:
+        c[-1, ::nan_every] = float("nan")
+    c = ref.cast_to(c, DT[dt])
+    e = None
+    if feedback:
+        e = torch.randn(R, C, generator=gen, device=dev, dtype=torch.float64)
+        e = ref.cast_to(e * scale * 0.1, DT[dt])
+    us = torch.rand(R, C, generator=gen, device=dev, dtype=torch.float64).to(udt)
+    ur = torch.rand(R, C, generator=gen, device=dev, dtype=torch.float64).to(udt)
+    return c, e, us, ur
+
+
+def _check_compress(c, e, us, ur, k, bits, mode):
+    got = compress_correction_2d(c, e, us, ur, k=k, bits=bits, mode=mode)
+    want = ref.compress_correction_ref(c, e, us, ur, k=k, bits=bits, mode=mode)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("chat", "resid")):
+        assert _same(g, w), f"{name} k={k}"
+
+
+def _check_pack(c, e, us, ur, k, bits, mode, encoding, idx_dtype):
+    kw = dict(k=k, bits=bits, mode=mode, encoding=encoding, index_dtype=idx_dtype)
+    got = pack_payload_2d(c, e, us, ur, **kw)
+    want = ref.pack_payload_ref(c, e, us, ur, **kw)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("data", "idx", "scale", "resid")):
+        assert _same(g, w), f"{name} {encoding} k={k}"
+    dk = dict(cols=c.shape[1], dtype=c.dtype, k=k, bits=bits, encoding=encoding)
+    out = unpack_payload_2d(*want[:3], **dk)
+    assert _same(out, ref.decode_payload_ref(*want[:3], **dk)), f"unpack {encoding}"
+
+
+@pytest.mark.parametrize("feedback", [True, False], ids=["ef", "noef"])
+@pytest.mark.parametrize("bits", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_compress_correction_bitwise_equals_plain(cuda_device, dt, mode,
+                                                       bits, feedback):
+    for (R, C), seed in zip([(16, 4096), (3, 1000), (2, 37)], itertools.count()):
+        c, e, us, ur = _leaf(cuda_device, R, C, dt, feedback, seed)
+        for k in sorted({1, max(1, C // 10), max(1, C // 2), C}):
+            _check_compress(c, e, us, ur, k, bits, mode)
+
+
+#: bit-packing needs bits < 32
+PACK_CASES = [(enc, bits) for enc in ENCODINGS for bits in (2, 4, 8, 16, 32)
+              if bits < 32 or not enc.startswith("quant")]
+
+
+@pytest.mark.parametrize("encoding,bits", PACK_CASES, ids=str)
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_pack_and_unpack_bitwise_equal_plain(cuda_device, dt, encoding, bits):
+    for (R, C), mode in itertools.product([(16, 4096), (3, 1000), (2, 37)],
+                                          ["topk", "randk"]):
+        c, e, us, ur = _leaf(cuda_device, R, C, dt, True, R + C)
+        for j, k in enumerate(sorted({1, max(1, C // 4), C})):
+            idx_dtype = (torch.int32, torch.uint16)[j % 2]
+            _check_pack(c, e, us, ur, k, bits, mode, encoding, idx_dtype)
+
+
+@pytest.mark.parametrize("case", [("f64", "randk", 4, 16000), ("f32", "topk", 2, 60000)],
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[3]}")
+def test_cuda_rows_longer_than_shared_memory_stream(cuda_device, case):
+    dt, mode, R, C = case
+    assert not staged_in_shared_memory(C, DT[dt], mode == "randk")
+    assert staged_in_shared_memory(4096, DT[dt], mode == "randk")
+    c, e, us, ur = _leaf(cuda_device, R, C, dt, True, 7)
+    for bits in (4, 32):
+        _check_compress(c, e, us, ur, C // 4, bits, mode)
+        for enc in (["quant", "quant_dense"] if bits < 32 else []) + ["sparse", "dense"]:
+            _check_pack(c, e, us, ur, C // 4, bits, mode, enc, torch.int32)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16"])
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+def test_cuda_nan_rows_and_f32_uniforms(cuda_device, dt, mode):
+    """Rows with NaN keep what the plain version keeps (NaN ranks above
+    every score and compares false), and pad their payload the same way;
+    f32 uniforms are taken as well as f64."""
+    for udt in (torch.float64, torch.float32):
+        c, e, us, ur = _leaf(cuda_device, 3, 1000, dt, True, 3, nan_every=3, udt=udt)
+        for k in (250, 500):
+            for bits in (8, 32):
+                _check_compress(c, e, us, ur, k, bits, mode)
+            for enc in ENCODINGS:
+                _check_pack(c, e, us, ur, k, 8, mode, enc, torch.int32)
+
+
+def test_cuda_compress_kernels_count_launches_and_raise(cuda_device):
+    c, e, us, ur = _leaf(cuda_device, 4, 256, "f32", True, 1)
+    compress_correction_2d.launches = pack_payload_2d.launches = 0
+    unpack_payload_2d.launches = 0
+    compress_correction_2d(c, e, us, ur, k=8, bits=8)
+    data, idx, scale, _ = pack_payload_2d(c, e, us, ur, k=8, bits=8)
+    unpack_payload_2d(data, idx, scale, cols=256, dtype=c.dtype, k=8, bits=8)
+    assert (compress_correction_2d.launches, pack_payload_2d.launches,
+            unpack_payload_2d.launches) == (1, 1, 1)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        compress_correction_2d(c.half(), None, None, ur, k=8, bits=8)
+    with pytest.raises(ValueError, match="different devices"):
+        compress_correction_2d(c, e.cpu(), None, ur, k=8, bits=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        compress_correction_2d(c.t().contiguous().t(), None, None, None, k=8)
+    with pytest.raises(ValueError, match="different devices"):
+        unpack_payload_2d(data, idx.cpu(), scale, cols=256, dtype=c.dtype, k=8, bits=8)
+    assert (compress_correction_2d.launches, pack_payload_2d.launches,
+            unpack_payload_2d.launches) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("mk", [
+    lambda w, u: CompressedGT(compression_ratio=0.1, wire_transport=w, use_kernel=u),
+    lambda w, u: CompressedGT(compression_ratio=0.25, mode="randk",
+                              wire_transport=w, use_kernel=u),
+    lambda w, u: QuantizedGT(bits=8, ratio=0.25, wire_transport=w, use_kernel=u),
+    lambda w, u: QuantizedGT(bits=4, wire_transport=w, use_kernel=u),
+], ids=["cgt_topk", "cgt_randk", "qgt8_topk", "qgt4_dense"])
+@pytest.mark.parametrize("wire", [False, True], ids=["dense", "wire"])
+def test_cuda_compressed_rounds_through_kernels_equal_plain(cuda_device, mk, wire):
+    """Rounds with use_kernel=True equal those with use_kernel=False bit
+    for bit, state included, and launch each kernel once per leaf per
+    side per round."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    prob = make_quadratic_problem(gen, dim=64, num_samples=128, num_agents=8,
+                                  device=cuda_device)
+    rounds, K = 4, 5
+    out = {}
+    for use in (True, False):
+        s = mk(wire, use)
+        rnd = core.make_round(prob.loss, s, K, 1e-4, explicit_state=True)
+        x0 = torch.zeros(64, dtype=torch.float64, device=cuda_device)
+        compress_correction_2d.launches = pack_payload_2d.launches = 0
+        unpack_payload_2d.launches = 0
+        (x, y, st), _ = core.run_strategy_rounds(
+            rnd, x0, x0, prob.agent_data, rounds, s.init_state(x0, x0, 8))
+        out[use] = (x, y, st, compress_correction_2d.launches,
+                    pack_payload_2d.launches, unpack_payload_2d.launches)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    for key in out[True][2]:
+        assert torch.equal(out[True][2][key].cpu(), out[False][2][key].cpu())
+    want = (0, 2 * rounds, 2 * rounds) if wire else (2 * rounds, 0, 0)
+    assert out[True][3:] == want
+    assert out[False][3:] == (0, 0, 0)
+
+
+def test_cuda_wire_transform_returns_packed_trees(cuda_device):
+    s = QuantizedGT(bits=8, ratio=0.25, wire_transport=True)
+    c = torch.randn(4, 4096, dtype=torch.float64, device=cuda_device)
+    st = s.init_state(c[0], c[0], 4)
+    px, py, _ = s.transform_correction(c, c, st)
+    assert isinstance(px, PackedTree)
+    assert px.payloads[0].indices.dtype == torch.uint16
+    assert px.wire_bytes() == px.specs[0].wire_bytes()
