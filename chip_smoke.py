@@ -6,11 +6,13 @@
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain PyTorch
 version on the card, then drives the port's main paths: FedGDA-GT rounds
-(Algorithm 2) with the hand-written `gt_update` kernel, and the
+(Algorithm 2) with the hand-written `gt_update` kernel, the
 communication-efficient rounds (CompressedGT / QuantizedGT, the packed
 wire transport) with the `compress_correction`, `pack_payload` and
 `unpack_payload` kernels, on the paper's problems and at a width where the
-card does real work.  Every phase prints one JSON line; any failed check
+card does real work, and the serving path of zamba2-7b at full width
+(`python -m repro_torch.launch.serve`) with the `flash_attention` and
+`ssm_scan` kernels.  Every phase prints one JSON line; any failed check
 exits non-zero without the final line.  The last two lines are the card's
 `nvidia-smi` name and power limit, then
 
@@ -28,6 +30,21 @@ Phases:
              rows longer than shared memory and rows with NaN; times at
              [16, 4096] f64 and [16384, 4096] f32 against the HBM bound
              and `torch.topk` of |c + e| (the library yardstick)
+  flash_attention
+             kernel vs plain version (tolerance 1e-5 in f32; in bf16 one
+             rounding, 2^-7 of the largest |output|) at
+             the serving shape [4, 32, 512, 112] f32 causal, gemma2-2b's
+             local layer (H=8, KV=4, hd=256, S=8192, window 4096, softcap
+             50) in f32 and bf16, a ragged S=1000 and a non-causal grouped
+             Sq=256 < Skv=1024; times against the larger of the bytes and
+             the operations bound (at the peak rate of the inputs' type:
+             f32 outside the tensor cores, bf16 on them), and SDPA where
+             one call computes the same function
+  ssm_scan   kernel vs plain version (y and final state, tolerance 1e-4) at
+             the serving shape (B=4, S=512, D=7168, N=64, Mamba-2's
+             per-head decay unexpanded), a Mamba-1 shape (S=2048, D=8192,
+             N=16, full decay), ragged sizes and a non-zero state0; times
+             against the bytes bound
   theorem1   d=20, m=8, K=10, eta=2e-4, 1000 rounds through the kernel in
              f64 on the committed JAX fixture: final gap < 1e-18, steady
              linear rate, per-round gaps within rtol 1e-5 of JAX's
@@ -58,6 +75,24 @@ Phases:
              moves exactly the LeafSpec price
   compressed_profile
              device time by kernel over one round of (b)
+  serve      zamba2-7b at full width and depth in f32 (6.48 B parameters):
+             seed 0, batch 4, prompt 512, 32 tokens (a prefill and 31
+             greedy decode steps) through `repro_torch.launch.serve`, then
+             the same prompts and tokens teacher-forced through the plain
+             versions: every logit finite; exactly 13 flash_attention and
+             81 ssm_scan launches per prefill and none in decode.  The
+             random 81-layer model amplifies f32-level differences ~1e4
+             times (so does JAX's at 81 layers: tests/test_torch_models.py
+             test_full_depth_zamba2_matches_jax_within_its_own_sensitivity),
+             so at full depth the kernels' logits may differ from the
+             plain path's by no more than the plain path's own differ
+             when the embeddings are perturbed by 1e-6 (relative), the
+             least over three perturbation seeds; at full width cut to 6
+             layers (one shared block) they agree within 1e-4 of max
+             |logit|
+  serve_profile
+             device time by kernel over one prefill and one decode step,
+             and the device's busy share of each
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes)
@@ -88,7 +123,28 @@ COMPRESSED_ROUNDS = {"thm1": 300, "quad6": 1000}  # of 500 and 1500
 #: f32 operand
 LARGE = (16384, 4096)
 #: the CUDA sources the port builds (src/repro_torch/kernels/csrc/<name>.cu)
-KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload")
+KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload",
+                  "flash_attention", "ssm_scan")
+#: H100 SXM dense peak rates by input type (data sheet): f32 outside the
+#: tensor cores, bf16 on them; the bound of the model kernels' operations
+PEAK_FLOPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+#: the model kernels against their plain versions: f32 sums taken in
+#: another order (rtol = atol); both compute a bf16 case in f32 and round
+#: once, so a bf16 output may differ by one unit in the last place, at
+#: most 2^-7 of the largest |output|
+FLASH_TOL_F32 = 1e-5
+FLASH_REL_BF16 = 2.0 ** -7
+SCAN_TOL = 1e-4
+#: the serving path's logits against the plain path's, relative to the
+#: largest |logit|, at full width cut to 6 layers.  At all 81 layers the
+#: randomly initialised model amplifies f32-level differences ~1e4-fold
+#: (a 1e-6 perturbation of the embeddings reaches 1e-2 of max |logit|),
+#: so there the kernels are held to what such a perturbation does
+SERVE_CUT_TOL = 1e-4
+PERTURB_REL = 1e-6
+PERTURB_SEEDS = (2, 3, 4)
+#: the serve phase's run of `python -m repro_torch.launch.serve`
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "zamba2-7b", 4, 512, 32
 
 
 def emit(obj) -> None:
@@ -466,23 +522,312 @@ def phase_unpack_payload(torch, card: str, shared: dict) -> dict:
     return {"cases_bitwise": n, "timing": timing}
 
 
-def kernel_counts() -> dict:
-    from repro_torch.kernels import (
-        compress_correction_2d, gt_update, pack_payload_2d, unpack_payload_2d)
+def _kernel_fns() -> dict:
+    from repro_torch import kernels
 
-    return {"gt_update": gt_update.launches,
-            "compress_correction": compress_correction_2d.launches,
-            "pack_payload": pack_payload_2d.launches,
-            "unpack_payload": unpack_payload_2d.launches}
+    return {"gt_update": kernels.gt_update,
+            "compress_correction": kernels.compress_correction_2d,
+            "pack_payload": kernels.pack_payload_2d,
+            "unpack_payload": kernels.unpack_payload_2d,
+            "flash_attention": kernels.flash_attention,
+            "ssm_scan": kernels.ssm_scan}
+
+
+def kernel_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import (
-        compress_correction_2d, gt_update, pack_payload_2d, unpack_payload_2d)
-
-    for fn in (gt_update, compress_correction_2d, pack_payload_2d,
-               unpack_payload_2d):
+    for fn in _kernel_fns().values():
         fn.launches = 0
+
+
+# ------------------------------------------------- the model kernels
+def attention_pairs(np, Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep (tile-index positions): the work
+    this run's data needs."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_cases(torch):
+    """(tag, B, H, KV, Sq, Skv, hd, dtype, causal, window, softcap): the
+    serving shape first (zamba2-7b's shared block at prefill), gemma2-2b's
+    local layer at 8k in f32 and bf16, a ragged length and a non-causal
+    grouped Sq < Skv."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("serve_zamba2", 4, 32, 32, 512, 512, 112, f32, True, 0, 0.0),
+        ("gemma2_local_f32", 1, 8, 4, 8192, 8192, 256, f32, True, 4096, 50.0),
+        ("gemma2_local_bf16", 1, 8, 4, 8192, 8192, 256, bf16, True, 4096, 50.0),
+        ("ragged_1000", 2, 16, 16, 1000, 1000, 112, f32, True, 0, 0.0),
+        ("noncausal_gqa", 2, 8, 2, 256, 1024, 64, f32, False, 0, 0.0),
+    ]
+
+
+def phase_flash_attention(torch, np, card: str, shared: dict) -> dict:
+    """The flash kernel against its plain version on the card, timed with
+    CUDA events against its bound and SDPA (the library yardstick, where
+    one call computes the same function)."""
+    from repro_torch.kernels import flash_attention, ref
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    out = {}
+    for tag, B, H, KV, Sq, Skv, hd, dt, causal, window, cap in flash_cases(torch):
+        q = torch.randn(B, H, Sq, hd, generator=gen, device=DEVICE).to(dt)
+        k = torch.randn(B, KV, Skv, hd, generator=gen, device=DEVICE).to(dt)
+        v = torch.randn(B, KV, Skv, hd, generator=gen, device=DEVICE).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), f"flash_attention {tag}: non-finite")
+        if dt == torch.bfloat16:
+            tol = FLASH_REL_BF16 * float(want.float().abs().max())
+            within = err <= tol
+        else:
+            tol = FLASH_TOL_F32
+            within = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+        check(within, f"flash_attention {tag}: max |err| {err:.3e} beyond {tol:.3e}")
+        del got, want
+        library, why = None, "null: the softcap and the window have no SDPA argument"
+        if cap == 0.0 and window == 0:
+            sdpa_kw = dict(is_causal=causal, enable_gqa=KV != H)
+            library = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)
+            why = (f"torch.nn.functional.scaled_dot_product_attention("
+                   f"is_causal={causal}, enable_gqa={KV != H})")
+        moved = nbytes(q, k, v) + q.numel() * q.element_size()  # out = q's size
+        flops = 4 * hd * B * H * attention_pairs(np, Sq, Skv, causal, window)
+        t = time_case(torch, lambda: flash_attention(q, k, v, **kw),
+                      lambda: ref.flash_attention_ref(q, k, v, **kw), library,
+                      moved, reps=10, plain_reps=3, card=card)
+        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S[str(dt)]))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t.update(tag=tag, shape={"B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv,
+                                 "hd": hd},
+                 dtypes=[str(dt)], causal=causal, window=window, softcap=cap,
+                 max_abs_err=err, tolerance=tol, peak_flops_per_s=PEAK_FLOPS_PER_S[str(dt)],
+                 library=why)
+        out[tag] = t
+        del q, k, v
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["flash_attention"] = out
+    return out
+
+
+def ssm_cases():
+    """(tag, B, S, H, P, N, decay, state0): the serving shape first
+    (zamba2-7b's Mamba-2 at prefill, per-head decay [B, S, H, 1, 1]), a
+    Mamba-1 shape (falcon-mamba-7b's d_inner and N, full decay), ragged
+    sizes, and a non-zero state0."""
+    return [
+        ("serve_zamba2", 4, 512, 112, 64, 64, "head", False),
+        ("mamba1_falcon", 1, 2048, 8192, 1, 16, "full", False),
+        ("ragged", 3, 333, 101, 7, 50, "head", False),
+        ("state0", 2, 256, 56, 64, 64, "head", True),
+    ]
+
+
+def phase_ssm_scan(torch, card: str, shared: dict) -> dict:
+    """The scan kernel against its plain version (y and the final state),
+    timed against the bytes bound; no single PyTorch call computes it."""
+    from repro_torch.kernels import ref, ssm_scan
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    out = {}
+    for tag, B, S, H, P, N, decay, with_state in ssm_cases():
+        da_shape = (B, S, H, 1, 1) if decay == "head" else (B, S, H, P, N)
+        da = torch.sigmoid(torch.randn(*da_shape, generator=gen, device=DEVICE))
+        dbx = 0.1 * torch.randn(B, S, H, P, N, generator=gen, device=DEVICE)
+        c = torch.randn(B, S, N, generator=gen, device=DEVICE)
+        s0 = (torch.randn(B, H, P, N, generator=gen, device=DEVICE)
+              if with_state else None)
+        y, st = ssm_scan(da, dbx, c, s0)
+        want_y, want_st = ref.ssm_scan_ref(da.expand(dbx.shape), dbx, c, s0)
+        torch.cuda.synchronize()
+        err = max(float((y - want_y).abs().max()), float((st - want_st).abs().max()))
+        ok = all(bool(torch.allclose(a, b, rtol=SCAN_TOL, atol=SCAN_TOL))
+                 for a, b in ((y, want_y), (st, want_st)))
+        check(ok, f"ssm_scan {tag}: max |err| {err:.3e} beyond {SCAN_TOL}")
+        del want_y, want_st
+        moved = nbytes(da, dbx, c, s0, y, st)
+        flops = 4 * B * S * H * P * N
+        t = time_case(torch, lambda: ssm_scan(da, dbx, c, s0),
+                      lambda: ref.ssm_scan_ref(da.expand(dbx.shape), dbx, c, s0),
+                      None, moved, reps=10, plain_reps=1, card=card)
+        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S["torch.float32"]))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t.update(tag=tag, shape={"B": B, "S": S, "H": H, "P": P, "N": N},
+                 da_shape=list(da_shape), dtypes=["torch.float32"],
+                 state0=with_state, max_abs_err=err, tolerance=SCAN_TOL,
+                 library="null: no single PyTorch call computes the scan")
+        out[tag] = t
+        del da, dbx, c, s0, y, st
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["ssm_scan"] = out
+    return out
+
+
+def bound_from(moved: int, flops: int, flops_per_s: float) -> dict:
+    """The least time for the work: the larger of the bytes over the HBM
+    rate and the operations over the peak rate of their type."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / flops_per_s * 1e3
+    return {"flops": flops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
+def phase_serve(torch, card: str, shared: dict) -> dict:
+    """zamba2-7b at full width and depth in f32 through the serving entry
+    point (seed 0, batch 4, prompt 512, 32 tokens), then the same prompts
+    and tokens, teacher-forced, through the plain versions on the same
+    parameters."""
+    from repro_torch.launch import serve
+    from repro_torch.models import ModelParams, init_caches
+
+    batch, prompt, n = SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    argv = ["--arch", SERVE_ARCH, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--decode-tokens", str(n), "--seed", "0"]
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    cfg, params = res["cfg"], res["params"]
+    check(res["device"].startswith(DEVICE), f"serve ran on {res['device']}")
+    want_prefill = {"flash_attention": 13, "ssm_scan": 81}
+    check(want_prefill == {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
+                           "ssm_scan": cfg.num_layers},
+          f"serve: {cfg.name}'s layout")
+    check(res["launches"]["prefill"] == want_prefill,
+          f"serve: prefill launched {res['launches']['prefill']}")
+    check(res["launches"]["decode"] == {"flash_attention": 0, "ssm_scan": 0},
+          f"serve: decode launched {res['launches']['decode']}")
+    check({k: launches[k] for k in want_prefill} == want_prefill
+          and all(launches[k] == 0 for k in launches if k not in want_prefill),
+          f"serve: launches over the run {launches}")
+    got = res["step_logits"]
+    finite = bool(torch.isfinite(got).all())
+    check(finite, "serve: non-finite logits through the kernels")
+
+    def teacher_forced(model, model_cfg, use_kernel):
+        caches = init_caches(model_cfg, batch, prompt + n, torch.float32, DEVICE)
+        return serve.generate(model, model_cfg, res["prompts"], caches, n,
+                              use_kernel=use_kernel, forced=res["tokens"])
+
+    def rel_err(a, b):
+        scale = float(b.abs().max())
+        return (float((a - b).abs().max()) / scale,
+                ((a - b).abs().amax(dim=(0, 2)) / scale).tolist())
+
+    # the same tokens through the plain versions, at full depth
+    plain = teacher_forced(params, cfg, False)
+    want = plain["step_logits"]
+    check(bool(torch.isfinite(want).all()), "serve: non-finite plain logits")
+    rel, rel_by_step = rel_err(got, want)
+    # how far f32-level noise carries at full depth: the plain path again,
+    # every embedding entry scaled by (1 + 1e-6 z), for a few draws of z;
+    # the kernels (each within ~1e-6 of its plain version) may move the
+    # logits no further than the least of them
+    rel_pert, rel_pert_by_step = [], []
+    for seed in PERTURB_SEEDS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        with torch.inference_mode():
+            noisy = params.embed * (1 + PERTURB_REL * torch.randn(
+                params.embed.shape, generator=gen, device=DEVICE))
+        perturbed = teacher_forced(
+            ModelParams(cfg, list(params.layers), params.final_norm, noisy,
+                        params.shared_attn), cfg, False)
+        del noisy
+        r, by_step = rel_err(perturbed["step_logits"], want)
+        rel_pert.append(r)
+        rel_pert_by_step.append(by_step)
+        del perturbed
+    check(rel <= min(rel_pert), f"serve: kernels move the logits by {rel:.3e} of "
+          f"max |logit|, more than a {PERTURB_REL} input perturbation "
+          f"({min(rel_pert):.3e}, the least of {len(rel_pert)})")
+    # full width cut to one period of the shared block (6 layers), where
+    # the noise has not grown: kernels against plain within SERVE_CUT_TOL
+    cut_cfg = dataclasses.replace(cfg, num_layers=cfg.shared_attn_every)
+    cut = ModelParams(cut_cfg, list(params.layers[:cut_cfg.num_layers]),
+                      params.final_norm, params.embed, params.shared_attn)
+    cut_k, cut_p = teacher_forced(cut, cut_cfg, True), teacher_forced(cut, cut_cfg, False)
+    rel_cut, rel_cut_by_step = rel_err(cut_k["step_logits"], cut_p["step_logits"])
+    check(rel_cut <= SERVE_CUT_TOL, f"serve, {cut_cfg.num_layers} layers: logits "
+          f"differ from the plain path by {rel_cut:.3e} of max |logit|")
+    want_cut = {"flash_attention": 1, "ssm_scan": cut_cfg.num_layers}
+    check(cut_k["launches"]["prefill"] == want_cut,
+          f"serve, {cut_cfg.num_layers} layers: prefill launched "
+          f"{cut_k['launches']['prefill']}")
+    same_argmax = float((want.argmax(-1) == res["tokens"]).float().mean())
+    shared["serve"] = res
+    shared["serve_launches"] = launches
+    return {
+        "arch": cfg.name, "batch": batch, "prompt_len": prompt,
+        "decode_tokens": n, "decode_steps": res["decode_steps"], "dtype": "f32",
+        "num_params": res["num_params"],
+        "prefill_ms": res["prefill_ms"],
+        "decode_ms_per_step": res["decode_ms_per_step"],
+        "decode_tokens_per_s": res["decode_tokens_per_s"],
+        "plain_prefill_ms": plain["prefill_ms"],
+        "plain_decode_ms_per_step": plain["decode_ms_per_step"],
+        "peak_memory_bytes": res["peak_memory_bytes"],
+        "memory_before_serve_bytes": baseline,
+        "launches_per_prefill": res["launches"]["prefill"],
+        "launches_over_decode": res["launches"]["decode"],
+        "launches_over_run": launches,
+        "logits_finite": finite, "max_abs_logit": float(want.abs().max()),
+        "rel_err_vs_plain": rel, "rel_err_vs_plain_by_step": rel_by_step,
+        "perturbation_rel": PERTURB_REL, "perturbation_seeds": list(PERTURB_SEEDS),
+        "rel_err_perturbed_plain": rel_pert,
+        "rel_err_perturbed_plain_by_step": rel_pert_by_step,
+        "cut_layers": cut_cfg.num_layers, "cut_rel_err_vs_plain": rel_cut,
+        "cut_rel_err_by_step": rel_cut_by_step, "cut_tolerance_rel": SERVE_CUT_TOL,
+        "cut_launches_per_prefill": cut_k["launches"]["prefill"],
+        "plain_argmax_equals_tokens": same_argmax,
+        "sample": res["tokens"][0].tolist(), "card": card,
+    }
+
+
+def phase_serve_profile(torch, shared: dict) -> dict:
+    """Device time by kernel over one full-width prefill and one decode
+    step (torch.profiler), and the device's busy share of each."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches
+
+    res = shared["serve"]
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    names = {"flash_attention": "flash_kernel", "ssm_scan": "ssm_scan_kernel",
+             "gemm": "gemm"}
+    state = {}
+
+    def run_prefill(caches):  # empty caches, as prefill requires
+        with torch.inference_mode():
+            logits, state["caches"] = serve.prefill(params, cfg, prompts, caches)
+            state["tok"] = logits[:, -1].argmax(-1)[:, None]
+
+    def empty_caches():
+        return init_caches(cfg, prompts.shape[0], prompts.shape[1] + 2,
+                           torch.float32, DEVICE)
+
+    def run_decode():
+        with torch.inference_mode():
+            serve.decode(params, cfg, state["caches"], state["tok"],
+                         prompts.shape[1])
+
+    run_prefill(empty_caches())  # warm
+    caches = empty_caches()
+    out = {"prefill": profile_round(torch, lambda: run_prefill(caches), names)}
+    out["decode_step"] = profile_round(torch, run_decode, names)
+    return out
 
 
 def parting_round(np, got, want, rtol: float):
@@ -921,7 +1266,8 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
         # no single PyTorch call computes z + s*(g + c)
         "library_ms": None, "library": "null: no single PyTorch call computes "
                                        "z + s*(g + c)", "card": card,
-    }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS]
+    }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS] + [
+        model_entry(name, shared, card) for name in MODEL_KERNELS]
 
 
 def compressed_entry(name: str, shared: dict, card: str) -> dict:
@@ -938,6 +1284,33 @@ def compressed_entry(name: str, shared: dict, card: str) -> dict:
         "dtypes": [t["dtype"]], "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
         "library_ms": t["library_ms"], "library": library, "card": card,
+    }
+
+
+#: the model kernels: (source, TPU kernel it replaces); their launches
+#: come from the serve run, their times from their phase's serving shape
+MODEL_KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:75"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:40"),
+}
+
+
+def model_entry(name: str, shared: dict, card: str) -> dict:
+    """The kernels-line entry of a model kernel: its launches on the serve
+    run (zamba2-7b, one prefill and 31 decode steps), its error and times
+    at the serving shape, measured in its own phase."""
+    source, replaces = MODEL_KERNELS[name]
+    t = shared["timing"][name]["serve_zamba2"]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": shared["serve_launches"][name],
+        "max_abs_err": t["max_abs_err"], "tolerance": t["tolerance"],
+        "shape": t["shape"], "dtypes": t["dtypes"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": t["library"], "card": card,
     }
 
 
@@ -993,6 +1366,8 @@ def main() -> int:
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
     if "payloads" in shared:
         run("unpack_payload", lambda: phase_unpack_payload(torch, card, shared))
+    run("flash_attention", lambda: phase_flash_attention(torch, np, card, shared))
+    run("ssm_scan", lambda: phase_ssm_scan(torch, card, shared))
     run("theorem1", lambda: phase_theorem1(torch, np, fix))
     run("sec51", lambda: phase_sec51(torch, np, fix))
     run("prop1", lambda: phase_prop1(torch))
@@ -1006,11 +1381,19 @@ def main() -> int:
         if compressed is not None:
             shared["compressed"] = compressed
             run("compressed_profile", lambda: phase_compressed_profile(torch, shared))
-        if compressed is not None and len(shared.get("timing", {})) == 3:
-            kernels = run("kernels", lambda: kernel_entries(
-                torch, shared["launches"], shared["state"], card, shared))
-            if kernels is not None:
-                emit({"kernels": kernels})
+        for key in ("problem", "data", "round", "compressed_round"):  # G: 2.1 GB
+            shared.pop(key, None)
+    served = run("serve", lambda: phase_serve(torch, card, shared))
+    if served is not None:
+        run("serve_profile", lambda: phase_serve_profile(torch, shared))
+        del shared["serve"]  # the parameters (26 GB)
+        torch.cuda.empty_cache()
+    if ("state" in shared and "compressed" in shared and served is not None
+            and len(shared.get("timing", {})) == 5):
+        kernels = run("kernels", lambda: kernel_entries(
+            torch, shared["launches"], shared["state"], card, shared))
+        if kernels is not None:
+            emit({"kernels": kernels})
     emit({"phase": "total", "ok": ok, "s": time.perf_counter() - t_start})
     if not ok:
         return 1

@@ -12,11 +12,14 @@ Local SGDA / FedGDA-GT constructors, the Proposition 1 fixed-point
 tools), `fed.strategies` (FullSync, LocalOnly, GradientTracking, and the
 communication-efficient CompressedGT / QuantizedGT), `fed.transport` (the
 packed wire format), `prng` (JAX's threefry keys and uniforms, bit for
-bit), `problems` (Sec 5.1 quadratic, Appendix C toy), `kernels` (the
-hand-written CUDA `gt_update`, `compress_correction_2d`,
-`pack_payload_2d` and `unpack_payload_2d`) and `convert` (state from the
-JAX package, as numpy).  Everything else raises NotImplementedError
-naming its ROADMAP queue item.
+bit), `problems` (Sec 5.1 quadratic, Appendix C toy), `configs` (the ten
+architectures), `models` (the forward path of the dense, local-attention,
+Mamba-1, Mamba-2 and zamba2 hybrid kinds, text frontend, KV/SSM caches),
+`launch.serve` (prefill and greedy decode), `kernels` (the hand-written
+CUDA `gt_update`, `compress_correction_2d`, `pack_payload_2d`,
+`unpack_payload_2d`, `flash_attention` and `ssm_scan`) and `convert`
+(state and model weights from the JAX package, as numpy).  Everything
+else raises NotImplementedError naming its ROADMAP queue item.
 """
 from .device import resolve_device
 

@@ -85,3 +85,28 @@ def strategy_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
         else:
             out[name] = tree_from_numpy(value, device)
     return out
+
+
+def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
+                            dtype: Optional[torch.dtype] = None):
+    """The JAX package's model parameters (`jax.tree.map(np.asarray,
+    params)` of `repro.models.init_params`) as the port's `ModelParams` on
+    `device` (default CUDA).  JAX stacks each pattern slot's layers
+    ([n_per, ...] under "blocks/{j}_{kind}"); layer gi of the port is
+    period gi // len(pattern) of slot gi % len(pattern)."""
+    from .models.transformer import ModelParams
+
+    device = resolve_device(device)
+    per = len(cfg.pattern)
+    layers = []
+    for gi, kind in enumerate(cfg.layer_types):
+        i_per, j = divmod(gi, per)
+        stacked = tree["blocks"][f"{j}_{kind}"]
+        layers.append(tree_map(
+            lambda a: tensor_from_numpy(np.asarray(a)[i_per], device, dtype), stacked))
+    out = {"layers": layers,
+           "final_norm": tree_from_numpy(tree["final_norm"], device, dtype),
+           "embed": tensor_from_numpy(tree["embed"], device, dtype)}
+    if "shared_attn" in tree:
+        out["shared_attn"] = tree_from_numpy(tree["shared_attn"], device, dtype)
+    return ModelParams.from_tree(cfg, out)

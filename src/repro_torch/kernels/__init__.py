@@ -6,21 +6,32 @@ version (`ref`):
     (CUDA C++, `csrc/compress_correction.cu`)
   * pack_payload_2d / unpack_payload_2d — the same select and quantize
     into packed wire buffers, and back (CUDA C++, `csrc/pack_payload.cu`)
+  * flash_attention — blocked online-softmax attention with causal /
+    window masks, softcap and native GQA (CUDA C++,
+    `csrc/flash_attention.cu`)
+  * ssm_scan — the Mamba selective scan, y and the final state (CUDA C++,
+    `csrc/ssm_scan.cu`)
 
-The TPU kernels still to port are listed in ROADMAP.md (Queue 2)."""
+Every TPU kernel of the JAX package has its counterpart here."""
 from . import ref
 from .compress_correction import compress_correction_2d, compress_leaf, fusable_leaf
+from .flash_attention import flash_attention
 from .gt_update import gt_update
-from .ops import make_gt_update_fn
+from .ops import batched_ssm_scan, grouped_flash_attention, make_gt_update_fn
 from .pack_payload import pack_payload_2d, unpack_payload_2d
+from .ssm_scan import ssm_scan
 
 __all__ = [
+    "batched_ssm_scan",
     "compress_correction_2d",
     "compress_leaf",
+    "flash_attention",
     "fusable_leaf",
+    "grouped_flash_attention",
     "gt_update",
     "make_gt_update_fn",
     "pack_payload_2d",
     "ref",
+    "ssm_scan",
     "unpack_payload_2d",
 ]

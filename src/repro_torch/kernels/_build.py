@@ -23,9 +23,20 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: flags of each source beyond NVCC_FLAGS.  The federated kernels equal
+#: their plain versions bit for bit, so no multiply-add may be contracted
+#: into an FMA; the model kernels are held to a tolerance and keep FMA
+#: contraction (it roughly doubles flash attention's f32 rate).
+SOURCE_FLAGS = {
+    "gt_update": ("-fmad=false",),
+    "compress_correction": ("-fmad=false",),
+    "pack_payload": ("-fmad=false",),
+    "flash_attention": (),
+    "ssm_scan": (),
+}
 
 #: nvcc's output (ptxas register / spill report) of the builds this
 #: process ran, by kernel name
@@ -46,11 +57,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for `csrc/<name>.cu`."""
+    if name not in SOURCE_FLAGS:
+        raise KeyError(f"no CUDA source {name!r}; known: {sorted(SOURCE_FLAGS)}")
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives (its file name
     carries a hash of the source, the shared `*.cuh` headers and the
-    flags)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source's flags)."""
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # shared device code
         h.update(header.read_bytes())
@@ -69,7 +87,7 @@ def build(*names: str) -> Dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))

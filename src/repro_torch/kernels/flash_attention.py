@@ -1,0 +1,124 @@
+"""Blocked online-softmax (flash) attention, forward only.
+
+Port of `repro/kernels/flash_attention.py` `flash_attention`.  The CUDA
+kernel (`csrc/flash_attention.cu`) runs one CTA per (batch*head, 64-query
+tile), streams 64-key K/V tiles through shared memory and keeps the
+running max, denominator and accumulator in registers in f32; it skips
+the tiles the causal / window masks exclude, as the TPU kernel does.
+Unlike the TPU kernel it takes any Sq, Skv and head_dim up to 256 (ragged
+ends are masked inside), reads q/k/v through their strides, and does
+grouped-query attention natively: k/v carry KV heads and q-head h reads
+kv-head h // (H // KV), with no repeated K/V.
+
+On a CPU tensor `flash_attention` runs the plain version
+(`ref.flash_attention_ref`); on a CUDA tensor it launches the kernel or
+raises.  `flash_attention.launches` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build, ref
+
+#: dtype codes of the C launcher (`csrc/flash_attention.cu` `DType`)
+DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
+MAX_HEAD_DIM = 256
+_INT32 = 2**31 - 1
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                       ctypes.POINTER(ctypes.c_longlong), i, i,
+                       ctypes.c_float, ctypes.c_float, i, p]
+        fn.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v, window: int, softcap: float) -> None:
+    if not (q.dim() == k.dim() == v.dim() == 4):
+        raise ValueError("flash_attention: q, k, v must be [B, H, S, hd], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    KV, Skv = k.shape[1], k.shape[2]
+    if KV < 1 or H % KV:
+        raise ValueError(f"flash_attention: {KV} kv heads do not divide {H} "
+                         "q heads")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} outside 1..{MAX_HEAD_DIM}")
+    if Skv < 1:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share one of "
+                        f"{list(DTYPE_CODES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: head_dim must have unit stride")
+    if window < 0 or softcap < 0:
+        raise ValueError(f"flash_attention: window {window} and softcap "
+                         f"{softcap} must be >= 0")
+    if max(B * H, Sq, Skv) > _INT32:
+        raise ValueError("flash_attention: sizes beyond int32")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: forward only (no backward kernel)")
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, softcap: float = 0.0,
+) -> torch.Tensor:
+    """softmax(mask(cap(q k^T / sqrt(hd)))) v over q [B, H, Sq, hd] and
+    k/v [B, KV, Skv, hd] (f32 or bf16, one dtype; unit stride over hd, any
+    other strides), in f32, returned in q's dtype with q's layout.
+    Masks use tile-index positions (query i at i, key j at j): causal
+    i >= j, window i - j < window (window > 0); softcap > 0 caps the
+    logits as softcap * tanh(s / softcap).
+
+    A query that no key may see (only without causal, when
+    i >= Skv + window - 1) gets the TPU kernel's answer, which depends on
+    the tiling, and not the plain version's uniform average: no model
+    path asks for one."""
+    window, softcap = int(window), float(softcap)
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    out = torch.empty_like(q)  # q's strides when q is dense
+    if out.stride(-1) != 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    B, H, Sq, hd = q.shape
+    if B * H * Sq == 0:
+        return out
+    KV, Skv = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KV, Sq, Skv, hd, strides, int(bool(causal)), window,
+            softcap, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -2,7 +2,9 @@
 oracles in `repro/kernels/ref.py`).  The CPU path of every kernel wrapper
 runs these, and the chip check holds each kernel against them.
 
-Each function rounds every operation once, in the order JAX's oracle
+The model kernels' plain versions (`flash_attention_ref`,
+`ssm_scan_ref`) contain reductions and are held to a tolerance.  Every
+other function rounds every operation once, in the order JAX's oracle
 does, so that the same inputs give JAX's bits:
 
   * a Python scalar meeting an f32 tensor is rounded to f32 first (JAX's
@@ -306,3 +308,70 @@ def decode_payload_ref(data, idx, scale, *, cols: int, dtype, k: int,
     dense = torch.zeros((ii.shape[0], cols), dtype=ct, device=vals.device)
     dense.scatter_add_(1, ii.clamp(max=cols - 1), add)
     return cast_to(dense, dtype)
+
+
+#: the attention mask fill of the TPU kernel and the JAX models: finite,
+#: so that a row whose first needed tile is fully masked averages
+#: uniformly until its first real key, whose alpha = exp(-1e30 - m) = 0
+#: then wipes that average (with -inf the rescale would be NaN)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, softcap: float = 0.0,
+) -> torch.Tensor:
+    """Plain attention over q [B, H, Sq, hd] and k/v [B, KV, Skv, hd]
+    (KV divides H; q-head h reads kv-head h // (H // KV), by
+    `repeat_interleave`), computed in f32 and returned in q's dtype, as
+    the kernel does: scale 1/sqrt(hd), tanh softcap, causal / window
+    masks on tile-index positions filled with -1e30, softmax over keys.
+
+    JAX's `ref.flash_attention_ref` takes repeated heads and computes the
+    scores in the inputs' dtype; in f32 the two are the same function."""
+    H, KV, hd = q.shape[1], k.shape[1], q.shape[-1]
+    if H % KV:
+        raise ValueError(f"flash_attention_ref: {H} q heads over {KV} kv heads")
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    # query i sits at position i, key j at j (the TPU kernel's tile-index
+    # positions)
+    qp = torch.arange(q.shape[2], device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones(q.shape[2], k.shape[2], dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= qp - kp < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def ssm_scan_ref(
+    da: torch.Tensor, dbx: torch.Tensor, c_coef: torch.Tensor,
+    state0=None,
+):
+    """Sequential plain version of h_t = da_t * h_{t-1} + dbx_t and
+    y_t = <h_t, c_t>, in f32, over the batched layout the kernel takes:
+    dbx [B, S, H, P, N], da broadcastable to it (Mamba-2's [B, S, H, 1, 1]
+    is never expanded), c_coef [B, S, N], state0 [B, H, P, N] or None
+    (zeros).  Returns (y [B, S, H, P], final state [B, H, P, N]).
+
+    JAX's `ref.ssm_scan_ref` is the same recurrence over one sequence
+    ([S, D, N], `lax.scan`)."""
+    B, S, H, P, N = dbx.shape
+    h = (torch.zeros(B, H, P, N, dtype=torch.float32, device=dbx.device)
+         if state0 is None else state0.float())
+    da, dbx, c = da.float(), dbx.float(), c_coef.float()
+    y = torch.empty(B, S, H, P, dtype=torch.float32, device=dbx.device)
+    for t in range(S):
+        h = da[:, t] * h + dbx[:, t]
+        y[:, t] = (h * c[:, t, None, None, :]).sum(-1)
+    return y, h

@@ -1,0 +1,66 @@
+"""Shared building blocks (port of `repro/models/layers.py`): plain
+functions on tensors and parameter dicts, with JAX's names and math.
+
+Parameters live in `nn.ParameterDict`s (see `transformer.init_params`),
+which the functions read like JAX's dicts.  `cross_entropy` is ported
+with the training slice."""
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter of the serving path (no gradient: only the forward pass
+    is ported)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype,
+           device) -> torch.Tensor:
+    """N(0, 1) * scale drawn in f32 from `gen` on `device`, cast to `dtype`
+    (JAX's inits draw f32 normals, scale, then cast)."""
+    t = torch.randn(*shape, generator=gen, device=device, dtype=torch.float32)
+    return (t * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(dt)
+
+
+def init_rms_norm(d: int, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({"scale": param(torch.zeros(d, dtype=dtype, device=device))})
+
+
+def swiglu(x: torch.Tensor, w) -> torch.Tensor:
+    """SwiGLU MLP: (silu(x W_gate) * (x W_up)) W_down."""
+    gate = F.silu(x @ w["gate"])
+    up = x @ w["up"]
+    return (gate * up) @ w["down"]
+
+
+def init_swiglu(gen: torch.Generator, d: int, ff: int, dtype, device) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        "gate": param(normal(gen, (d, ff), 1.0 / math.sqrt(d), dtype, device)),
+        "up": param(normal(gen, (d, ff), 1.0 / math.sqrt(d), dtype, device)),
+        "down": param(normal(gen, (ff, d), 1.0 / math.sqrt(ff), dtype, device)),
+    })
+
+
+def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, scale: bool = True) -> torch.Tensor:
+    h = table[tokens]
+    if scale:
+        h = h * torch.tensor(math.sqrt(table.shape[-1]), dtype=h.dtype)
+    return h
+
+
+def unembed(h: torch.Tensor, table: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    logits = torch.einsum("...d,vd->...v", h, table).float()
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, held against their plain versions
 (`gt_update`, `compress_correction_2d`, `pack_payload_2d`,
-`unpack_payload_2d`, bit for bit), and rounds through them against rounds
-through the plain versions.
+`unpack_payload_2d`, bit for bit; `flash_attention` and `ssm_scan`, to a
+tolerance), rounds through them against rounds through the plain
+versions, and a reduced model's prefill and decode through the kernels
+against the plain path.
 
 Every test here needs a CUDA card and skips without one (a skip is not a
 pass).  The file imports torch and the port only — no JAX — so it runs on
@@ -16,14 +18,20 @@ import torch
 
 from repro_torch import core
 from repro_torch.fed import CompressedGT, GradientTracking, PackedTree, QuantizedGT
+from repro_torch.configs import get_config
 from repro_torch.kernels import (
     compress_correction_2d,
+    flash_attention,
+    grouped_flash_attention,
     gt_update,
     pack_payload_2d,
     ref,
+    ssm_scan,
     unpack_payload_2d,
 )
 from repro_torch.kernels.compress_correction import staged_in_shared_memory
+from repro_torch.launch import serve
+from repro_torch.models import init_caches, init_params
 from repro_torch.problems import make_quadratic_problem
 
 pytestmark = pytest.mark.torch
@@ -317,3 +325,188 @@ def test_cuda_wire_transform_returns_packed_trees(cuda_device):
     assert isinstance(px, PackedTree)
     assert px.payloads[0].indices.dtype == torch.uint16
     assert px.wire_bytes() == px.specs[0].wire_bytes()
+
+
+# ------------------------------------------------------ model kernels
+#: flash attention's tolerance against its plain version: f32 sums in
+#: another order (rtol = atol); both compute a bf16 case in f32 and round
+#: once, so a bf16 output may differ by one unit in the last place, at
+#: most 2^-7 of the largest |output|
+FLASH_TOL_F32 = 1e-5
+FLASH_REL_BF16 = 2.0 ** -7
+SCAN_TOL = 1e-4
+
+
+def _close(got, want, tol):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_flash(got, want):
+    if want.dtype != torch.bfloat16:
+        return _close(got, want, FLASH_TOL_F32)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= FLASH_REL_BF16 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Sq, Skv, hd, causal, window, softcap)
+    (2, 4, 4, 128, 128, 64, True, 0, 0.0),
+    (1, 8, 2, 1000, 1000, 112, True, 0, 0.0),     # ragged, zamba2's hd, GQA
+    (1, 8, 4, 777, 777, 256, True, 200, 50.0),    # gemma2's local layer
+    (2, 4, 1, 37, 300, 32, False, 0, 0.0),        # Sq < Skv, multi-query
+    (1, 2, 2, 150, 130, 48, False, 40, 20.0),     # window without causal
+    (1, 1, 1, 1, 5, 8, True, 0, 0.0),             # one query
+], ids=["square", "ragged-gqa", "gemma2-local", "sq<skv", "window", "one-query"])
+def test_cuda_flash_attention_equals_plain(cuda_device, dt, case):
+    B, H, KV, Sq, Skv, hd, causal, window, softcap = case
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + hd)
+    q = torch.randn(B, H, Sq, hd, generator=gen, device=cuda_device).to(dt)
+    k = torch.randn(B, KV, Skv, hd, generator=gen, device=cuda_device).to(dt)
+    v = torch.randn(B, KV, Skv, hd, generator=gen, device=cuda_device).to(dt)
+    flash_attention.launches = 0
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    _close_flash(got, want)
+    assert flash_attention.launches == 1
+
+
+def test_cuda_flash_attention_model_layout_and_masked_first_tile(cuda_device):
+    """The model's [B, S, H, hd] tensors through transposed views (no
+    copy), and causal+window rows whose first needed key tile is fully
+    masked (the -1e30 average that alpha = 0 wipes)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, KV, hd = 2, 300, 8, 2, 112
+    q = torch.randn(B, S, H, hd, generator=gen, device=cuda_device)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=cuda_device)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=cuda_device)
+    for window in (0, 70):
+        got = grouped_flash_attention(q, k, v, causal=True, window=window)
+        assert got.is_contiguous()
+        want = grouped_flash_attention(q, k, v, causal=True, window=window,
+                                       use_kernel=False)
+        _close(got, want.contiguous(), 1e-5)
+        assert torch.isfinite(got).all()
+
+
+def test_cuda_flash_attention_counts_launches_and_raises(cuda_device):
+    q = torch.randn(1, 4, 16, 32, device=cuda_device)
+    flash_attention.launches = 0
+    flash_attention(q, q, q)
+    assert flash_attention.launches == 1
+    assert flash_attention(q[:, :, :0], q, q).numel() == 0  # no launch
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="different devices"):
+        flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 1, 4, 320, device=cuda_device)
+        flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="kv heads"):
+        z = torch.zeros(1, 3, 16, 32, device=cuda_device)
+        flash_attention(q, z, z)
+    assert flash_attention.launches == 1
+
+
+def _scan_inputs(dev, B, S, H, P, N, da_shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    da = torch.sigmoid(torch.randn(*da_shape, generator=gen, device=dev)) * 0.95
+    dbx = torch.randn(B, S, H, P, N, generator=gen, device=dev) * 0.1
+    c = torch.randn(B, S, N, generator=gen, device=dev)
+    s0 = torch.randn(B, H, P, N, generator=gen, device=dev)
+    return da, dbx, c, s0
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, H, P, N, decay): "head" [B,S,H,1,1], "full" [B,S,H,P,N]
+    (2, 64, 12, 64, 64, "head"),    # Mamba-2 (zamba2's head_p and N)
+    (1, 130, 300, 1, 16, "full"),   # Mamba-1, ragged S
+    (1, 33, 7, 3, 5, "full"),       # ragged everything, N < 32
+    (2, 9, 5, 2, 100, "head"),      # N > 64
+    (1, 17, 3, 4, 256, "head"),     # the largest state
+    (3, 5, 2, 2, 1, "full"),        # one state
+], ids=["mamba2", "mamba1", "ragged", "n100", "n256", "n1"])
+@pytest.mark.parametrize("start", ["zero", "state0"])
+def test_cuda_ssm_scan_equals_plain(cuda_device, case, start):
+    B, S, H, P, N, decay = case
+    da_shape = (B, S, H, 1, 1) if decay == "head" else (B, S, H, P, N)
+    da, dbx, c, s0 = _scan_inputs(cuda_device, B, S, H, P, N, da_shape, S * N)
+    s0 = s0 if start == "state0" else None
+    ssm_scan.launches = 0
+    y, state = ssm_scan(da, dbx, c, s0)
+    want_y, want_state = ref.ssm_scan_ref(da.expand(dbx.shape), dbx, c, s0)
+    _close(y, want_y, SCAN_TOL)
+    _close(state, want_state, SCAN_TOL)
+    assert ssm_scan.launches == 1
+
+
+def test_cuda_ssm_scan_reads_strides_without_copies(cuda_device):
+    """A strided c (the model's split) and the 3-D / 4-D layouts."""
+    B, S, D, N = 2, 40, 96, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    da = torch.rand(B, S, D, 1, generator=gen, device=cuda_device)
+    dbx = torch.randn(B, S, D, N, generator=gen, device=cuda_device)
+    wide = torch.randn(B, S, 3 * N, generator=gen, device=cuda_device)
+    c = wide[..., N:2 * N]
+    y, state = ssm_scan(da, dbx, c)
+    want = ref.ssm_scan_ref(da.unsqueeze(3).expand(B, S, D, 1, N),
+                            dbx.unsqueeze(3), c.contiguous())
+    _close(y, want[0].reshape(B, S, D), SCAN_TOL)
+    _close(state, want[1].reshape(B, D, N), SCAN_TOL)
+    y1, s1 = ssm_scan(da[0], dbx[0], c[0])
+    _close(y1, y[0], SCAN_TOL)
+    _close(s1, state[0], SCAN_TOL)
+
+
+def test_cuda_ssm_scan_counts_launches_and_raises(cuda_device):
+    z = torch.zeros(2, 4, 3, 8, device=cuda_device)
+    c = torch.zeros(2, 4, 8, device=cuda_device)
+    ssm_scan.launches = 0
+    ssm_scan(z, z, c)
+    assert ssm_scan.launches == 1
+    with pytest.raises(TypeError):
+        ssm_scan(z.double(), z.double(), c.double())
+    with pytest.raises(ValueError, match="different devices"):
+        ssm_scan(z, z.cpu(), c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan(z, z.transpose(2, 3).contiguous().transpose(2, 3), c)
+    assert ssm_scan.launches == 1
+
+
+@pytest.mark.parametrize("arch,prompt_len", [
+    ("zamba2-7b", 64), ("gemma2-2b", 128), ("falcon-mamba-7b", 48)])
+def test_cuda_reduced_model_through_kernels_equals_plain(cuda_device, arch,
+                                                         prompt_len):
+    """Prefill and teacher-forced decode of a reduced model through the
+    kernels against the same tokens through the plain versions: logits
+    within 1e-4 of their largest magnitude, and the kernels launched once
+    per layer that needs them in prefill, never in decode."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    params = init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    B, n = 2, 6
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt_len), generator=gen,
+                            device=cuda_device)
+    runs = {}
+    for use in (True, False):
+        caches = init_caches(cfg, B, prompt_len + n, torch.float32, cuda_device)
+        runs[use] = serve.generate(params, cfg, prompts, caches, n, use_kernel=use,
+                                   forced=runs[True]["tokens"] if not use else None)
+    got, want = runs[True]["step_logits"], runs[False]["step_logits"]
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_types)
+    n_attn += cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+    n_ssm = sum(k.startswith("mamba") for k in cfg.layer_types)
+    assert runs[True]["launches"]["prefill"] == {"flash_attention": n_attn,
+                                                 "ssm_scan": n_ssm}
+    zero = {"flash_attention": 0, "ssm_scan": 0}
+    assert runs[True]["launches"]["decode"] == zero
+    assert runs[False]["launches"] == {"prefill": zero, "decode": zero}
