@@ -32,14 +32,18 @@ Phases:
              and `torch.topk` of |c + e| (the library yardstick)
   flash_attention
              kernel vs plain version (tolerance 1e-5 in f32; in bf16 one
-             rounding, 2^-7 of the largest |output|) at
-             the serving shape [4, 32, 512, 112] f32 causal, gemma2-2b's
-             local layer (H=8, KV=4, hd=256, S=8192, window 4096, softcap
-             50) in f32 and bf16, a ragged S=1000 and a non-causal grouped
-             Sq=256 < Skv=1024; times against the larger of the bytes and
-             the operations bound (at the peak rate of the inputs' type:
-             f32 outside the tensor cores, bf16 on them), and SDPA where
-             one call computes the same function
+             rounding, 2^-7 of the largest |output|), and both vs an f64
+             computation, at the serving shape [4, 32, 512, 112] causal
+             in f32 and bf16, gemma2-2b's local layer (H=8, KV=4, hd=256,
+             S=8192, window 4096, softcap 50) in f32 and bf16, a ragged
+             S=1000 and a non-causal grouped Sq=256 < Skv=1024; times
+             against the larger of the bytes and the operations bound (at
+             the rate of the route the kernel takes: f32 as 3xTF32 on the
+             tensor cores, 495/3 TFLOP/s, bf16 989 TFLOP/s), and SDPA
+             where one call computes the same function (its kernels named
+             from a profile); each instantiation's registers, spills and
+             shared memory, and a check of the library's SASS that the
+             f32 route issues TF32 and the bf16 route bf16 MMAs
   ssm_scan   kernel vs plain version (y and final state, tolerance 1e-4) at
              the serving shape (B=4, S=512, D=7168, N=64, Mamba-2's
              per-head decay unexpanded), a Mamba-1 shape (S=2048, D=8192,
@@ -128,6 +132,12 @@ KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload",
 #: H100 SXM dense peak rates by input type (data sheet): f32 outside the
 #: tensor cores, bf16 on them; the bound of the model kernels' operations
 PEAK_FLOPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+#: the flash kernel's operations bound, by the route it takes: f32 inputs
+#: run as 3xTF32 on the tensor cores (three TF32 products at 495 TFLOP/s
+#: per f32-accurate product), bf16 as bf16 products
+FLASH_PEAK_FLOPS_PER_S = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
+#: the tensor-core instruction each flash route must compile to (SASS)
+FLASH_MMA = {"float": "HMMA.1688.F32.TF32", "__nv_bfloat16": "HMMA.16816.F32.BF16"}
 #: the model kernels against their plain versions: f32 sums taken in
 #: another order (rtol = atol); both compute a bf16 case in f32 and round
 #: once, so a bf16 output may differ by one unit in the last place, at
@@ -554,12 +564,13 @@ def attention_pairs(np, Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 def flash_cases(torch):
     """(tag, B, H, KV, Sq, Skv, hd, dtype, causal, window, softcap): the
-    serving shape first (zamba2-7b's shared block at prefill), gemma2-2b's
-    local layer at 8k in f32 and bf16, a ragged length and a non-causal
-    grouped Sq < Skv."""
+    serving shape first (zamba2-7b's shared block at prefill), the same in
+    bf16, gemma2-2b's local layer at 8k in f32 and bf16, a ragged length
+    and a non-causal grouped Sq < Skv."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("serve_zamba2", 4, 32, 32, 512, 512, 112, f32, True, 0, 0.0),
+        ("serve_zamba2_bf16", 4, 32, 32, 512, 512, 112, bf16, True, 0, 0.0),
         ("gemma2_local_f32", 1, 8, 4, 8192, 8192, 256, f32, True, 4096, 50.0),
         ("gemma2_local_bf16", 1, 8, 4, 8192, 8192, 256, bf16, True, 4096, 50.0),
         ("ragged_1000", 2, 16, 16, 1000, 1000, 112, f32, True, 0, 0.0),
@@ -567,15 +578,87 @@ def flash_cases(torch):
     ]
 
 
+def flash_build_report(torch) -> dict:
+    """Each flash instantiation's registers, spills and shared memory (the
+    ptxas report of this process's build and the kernel's plan), and the
+    tensor-core instructions its SASS holds (`cuobjdump -sass`): the f32
+    route must issue TF32 MMAs, the bf16 route bf16 MMAs."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import plan
+
+    def tiling(fn):  # flash_kernel<float | __nv_bfloat16, Tiling<T, HDP, BK, NS>>
+        m = re.search(r"flash_kernelI(f|13__nv_bfloat16)NS_6TilingI(?:f|S\d*_|13__nv_bfloat16)"
+                      r"Li(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if not m:
+            return None
+        dt = "float" if m.group(1) == "f" else "__nv_bfloat16"
+        return dt, int(m.group(2)), int(m.group(3)), int(m.group(4))
+
+    report = {}
+    for u in _build.ptxas_usage("flash_attention"):
+        t = tiling(u["function"])
+        if t is None:
+            continue
+        dt, hdp, bk, ns = t
+        tdt = torch.float32 if dt == "float" else torch.bfloat16
+        report[f"{dt}/hd{hdp}"] = {
+            "keys_per_tile": bk, "stages": ns, "registers": u.get("registers"),
+            "spill_store_bytes": u.get("spill_store_bytes"),
+            "spill_load_bytes": u.get("spill_load_bytes"),
+            "smem_bytes": plan(hdp, tdt)["smem_bytes"]}
+    nvcc = _build._nvcc()
+    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"flash_attention: cuobjdump failed: {sass.stderr[-500:]}")
+    mma, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = tiling(m.group(1))
+            if fn is not None:
+                mma[fn] = {}
+            continue
+        m = re.search(r"\b(HMMA\.\S+)", line)
+        if fn is not None and m:
+            op = m.group(1).rstrip(";")
+            mma[fn][op] = mma[fn].get(op, 0) + 1
+    check(len(mma) > 0, "flash_attention: no flash_kernel in the library's SASS")
+    for (dt, hdp, _, _), ops in mma.items():
+        check(ops.get(FLASH_MMA[dt], 0) > 0 and set(ops) == {FLASH_MMA[dt]},
+              f"flash_attention {dt}/hd{hdp}: tensor-core instructions {ops}, "
+              f"want {FLASH_MMA[dt]}")
+        report.setdefault(f"{dt}/hd{hdp}", {})["sass_mma"] = ops
+    return report
+
+
+def sdpa_kernel_names(torch, run) -> list:
+    """The CUDA kernels that one call of `run` (SDPA) launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sorted({ev.key[:120] for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA})
+
+
 def phase_flash_attention(torch, np, card: str, shared: dict) -> dict:
-    """The flash kernel against its plain version on the card, timed with
-    CUDA events against its bound and SDPA (the library yardstick, where
-    one call computes the same function)."""
+    """The flash kernel against its plain version on the card, each also
+    against an f64 computation, timed with CUDA events against its bound
+    (at the rate of the route it takes) and SDPA (the library yardstick,
+    where one call computes the same function)."""
     from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels.flash_attention import plan
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    out = {}
+    out = {"build": flash_build_report(torch)}
     for tag, B, H, KV, Sq, Skv, hd, dt, causal, window, cap in flash_cases(torch):
         q = torch.randn(B, H, Sq, hd, generator=gen, device=DEVICE).to(dt)
         k = torch.randn(B, KV, Skv, hd, generator=gen, device=DEVICE).to(dt)
@@ -593,7 +676,11 @@ def phase_flash_attention(torch, np, card: str, shared: dict) -> dict:
             tol = FLASH_TOL_F32
             within = bool(torch.allclose(got, want, rtol=tol, atol=tol))
         check(within, f"flash_attention {tag}: max |err| {err:.3e} beyond {tol:.3e}")
-        del got, want
+        exact = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+        err_f64 = {"kernel": float((got.double() - exact).abs().max()),
+                   "plain": float((want.double() - exact).abs().max())}
+        del got, want, exact
+        torch.cuda.empty_cache()
         library, why = None, "null: the softcap and the window have no SDPA argument"
         if cap == 0.0 and window == 0:
             sdpa_kw = dict(is_causal=causal, enable_gqa=KV != H)
@@ -605,13 +692,17 @@ def phase_flash_attention(torch, np, card: str, shared: dict) -> dict:
         t = time_case(torch, lambda: flash_attention(q, k, v, **kw),
                       lambda: ref.flash_attention_ref(q, k, v, **kw), library,
                       moved, reps=10, plain_reps=3, card=card)
-        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S[str(dt)]))
+        t.update(bound_from(moved, flops, FLASH_PEAK_FLOPS_PER_S[str(dt)]))
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        if library is not None:
+            t["library_kernels"] = sdpa_kernel_names(torch, library)
         t.update(tag=tag, shape={"B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv,
                                  "hd": hd},
                  dtypes=[str(dt)], causal=causal, window=window, softcap=cap,
-                 max_abs_err=err, tolerance=tol, peak_flops_per_s=PEAK_FLOPS_PER_S[str(dt)],
-                 library=why)
+                 max_abs_err=err, tolerance=tol, max_abs_err_vs_f64=err_f64,
+                 route="3xTF32" if dt == torch.float32 else "bf16",
+                 peak_flops_per_s=FLASH_PEAK_FLOPS_PER_S[str(dt)],
+                 tiling=plan(hd, dt), library=why)
         out[tag] = t
         del q, k, v
         torch.cuda.empty_cache()

@@ -7,7 +7,7 @@ version (`ref`):
   * pack_payload_2d / unpack_payload_2d — the same select and quantize
     into packed wire buffers, and back (CUDA C++, `csrc/pack_payload.cu`)
   * flash_attention — blocked online-softmax attention with causal /
-    window masks, softcap and native GQA (CUDA C++,
+    window masks, softcap and native GQA, on the tensor cores (CUDA C++,
     `csrc/flash_attention.cu`)
   * ssm_scan — the Mamba selective scan, y and the final state (CUDA C++,
     `csrc/ssm_scan.cu`)

@@ -13,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -29,12 +30,13 @@ NVCC_FLAGS = (
 #: flags of each source beyond NVCC_FLAGS.  The federated kernels equal
 #: their plain versions bit for bit, so no multiply-add may be contracted
 #: into an FMA; the model kernels are held to a tolerance and keep FMA
-#: contraction (it roughly doubles flash attention's f32 rate).
+#: contraction.  Flash attention instantiates its kernel for 24 (dtype,
+#: head-dim) pairs, so nvcc spreads their optimisation over the cores.
 SOURCE_FLAGS = {
     "gt_update": ("-fmad=false",),
     "compress_correction": ("-fmad=false",),
     "pack_payload": ("-fmad=false",),
-    "flash_attention": (),
+    "flash_attention": ("--split-compile=0",),
     "ssm_scan": (),
 }
 
@@ -113,3 +115,29 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[name]))
         _libs[name] = lib
     return lib
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """Each entry function's registers, static shared memory, stack and
+    spills, from the ptxas report (`-Xptxas=-v`) of the build of
+    `csrc/<name>.cu` that this process ran (empty if it ran none)."""
+    out: List[dict] = []
+    for line in build_logs.get(name, "").splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            out.append({"function": entry.group(1)})
+            continue
+        if not out:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if frame:
+            out[-1].update(stack_bytes=int(frame.group(1)),
+                           spill_store_bytes=int(frame.group(2)),
+                           spill_load_bytes=int(frame.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            out[-1]["registers"] = int(used.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out

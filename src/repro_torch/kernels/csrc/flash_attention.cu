@@ -1,4 +1,5 @@
-// Blocked online-softmax (flash) attention, forward, for Hopper (sm_90a).
+// Blocked online-softmax (flash) attention, forward, for Hopper (sm_90a),
+// on the tensor cores.
 //
 // Replaces `repro/kernels/flash_attention.py` `flash_attention` (the
 // Pallas TPU kernel `_flash_kernel`): out = softmax(mask(cap(q k^T /
@@ -7,29 +8,62 @@
 //   * causal (i >= j) and sliding-window (i - j < window) masks, filled
 //     with the finite -1e30 of the TPU kernel, so that a row whose first
 //     needed tile is fully masked averages uniformly until its first real
-//     key, whose rescale exp(-1e30 - m) = 0 wipes that average;
+//     key, whose rescale 2^(-1e30 - m) = 0 wipes that average;
 //   * the Gemma-2 logit softcap cap(s) = softcap * tanh(s / softcap);
 //   * tiles that the masks exclude entirely skipped (the TPU kernel's
 //     `needed` test), the denominator clamped at 1e-30.
-// Beyond the TPU kernel: any Sq and Skv (ragged ends are masked here:
-// keys past Skv get exactly zero weight, queries past Sq are not
-// stored), any head_dim up to 256 (112 for zamba2, 256 for gemma2), q/k/v
+// Beyond the TPU kernel: any Sq and Skv (keys past Skv get exactly zero
+// weight, queries past Sq are not stored), any head_dim up to 256, q/k/v
 // read through their (batch, head, seq) strides so the model's
 // [B, S, H, hd] layout needs no transpose, and grouped-query attention
 // natively: q-head h reads kv-head h / (H / KV), with no repeated K/V.
 //
-// Bound: at the serving shapes it is compute: 4 * hd flops per unmasked
-// (query, key) pair against the card's 67 TFLOP/s of f32 outside the
-// tensor cores, over q + k + v + out bytes at 3.35 TB/s.  This first
-// kernel is simple and correct, on CUDA cores in f32: one CTA of 256
-// threads per (batch*head, 64-query tile); Q is staged once, transposed,
-// in shared memory; 64-key K/V tiles stream through shared memory; each
-// thread owns a 4x4 block of the score tile and 4 rows x 4*NJ columns of
-// the output, so the running max, denominator and accumulator stay in
-// registers in f32.  Inputs are f32 or bf16, read in their own type; the
-// output is in q's type.  Tensor cores (wgmma on bf16), TMA and
-// asynchronous double buffering are later work.  Built with FMA
-// contraction (no -fmad=false): the result is held to a tolerance.
+// Bound: operations.  4 * hd flops per unmasked (query, key) pair, on the
+// tensor cores: bf16 at 989 TFLOP/s; f32 as 3xTF32 (three TF32 products
+// per f32-accurate product, 495 / 3 = 165 TFLOP/s).  The bytes (q, k, v
+// read once, out written once, at 3.35 TB/s) bound it only at short
+// sequences.  The design:
+//   * Both products on the tensor cores with `mma.sync`.  f32: each
+//     operand is split a = hi + lo, hi = rna(a) and lo = rna(a - hi) in
+//     TF32 (`cvt.rna.tf32.f32`'s rounding, done as two integer operations
+//     for these finite operands), and lo*hi + hi*lo + hi*hi accumulate in
+//     f32 (m16n8k8 TF32), which keeps f32's accuracy where one TF32
+//     product would lose three digits.  bf16: m16n8k16 with f32
+//     accumulation; P is rounded to bf16 in registers (the TPU's
+//     default-precision dot does the same), its row sum is taken from the
+//     f32 values.  The tensor cores' f32 accumulation does not round each
+//     sum to nearest, so the chains are kept short: in QK^T the three TF32 products accumulate
+//     apart over the head dim, and each tile's P V is formed apart and
+//     folded in as o = o * alpha + P V with one f32 FMA.
+//   * One warp per 16 query rows, 64 rows per CTA; the running max, the
+//     denominator and the output accumulator stay in registers in f32.
+//     The QK^T accumulator holds keys (2t, 2t+1) of each 8-key group in
+//     lane t, which is not the TF32 A-operand order (t, t+4): instead of
+//     moving P between lanes, the PV product reads V's rows in the
+//     permuted order (2t, 2t+1).  In bf16 the two layouts coincide.
+//   * K/V tiles of BK keys stream through a ring of NS stages in shared
+//     memory, filled by `cp.async` 16-byte copies (8 or 4 bytes, or plain
+//     loads, where a row's address is less aligned) kept NS-1 tiles ahead
+//     of the compute, one barrier per tile; rows past Sq / Skv and the
+//     head dim padded to HDP (a multiple of 16) arrive as zeros.  Each
+//     row is padded by 16 bytes, so that `ldmatrix` and the fragment
+//     loads hit every bank once.  (BK, NS) are chosen per (dtype, HDP) so
+//     that two CTAs fit on an SM where they can (`Plan`).
+//   * Scores in log2 units (exp2 on the SFU, log2(e) folded into the
+//     scale, after the softcap, which is applied in natural units); masks
+//     are evaluated only in tiles that the diagonal, the window edge or
+//     the ragged Skv tail cut, for the warp's 16 rows.  A warp skips the
+//     tiles its rows cannot see (past the diagonal, before the window).
+//     The grid runs over (batch, head) fastest and over query tiles from
+//     the last: under causal the heaviest CTAs start first.
+// A query that no key may see (with a window, i >= Skv + window - 1)
+// gets the mean of v over the keys j < Skv of the tiles its warp
+// processes, or zero when there are none: the CTA's tiles run from the
+// one holding key max(0, q0 - window + 1) of its first query q0 to the
+// one holding Skv - 1 (or its last query, under causal), less those the
+// warp skips.  The TPU kernel's answer there depends on its tiling too; no
+// model path asks for such a row.  Built with FMA contraction (no
+// -fmad=false): the result is held to a tolerance.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,61 +74,378 @@ namespace {
 // dtype codes shared with kernels/flash_attention.py
 enum DType : int { kF32 = 1, kBF16 = 2 };
 
-constexpr int BQ = 64;           // queries per CTA
-constexpr int BK = 64;           // keys per streamed tile
-constexpr int kThreads = 256;    // 16 x 16 threads, each 4 rows x 4 keys
-constexpr int PADQ = BQ + 4;     // row stride of Qt and Pt (floats)
-constexpr int PADK = BK + 4;     // row stride of Kt
 constexpr float kMaskFill = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWarps = 4;                    // 16 query rows each
+constexpr size_t kTwoPerSm = 113 * 1024;     // (228 KB - 2 x 1 KB) / 2
+constexpr size_t kMaxSmem = 227 * 1024;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int B, H, KV, Sq, Skv, hd, hd16;
+  int B, H, KV, Sq, Skv, hd;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int causal, window;
-  float softcap, scale;
+  float softcap;
+  float mul, cap2;  // logits in log2 units: cap2 * tanh(s * mul), or s * mul
+  int vq, vk, vv;  // bytes per cp.async of q, k, v (16, 8, 4; 0: plain loads)
+  int vo;          // out's rows take two-element stores
 };
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+// ------------------------------------------------------------- tiling
+template <typename T, int HDP_, int BK_, int NS_>
+struct Tiling {
+  static constexpr int HDP = HDP_, BK = BK_, NS = NS_;
+  static constexpr int BQ = 16 * kWarps, THREADS = 32 * kWarps;
+  static constexpr int ES = sizeof(T);
+  static constexpr int LD = HDP + 16 / ES;   // smem row stride, elements
+  static constexpr int ROWB = LD * ES;       // ... in bytes (16 * odd)
+  static constexpr int TILE = BK * LD;       // one K or V tile, elements
+  static constexpr int NT = HDP / 8;         // 8-column tiles of the output
+  // ... in one P V chunk (4 above hd 128, where the accumulator is large)
+  static constexpr int NC = NT > 16 ? 4 : NT < 8 ? NT : 8;
+  static constexpr int NJ = BK / 8;          // 8-key tiles of the scores
+  static constexpr int KS = HDP * ES / 32;   // k-steps of QK^T (8 f32, 16 bf16)
+  static constexpr size_t SMEM = (size_t)(BQ + 2 * NS * BK) * ROWB;
+};
+
+__host__ __device__ constexpr size_t smem_of(int es, int hdp, int bk, int ns) {
+  return (size_t)(16 * kWarps + 2 * ns * bk) * (hdp * es + 16);
 }
+
+// The deepest ring of the widest key tiles that lets two CTAs share an
+// SM, else the one that fits one CTA: (64, 3), (64, 2), (32, 3), (32, 2)
+// in that order.
+__host__ __device__ constexpr int plan_code(int es, int hdp) {
+  const int bk[4] = {64, 64, 32, 32}, ns[4] = {3, 2, 3, 2};
+  for (int i = 0; i < 4; ++i)
+    if (smem_of(es, hdp, bk[i], ns[i]) <= kTwoPerSm) return i;
+  for (int i = 0; i < 4; ++i)
+    if (smem_of(es, hdp, bk[i], ns[i]) <= kMaxSmem) return i;
+  return -1;
+}
+
+template <typename T, int HDP>
+struct Plan {
+  static constexpr int code = plan_code(sizeof(T), HDP);
+  static_assert(code >= 0, "no tiling fits shared memory");
+  using type = Tiling<T, HDP, code < 2 ? 64 : 32, code % 2 == 0 ? 3 : 2>;
+};
+
+// --------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int VB>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int src_bytes) {
+  if constexpr (VB == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(VB), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// what `cvt.rna.tf32.f32` gives for a finite x, in two integer
+// operations (add half of the dropped unit to the magnitude, clear the 13
+// low bits), which cost less than the conversion in the split's hot loop
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32, lo the rounded remainder
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in f32 accuracy: the small products first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (relative error about 2^-22; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void zero(float* p) { *p = 0.f; }
+__device__ __forceinline__ void zero(__nv_bfloat16* p) { *p = __float2bfloat16_rn(0.f); }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// ------------------------------------------------------------- loads
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
 }
 
-__device__ __forceinline__ float row_sum16(float v) {
+// rows [0, R) x columns [0, HDP) of a tile from `src` (row stride `ld`)
+// into shared memory; rows >= `rows` and columns >= hd as zeros.  Each
+// thread keeps one column chunk and walks the rows, so that a copy costs
+// an address increment.
+template <class C, int R, int VB, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, const T* base,
+                                          long long ld, int rows, int hd) {
+  constexpr int EPC = VB / (int)sizeof(T), CPR = C::HDP / EPC;
+  constexpr int TPR = pow2_at_least(CPR) < C::THREADS ? pow2_at_least(CPR) : C::THREADS;
+  constexpr int RPP = C::THREADS / TPR;  // rows per pass
+  const int r0 = threadIdx.x / TPR;
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  for (int cc = threadIdx.x % TPR; cc < CPR; cc += TPR) {
+    const int e = cc * EPC;
+    const int bytes = max(0, min(EPC, hd - e)) * (int)sizeof(T);
+    const T* s = src + r0 * ld + e;
+#pragma unroll
+    for (int r = r0; r < R; r += RPP, s += RPP * ld) {
+      const bool ok = r < rows && bytes > 0;  // else no byte is read
+      cp_async<VB>(smem_u32(dst + r * C::LD + e), ok ? s : base, ok ? bytes : 0);
+    }
+  }
 }
 
-// NJ: float4 column groups of the output per thread (ceil(hd16 / 64))
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
-    flash_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* const Qt = reinterpret_cast<float*>(smem4);  // [hd16][PADQ]
-  float* const Kt = Qt + p.hd16 * PADQ;                // [hd16][PADK]
-  float* const Vs = Kt + p.hd16 * PADK;                // [BK][hd16]
-  float* const Pt = Vs + BK * p.hd16;                  // [BK][PADQ]
+template <class C, int R, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, const T* base,
+                                          long long ld, int rows, int hd, int vb) {
+  switch (vb) {
+    case 16: copy_rows<C, R, 16>(dst, src, base, ld, rows, hd); break;
+    case 8: copy_rows<C, R, 8>(dst, src, base, ld, rows, hd); break;
+    case 4: copy_rows<C, R, 4>(dst, src, base, ld, rows, hd); break;
+    default:  // 2-byte aligned bf16 rows: plain loads
+      for (int c = threadIdx.x; c < R * C::HDP; c += C::THREADS) {
+        const int r = c / C::HDP, e = c - r * C::HDP;
+        if (r < rows && e < hd) dst[r * C::LD + e] = src[r * ld + e];
+        else zero(dst + r * C::LD + e);
+      }
+  }
+}
 
-  const int hd = p.hd, hd16 = p.hd16;
-  const int bh = blockIdx.x;
-  // heaviest (last, under causal) query tiles are scheduled first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+// ---------------------------------------------------------- products
+// s[j] = Q_w K_j^T for the warp's 16 rows (Qw) and the BK keys of Ks.
+// In f32 the large products (hi*hi) and the small ones (lo*hi, hi*lo)
+// accumulate apart over the head dim and meet at the end: the chain that
+// carries the large values is a third as long.
+template <class C>
+__device__ __forceinline__ void qk(float (&s)[C::NJ][4], const float* Qw,
+                                   const float* Ks, int lane) {
+  const uint32_t qa = smem_u32(Qw) + (lane & 15) * C::ROWB + (lane >> 4) * 16;
+  const uint32_t ka = smem_u32(Ks) + ((lane & 7) + ((lane >> 4) << 3)) * C::ROWB +
+                      ((lane >> 3) & 1) * 16;
+  float small[C::NJ][4];
+#pragma unroll
+  for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) small[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < C::KS; ++kk) {
+    uint32_t a[4], ah[4], al[4];
+    ldsm_x4(a, qa + kk * 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+    for (int j = 0; j < C::NJ; j += 2) {
+      uint32_t b[4], bh[4], bl[4];
+      ldsm_x4(b, ka + j * 8 * C::ROWB + kk * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        mma_tf32(small[j + u], al, bh[2 * u], bh[2 * u + 1]);
+        mma_tf32(small[j + u], ah, bl[2 * u], bl[2 * u + 1]);
+        mma_tf32(s[j + u], ah, bh[2 * u], bh[2 * u + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] += small[j][e];
+}
+
+template <class C>
+__device__ __forceinline__ void qk(float (&s)[C::NJ][4], const __nv_bfloat16* Qw,
+                                   const __nv_bfloat16* Ks, int lane) {
+  const uint32_t qa = smem_u32(Qw) + (lane & 15) * C::ROWB + (lane >> 4) * 16;
+  const uint32_t ka = smem_u32(Ks) + ((lane & 7) + ((lane >> 4) << 3)) * C::ROWB +
+                      ((lane >> 3) & 1) * 16;
+#pragma unroll 2
+  for (int kk = 0; kk < C::KS; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, qa + kk * 32);
+#pragma unroll
+    for (int j = 0; j < C::NJ; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, ka + j * 8 * C::ROWB + kk * 32);
+      mma_bf16(s[j], a, b[0], b[1]);
+      mma_bf16(s[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// pt = P V over the output's 8-column tiles N0 .. N0 + NC - 1 (those
+// below NT).  Lane (g, t) holds P[g][2t, 2t+1] and P[g+8][2t, 2t+1] of
+// each 8-key group j; taken as the TF32 A operand (columns t, t+4) they
+// stand for keys 2t and 2t+1, so B reads V's rows 2t and 2t+1.
+template <class C, int N0>
+__device__ __forceinline__ void pv(float (&pt)[C::NC][4], const float (&s)[C::NJ][4],
+                                   const float* Vs, int g, int t4) {
+#pragma unroll
+  for (int j = 0; j < C::NJ; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(s[j][0], ah[0], al[0]);
+    split_tf32(s[j][2], ah[1], al[1]);
+    split_tf32(s[j][1], ah[2], al[2]);
+    split_tf32(s[j][3], ah[3], al[3]);
+    const float* v0 = Vs + (8 * j + 2 * t4) * C::LD + 8 * N0 + g;
+#pragma unroll
+    for (int nn = 0; nn < C::NC && N0 + nn < C::NT; ++nn) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(v0[8 * nn], bh0, bl0);
+      split_tf32(v0[C::LD + 8 * nn], bh1, bl1);
+      mma_3xtf32(pt[nn], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// ... in bf16, P rounded to bf16; the A and accumulator layouts coincide
+template <class C, int N0>
+__device__ __forceinline__ void pv(float (&pt)[C::NC][4], const float (&s)[C::NJ][4],
+                                   const __nv_bfloat16* Vs, int lane) {
+  const uint32_t va = smem_u32(Vs) + ((lane & 7) + ((lane >> 3) & 1) * 8) * C::ROWB +
+                      (lane >> 4) * 16 + N0 * 16;
+#pragma unroll
+  for (int jj = 0; jj < C::NJ / 2; ++jj) {
+    const uint32_t a[4] = {
+        pack_bf16(s[2 * jj][0], s[2 * jj][1]), pack_bf16(s[2 * jj][2], s[2 * jj][3]),
+        pack_bf16(s[2 * jj + 1][0], s[2 * jj + 1][1]),
+        pack_bf16(s[2 * jj + 1][2], s[2 * jj + 1][3])};
+#pragma unroll
+    for (int nn = 0; nn < C::NC && N0 + nn < C::NT; nn += 2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, va + jj * 16 * C::ROWB + nn * 16);
+      mma_bf16(pt[nn], a, b[0], b[1]);
+      mma_bf16(pt[nn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o = o * alpha + P V, the product formed apart in chunks of NC column
+// tiles and folded in with one f32 FMA: the tensor cores' accumulation
+// chain stays one tile long, and the chunk's accumulator stays small
+template <class C, int N0 = 0, typename T>
+__device__ __forceinline__ void pv_fold(float (&o)[C::NT][4], const float (&s)[C::NJ][4],
+                                        const T* Vs, const float (&alpha)[2], int lane) {
+  if constexpr (N0 < C::NT) {
+    float pt[C::NC][4];
+#pragma unroll
+    for (int nn = 0; nn < C::NC; ++nn) pt[nn][0] = pt[nn][1] = pt[nn][2] = pt[nn][3] = 0.f;
+    if constexpr (sizeof(T) == 4)
+      pv<C, N0>(pt, s, Vs, lane >> 2, lane & 3);
+    else
+      pv<C, N0>(pt, s, Vs, lane);
+#pragma unroll
+    for (int nn = 0; nn < C::NC && N0 + nn < C::NT; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[N0 + nn][e] = fmaf(o[N0 + nn][e], alpha[e >> 1], pt[nn][e]);
+    pv_fold<C, N0 + C::NC>(o, s, Vs, alpha, lane);
+  }
+}
+
+// The max (MAX) or the sum of this lane's entries of row half r (entries
+// 2r, 2r+1 of each 8-key tile), as a tree: short dependent chains
+template <int NJ, bool MAX>
+__device__ __forceinline__ float row_tree(const float (&s)[NJ][4], int r) {
+  float t[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    t[j] = MAX ? fmaxf(s[j][2 * r], s[j][2 * r + 1]) : s[j][2 * r] + s[j][2 * r + 1];
+#pragma unroll
+  for (int w = NJ / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = MAX ? fmaxf(t[j], t[j + w]) : t[j] + t[j + w];
+  return t[0];
+}
+
+// the max over the four lanes that share a row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// ------------------------------------------------------------ kernel
+template <typename T, class C>
+__global__ void __launch_bounds__(C::THREADS) flash_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* const Qs = reinterpret_cast<T*>(smem);
+  T* const ring = Qs + C::BQ * C::LD;  // stage s: K at 2s * TILE, V after it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // heaviest (last, under causal) query tiles are scheduled first: the
+  // grid runs over (batch, head) fastest, then query tiles backwards
+  const int nbh = p.B * p.H, nqt = (p.Sq + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x % nbh;
+  const int q0 = (nqt - 1 - (int)(blockIdx.x / nbh)) * C::BQ;
   const int b = bh / p.H, h = bh - b * p.H;
   const int kvh = h / (p.H / p.KV);
   const T* qp = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
@@ -102,173 +453,175 @@ __global__ void __launch_bounds__(kThreads)
   const T* vp = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
   T* op = static_cast<T*>(p.o) + b * p.osb + h * p.osh;
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-
-  // Q tile, transposed: Qt[d][r] = q[q0 + r][d], zero past Sq and hd
-  for (int idx = tid; idx < BQ * hd16; idx += kThreads) {
-    const int r = idx / hd16, d = idx - r * hd16;
-    float val = 0.f;
-    if (q0 + r < p.Sq && d < hd) val = load_f(qp + (long long)(q0 + r) * p.qss + d);
-    Qt[d * PADQ + r] = val;
-  }
-
-  // the key tiles some query of this tile needs (the TPU kernel's
+  // the key tiles some query of this CTA needs (the TPU kernel's
   // `needed`): causal stops after the last query, a window starts at the
   // first query's first visible key
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
+  const int q_last = min(q0 + C::BQ, p.Sq) - 1;
   int k_hi = p.Skv;
   if (p.causal) k_hi = min(k_hi, q_last + 1);
   const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int t_lo = k_lo / BK;
-  const int t_hi = (k_hi + BK - 1) / BK;
+  const int t_lo = k_lo / C::BK;
+  const int t_hi = (k_hi + C::BK - 1) / C::BK;
 
-  float m[4], l[4], acc[4][4 * NJ];
+  auto load_kv = [&](int t) {
+    T* const dst = ring + ((t - t_lo) % C::NS) * 2 * C::TILE;
+    const int k0 = t * C::BK, rows = min(C::BK, p.Skv - k0);
+    load_rows<C, C::BK>(dst, kp + k0 * p.kss, kp, p.kss, rows, p.hd, p.vk);
+    load_rows<C, C::BK>(dst + C::TILE, vp + k0 * p.vss, vp, p.vss, rows, p.hd, p.vv);
+  };
+
+  load_rows<C, C::BQ>(Qs, qp + q0 * p.qss, qp, p.qss, min(C::BQ, p.Sq - q0), p.hd,
+                      p.vq);
+  cp_commit();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMaskFill;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * NJ; ++e) acc[i][e] = 0.f;
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (t_lo + s < t_hi) load_kv(t_lo + s);
+    cp_commit();
   }
+
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const T* const Qw = Qs + 16 * warp * C::LD;
+  const bool cap = p.softcap > 0.f;
+  float o[C::NT][4];
+#pragma unroll
+  for (int nn = 0; nn < C::NT; ++nn) o[nn][0] = o[nn][1] = o[nn][2] = o[nn][3] = 0.f;
+  float m[2] = {kMaskFill, kMaskFill}, l[2] = {0.f, 0.f};
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // Qt written; the previous tile's readers are done
-    for (int idx = tid; idx < BK * hd16; idx += kThreads) {
-      const int c = idx / hd16, d = idx - c * hd16;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + c < p.Skv && d < hd) {
-        kv = load_f(kp + (long long)(k0 + c) * p.kss + d);
-        vv = load_f(vp + (long long)(k0 + c) * p.vss + d);
-      }
-      Kt[d * PADK + c] = kv;
-      Vs[c * hd16 + d] = vv;
-    }
-    __syncthreads();
+    cp_wait<C::NS - 2>();  // tile t (and Q) landed, for this thread's copies
+    __syncthreads();       // ... for every thread's; tile t-1 is consumed
+    if (t + C::NS - 1 < t_hi) load_kv(t + C::NS - 1);  // into tile t-1's stage
+    cp_commit();
 
-    // scores of rows 4ty..4ty+3 against keys 4tx..4tx+3
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < hd; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * PADQ + 4 * ty);
-      const float4 kk = *reinterpret_cast<const float4*>(Kt + d * PADK + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += av[i] * kv[j];
-    }
+    const int k0 = t * C::BK;
+    if (qw >= p.Sq || (p.causal && k0 > qw + 15) ||
+        (p.window > 0 && k0 + C::BK - 1 < qw - p.window + 1))
+      continue;  // no row of this warp sees a key of the tile
+    const T* const Ks = ring + ((t - t_lo) % C::NS) * 2 * C::TILE;
 
+    float s[C::NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + 4 * tx + j;
-        float x = s[i][j] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool keep = true;
-        if (p.causal) keep = keep && qi >= kj;
-        if (p.window > 0) keep = keep && qi - kj < p.window;
-        x = keep ? x : kMaskFill;
-        if (kj >= p.Skv) x = -INFINITY;  // past the sequence: no weight
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = row_max16(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + rs;  // this thread's part of the row sum
-#pragma unroll
-      for (int e = 0; e < 4 * NJ; ++e) acc[i][e] *= alpha;
-      m[i] = m_new;
-    }
+    for (int j = 0; j < C::NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    qk<C>(s, Qw, Ks, lane);
 
-    // P transposed into shared memory: Pt[key][row]
+    // scores in log2 units, masked where the tile is cut
+    const bool edge = (p.causal && k0 + C::BK - 1 > qw) ||
+                      (p.window > 0 && qw + 15 - k0 >= p.window) ||
+                      k0 + C::BK > p.Skv;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(Pt + (4 * tx + j) * PADQ + 4 * ty) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // acc[rows 4ty.., cols 4tx + 64jj ..] += P V
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 pv4 = *reinterpret_cast<const float4*>(Pt + c * PADQ + 4 * ty);
-      const float pv[4] = {pv4.x, pv4.y, pv4.z, pv4.w};
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int d = 4 * tx + 64 * jj;
-        if (d < hd16) {
-          const float4 v4 = *reinterpret_cast<const float4*>(Vs + c * hd16 + d);
-          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][4 * jj + e] += pv[i] * vv[e];
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float denom = fmaxf(row_sum16(l[i]), 1e-30f);
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= p.Sq) continue;
-    T* orow = op + (long long)qi * p.oss;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
+    for (int j = 0; j < C::NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * jj + e;
-        if (d < hd) store_f(orow + d, acc[i][4 * jj + e] / denom);
+        float x = cap ? p.cap2 * tanhf(s[j][e] * p.mul) : s[j][e] * p.mul;
+        if (edge) {
+          const int qi = qw + g + 8 * (e >> 1), kj = k0 + 8 * j + 2 * t4 + (e & 1);
+          bool keep = true;
+          if (p.causal) keep = qi >= kj;
+          if (p.window > 0) keep = keep && qi - kj < p.window;
+          x = keep ? x : kMaskFill;
+          if (kj >= p.Skv) x = -INFINITY;  // past the sequence: no weight
+        }
+        s[j][e] = x;
       }
+    float alpha[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mx = quad_max(row_tree<C::NJ, true>(s, r));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < C::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2_approx(s[j][e] - m[e >> 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) rs[r] = row_tree<C::NJ, false>(s, r);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];  // this lane's part
+    pv_fold<C>(o, s, Ks + C::TILE, alpha, lane);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    // 1 / max(sum, 1e-30) to 2 ulp, on the SFU: an IEEE division's slow
+    // path is a call, around which the accumulator would spill
+    const float inv = __fdividef(1.f, fmaxf(sum, 1e-30f));
+    const int qi = qw + g + 8 * r;
+    if (qi >= p.Sq) continue;
+    T* const orow = op + qi * p.oss;
+#pragma unroll
+    for (int nn = 0; nn < C::NT; ++nn) {
+      const int d = 8 * nn + 2 * t4;
+      const float x0 = o[nn][2 * r] * inv, x1 = o[nn][2 * r + 1] * inv;
+      if (p.vo && d + 1 < p.hd) {
+        store_pair(orow + d, x0, x1);
+      } else {
+        if (d < p.hd) store_f(orow + d, x0);
+        if (d + 1 < p.hd) store_f(orow + d + 1, x1);
+      }
+    }
   }
 }
 
-size_t smem_bytes(int hd16) {
-  return ((size_t)hd16 * PADQ + (size_t)hd16 * PADK + (size_t)BK * hd16 +
-          (size_t)BK * PADQ) * sizeof(float);
-}
-
-template <typename T, int NJ>
+template <typename T, int HDP>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.hd16);
-  static size_t opted_in = 48 * 1024;  // per instantiation
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  using C = typename Plan<T, HDP>::type;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static unsigned long long opted_in = 0;  // per instantiation, by device
+  if (C::SMEM > 48 * 1024 && dev < 64 && !(opted_in >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(flash_kernel<T, C>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::SMEM);
     if (err != cudaSuccess) return (int)err;
-    opted_in = smem;
+    opted_in |= 1ull << dev;
   }
-  const dim3 grid(p.B * p.H, (p.Sq + BQ - 1) / BQ);
-  flash_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(p);
+  const long long ctas = (long long)p.B * p.H * ((p.Sq + C::BQ - 1) / C::BQ);
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_kernel<T, C><<<(unsigned)ctas, C::THREADS, C::SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// head dims padded to HDP: every multiple of 16 up to 128, then 160, 192,
+// 224, 256
+constexpr int hdp_of(int hd) {
+  return hd <= 128 ? (hd + 15) / 16 * 16 : (hd + 31) / 32 * 32;
+}
+
 template <typename T>
-int launch_nj(const Params& p, cudaStream_t stream) {
-  switch ((p.hd16 + 63) / 64) {
-    case 1: return launch<T, 1>(p, stream);
-    case 2: return launch<T, 2>(p, stream);
-    case 3: return launch<T, 3>(p, stream);
-    case 4: return launch<T, 4>(p, stream);
+int launch_hdp(const Params& p, cudaStream_t stream) {
+  switch (hdp_of(p.hd)) {
+    case 16: return launch<T, 16>(p, stream);
+    case 32: return launch<T, 32>(p, stream);
+    case 48: return launch<T, 48>(p, stream);
+    case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
+    case 96: return launch<T, 96>(p, stream);
+    case 112: return launch<T, 112>(p, stream);
+    case 128: return launch<T, 128>(p, stream);
+    case 160: return launch<T, 160>(p, stream);
+    case 192: return launch<T, 192>(p, stream);
+    case 224: return launch<T, 224>(p, stream);
+    case 256: return launch<T, 256>(p, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the widest cp.async (16, 8 or 4 bytes) that every row start of a
+// tensor is aligned to; 0 for plain loads
+int vec_bytes(const void* ptr, const long long* strides, int es) {
+  for (int vb = 16; vb >= 4; vb /= 2) {
+    bool ok = reinterpret_cast<uintptr_t>(ptr) % vb == 0;
+    for (int i = 0; i < 3; ++i) ok = ok && (strides[i] * es) % vb == 0;
+    if (ok) return vb;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -288,22 +641,45 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, void* stream) {
   if (hd < 1 || hd > 256 || KV < 1 || H % KV != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return 0;
+  const int es = dtype == kF32 ? 4 : 2;
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = out;
   p.B = B; p.H = H; p.KV = KV; p.Sq = Sq; p.Skv = Skv; p.hd = hd;
-  p.hd16 = (hd + 15) / 16 * 16;
   p.qsb = strides[0]; p.qsh = strides[1]; p.qss = strides[2];
   p.ksb = strides[3]; p.ksh = strides[4]; p.kss = strides[5];
   p.vsb = strides[6]; p.vsh = strides[7]; p.vss = strides[8];
   p.osb = strides[9]; p.osh = strides[10]; p.oss = strides[11];
-  p.causal = causal; p.window = window; p.softcap = softcap; p.scale = scale;
+  p.causal = causal; p.window = window; p.softcap = softcap;
+  p.mul = softcap > 0.f ? scale / softcap : scale * kLog2e;
+  p.cap2 = softcap * kLog2e;
+  p.vq = vec_bytes(q, strides, es);
+  p.vk = vec_bytes(k, strides + 3, es);
+  p.vv = vec_bytes(v, strides + 6, es);
+  p.vo = reinterpret_cast<uintptr_t>(out) % (2 * es) == 0 && strides[9] % 2 == 0 &&
+         strides[10] % 2 == 0 && strides[11] % 2 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return launch_nj<float>(p, st);
-    case kBF16: return launch_nj<__nv_bfloat16>(p, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return dtype == kF32 ? launch_hdp<float>(p, st) : launch_hdp<__nv_bfloat16>(p, st);
+}
+
+// The tiling the kernel takes for head_dim `hd` and `dtype`, into
+// plan[0..5]: padded head dim, query rows per CTA, keys per tile, ring
+// stages, threads per CTA and dynamic shared memory bytes.  Returns
+// cudaErrorInvalidValue for what the launcher refuses.
+extern "C" int flash_attention_plan(int hd, int dtype, int* plan) {
+  if (hd < 1 || hd > 256 || (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  const int es = dtype == kF32 ? 4 : 2, hdp = hdp_of(hd);
+  const int code = plan_code(es, hdp);
+  const int bk = code < 2 ? 64 : 32, ns = code % 2 == 0 ? 3 : 2;
+  plan[0] = hdp;
+  plan[1] = 16 * kWarps;
+  plan[2] = bk;
+  plan[3] = ns;
+  plan[4] = 32 * kWarps;
+  plan[5] = (int)smem_of(es, hdp, bk, ns);
+  return 0;
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -1,12 +1,18 @@
 """Blocked online-softmax (flash) attention, forward only.
 
 Port of `repro/kernels/flash_attention.py` `flash_attention`.  The CUDA
-kernel (`csrc/flash_attention.cu`) runs one CTA per (batch*head, 64-query
-tile), streams 64-key K/V tiles through shared memory and keeps the
-running max, denominator and accumulator in registers in f32; it skips
-the tiles the causal / window masks exclude, as the TPU kernel does.
-Unlike the TPU kernel it takes any Sq, Skv and head_dim up to 256 (ragged
-ends are masked inside), reads q/k/v through their strides, and does
+kernel (`csrc/flash_attention.cu`) computes both products on Hopper's
+tensor cores with `mma.sync`: f32 inputs as 3xTF32 (each operand split
+into two TF32 parts, three products accumulated in f32, which keeps f32's
+accuracy), bf16 inputs as bf16 products with f32 accumulation and P
+rounded to bf16.  One warp owns 16 query rows and a CTA 64; K/V tiles of
+64 or 32 keys (`plan`) stream through a ring of shared-memory stages
+filled by `cp.async`; the running max, denominator and accumulator stay
+in registers in f32.  Its bound is the tensor cores' rate (bf16 989
+TFLOP/s, f32 as three TF32 products 165 TFLOP/s), and it skips the
+tiles the causal / window masks exclude, as the TPU kernel does.  Unlike
+the TPU kernel it takes any Sq, Skv and head_dim up to 256 (ragged ends
+are masked inside), reads q/k/v through their strides, and does
 grouped-query attention natively: k/v carry KV heads and q-head h reads
 kv-head h // (H // KV), with no repeated K/V.
 
@@ -38,9 +44,28 @@ def _library() -> ctypes.CDLL:
                        ctypes.POINTER(ctypes.c_longlong), i, i,
                        ctypes.c_float, ctypes.c_float, i, p]
         fn.restype = i
+        lib.flash_attention_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.flash_attention_plan.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def plan(hd: int, dtype: torch.dtype) -> dict:
+    """The kernel's tiling for head_dim `hd` and `dtype` (from the built
+    library): the padded head dim, query rows per CTA, keys per tile, ring
+    stages, threads per CTA and dynamic shared memory in bytes."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    out = (ctypes.c_int * 6)()
+    lib = _library()
+    err = lib.flash_attention_plan(int(hd), DTYPE_CODES[dtype], out)
+    if err != 0:
+        raise ValueError("flash_attention: no tiling for head_dim "
+                         f"{hd}: " + lib.flash_attention_error_string(err).decode())
+    keys = ("head_dim_padded", "rows_per_cta", "keys_per_tile", "stages",
+            "threads", "smem_bytes")
+    return dict(zip(keys, out))
 
 
 def _check(q, k, v, window: int, softcap: float) -> None:
@@ -86,10 +111,16 @@ def flash_attention(
     i >= j, window i - j < window (window > 0); softcap > 0 caps the
     logits as softcap * tanh(s / softcap).
 
-    A query that no key may see (only without causal, when
-    i >= Skv + window - 1) gets the TPU kernel's answer, which depends on
-    the tiling, and not the plain version's uniform average: no model
-    path asks for one."""
+    A query that no key may see (with a window, when
+    i >= Skv + window - 1) gets an answer that depends on the tiling, as
+    the TPU kernel's does, and not the plain version's uniform average:
+    the mean of v over the keys j < Skv of the key tiles its warp of 16
+    queries processes, or zero when there are none.  A CTA of 64 queries
+    from q0 processes the tiles of `plan(hd, dtype)["keys_per_tile"]`
+    keys from the one holding key max(0, q0 - window + 1) through the one
+    holding Skv - 1 (under causal: its last query), and a warp skips
+    those wholly after its last query (causal) or before its first
+    query's first key (window).  No model path asks for such a row."""
     window, softcap = int(window), float(softcap)
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":

@@ -324,8 +324,10 @@ def flash_attention_ref(
     """Plain attention over q [B, H, Sq, hd] and k/v [B, KV, Skv, hd]
     (KV divides H; q-head h reads kv-head h // (H // KV), by
     `repeat_interleave`), computed in f32 and returned in q's dtype, as
-    the kernel does: scale 1/sqrt(hd), tanh softcap, causal / window
-    masks on tile-index positions filled with -1e30, softmax over keys.
+    the kernel does (f64 inputs, which the kernel does not take, are
+    computed in f64: the yardstick both are held to): scale 1/sqrt(hd),
+    tanh softcap, causal / window masks on tile-index positions filled
+    with -1e30, softmax over keys.
 
     JAX's `ref.flash_attention_ref` takes repeated heads and computes the
     scores in the inputs' dtype; in f32 the two are the same function."""
@@ -335,9 +337,10 @@ def flash_attention_ref(
     if KV != H:
         k = k.repeat_interleave(H // KV, dim=1)
         v = v.repeat_interleave(H // KV, dim=1)
-    qf, kf, vf = q.float(), k.float(), v.float()
+    ct = compute_dtype(q.dtype)
+    qf, kf, vf = q.to(ct), k.to(ct), v.to(ct)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
-    s = s / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
+    s = s / torch.sqrt(torch.tensor(float(hd), dtype=ct))
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     # query i sits at position i, key j at j (the TPU kernel's tile-index

@@ -361,7 +361,14 @@ def _close_flash(got, want):
     (2, 4, 1, 37, 300, 32, False, 0, 0.0),        # Sq < Skv, multi-query
     (1, 2, 2, 150, 130, 48, False, 40, 20.0),     # window without causal
     (1, 1, 1, 1, 5, 8, True, 0, 0.0),             # one query
-], ids=["square", "ragged-gqa", "gemma2-local", "sq<skv", "window", "one-query"])
+    (1, 4, 2, 200, 200, 33, True, 0, 0.0),        # hd not a multiple of 8
+    (2, 2, 2, 150, 333, 100, False, 0, 0.0),      # ... and Sq < Skv
+    (1, 2, 1, 4096, 4096, 64, True, 512, 0.0),    # many turns of the ring
+    (1, 2, 2, 200, 333, 256, False, 0, 0.0),      # hd 256: f32's 32-key tiles
+    (2, 4, 4, 1, 1000, 112, False, 0, 0.0),       # one query, many keys
+    (1, 2, 2, 1, 1, 256, True, 0, 0.0),           # one query, one key
+], ids=["square", "ragged-gqa", "gemma2-local", "sq<skv", "window", "one-query",
+        "hd33", "hd100", "s4096-window", "hd256", "sq1", "sq1-skv1"])
 def test_cuda_flash_attention_equals_plain(cuda_device, dt, case):
     B, H, KV, Sq, Skv, hd, causal, window, softcap = case
     gen = torch.Generator(device=cuda_device).manual_seed(Sq + hd)
@@ -411,6 +418,100 @@ def test_cuda_flash_attention_counts_launches_and_raises(cuda_device):
         z = torch.zeros(1, 3, 16, 32, device=cuda_device)
         flash_attention(q, z, z)
     assert flash_attention.launches == 1
+
+
+def _flash_qkv(dev, dt, B, H, KV, Sq, Skv, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, Sq, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, KV, Skv, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, KV, Skv, hd, generator=gen, device=dev).to(dt)
+    return q, k, v
+
+
+def _flash_once(q, k, v, **kw):
+    """The kernel against its plain version, in one launch."""
+    flash_attention.launches = 0
+    got = flash_attention(q, k, v, **kw)
+    assert flash_attention.launches == 1
+    _close_flash(got, ref.flash_attention_ref(q, k, v, **kw))
+    return got
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("width,lo,hd", [
+    (33, 0, 33),   # f32 rows 4-byte aligned, bf16 2-byte: plain loads
+    (34, 0, 32),   # f32 8-byte, bf16 4-byte
+    (36, 1, 32),   # the base pointer one element past a 16-byte boundary
+])
+def test_cuda_flash_attention_unaligned_rows(cuda_device, dt, width, lo, hd):
+    """Seq strides and base addresses that are not 16-byte aligned take
+    the narrower copies (or plain loads), with the same answer."""
+    gen = torch.Generator(device=cuda_device).manual_seed(width + lo)
+    B, H, S = 2, 3, 130
+    q, k, v = (torch.randn(B, H, S, width, generator=gen, device=cuda_device)
+               .to(dt)[..., lo:lo + hd] for _ in range(3))
+    assert q.stride(2) == width
+    _flash_once(q, k, v, causal=True, window=0, softcap=0.0)
+    _flash_once(q, k, v, causal=False, window=20, softcap=30.0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 112, 256])
+def test_cuda_flash_attention_masked_first_tile_rows(cuda_device, dt, hd):
+    """Causal windows whose first key straddles a key-tile boundary inside
+    one warp's 16 rows: the warp processes the tile, which is fully masked
+    for its later rows (their -1e30 average, wiped at their first real
+    key)."""
+    from repro_torch.kernels.flash_attention import plan
+
+    bk = plan(hd, dt)["keys_per_tile"]
+    window, S = bk + 7, 6 * bk
+    # rows 16c .. 16c+15 of a warp with 16c = bk * n: first keys
+    # bk(n-1) - 6 .. bk(n-1) + 9, across the boundary at bk(n-1)
+    first = [i - window + 1 for i in range(2 * bk, 2 * bk + 16)]
+    assert min(first) < bk <= max(first)
+    q, k, v = _flash_qkv(cuda_device, dt, 1, 4, 2, S, S, hd, hd)
+    got = _flash_once(q, k, v, causal=True, window=window, softcap=0.0)
+    assert torch.isfinite(got).all()
+
+
+def test_cuda_flash_attention_rows_no_key_may_see(cuda_device):
+    """The documented, tiling-dependent answer of a query that no key may
+    see (no causal mask, window w, i >= Skv + w - 1): the mean of v over
+    the keys j < Skv of the tiles its warp processes."""
+    from repro_torch.kernels.flash_attention import plan
+
+    hd, Skv, window, Sq = 64, 100, 10, 192
+    bk = plan(hd, torch.float32)["keys_per_tile"]
+    q, k, v = _flash_qkv(cuda_device, torch.float32, 1, 1, 1, Sq, Skv, hd, 7)
+    got = flash_attention(q, k, v, causal=False, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    t_hi = -(-Skv // bk)
+    for i in range(Sq):
+        if i < Skv + window - 1:  # sees a key: the plain version's answer
+            torch.testing.assert_close(got[0, 0, i], want[0, 0, i], rtol=1e-5, atol=1e-5)
+            continue
+        q0, qw = i // 64 * 64, i // 16 * 16
+        t_lo = max(0, q0 - window + 1) // bk
+        tiles = [t for t in range(t_lo, t_hi) if t * bk + bk - 1 >= qw - window + 1]
+        keys = [j for t in tiles for j in range(t * bk, min(t * bk + bk, Skv))]
+        mean = v[0, 0, keys].mean(0) if keys else torch.zeros_like(v[0, 0, 0])
+        torch.testing.assert_close(got[0, 0, i], mean, rtol=1e-5, atol=1e-5)
+
+
+def test_cuda_flash_attention_plan_fits_shared_memory(cuda_device):
+    """Every head-dim bucket and dtype has a tiling that fits the card's
+    227 KB of shared memory per CTA, and the serving head size (112)
+    fits two CTAs per SM."""
+    from repro_torch.kernels.flash_attention import plan
+
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in range(1, 257):
+            p = plan(hd, dt)
+            assert p["head_dim_padded"] >= hd and p["head_dim_padded"] % 16 == 0
+            assert p["smem_bytes"] <= 227 * 1024, (hd, dt, p)
+        assert plan(112, dt)["smem_bytes"] <= 113 * 1024
 
 
 def _scan_inputs(dev, B, S, H, P, N, da_shape, seed):

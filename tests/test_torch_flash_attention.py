@@ -149,3 +149,135 @@ def test_raises_on_what_it_does_not_take():
         flash_attention(z, z, z)
     with pytest.raises(ValueError, match="no keys"):
         flash_attention(q, torch.zeros(1, 4, 0, 16), torch.zeros(1, 4, 0, 16))
+
+
+# ------------------------------------- the CUDA kernel's arithmetic, emulated
+# `csrc/flash_attention.cu` computes both products on the tensor cores: f32
+# as 3xTF32 (each operand split into hi = rna(x), lo = rna(x - hi), both
+# TF32, and hi*hi + hi*lo + lo*hi accumulated in f32), bf16 with P rounded
+# to bf16 before the PV product (its row sum from the f32 values).  The
+# emulation below repeats that arithmetic on the CPU, tile by tile, in log2
+# units as the kernel does; the products themselves are exact here (f64),
+# as a TF32 x TF32 product is on the card, so what it pins is the rounding
+# of the operands.
+LOG2E = 1.4426950408889634
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32`: round to 10 mantissa bits, ties away from zero,
+    by bit masking (add half of the dropped unit to the magnitude bits,
+    then clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, route: str) -> torch.Tensor:
+    """a @ b (f32 operands) as the kernel's tensor-core route takes it."""
+    if route == "3xtf32":
+        ah, bh = _tf32_rna(a), _tf32_rna(b)
+        al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+        out = (al.double() @ bh.double() + ah.double() @ bl.double()
+               + ah.double() @ bh.double())
+    elif route == "1xtf32":
+        out = _tf32_rna(a).double() @ _tf32_rna(b).double()
+    else:  # bf16: the operands are bf16 values already
+        out = a.double() @ b.double()
+    return out.float()
+
+
+def _emulate(q, k, v, *, causal, window, softcap, route, bk):
+    """The kernel's online softmax over key tiles of `bk`, in f32 on the
+    CPU (q/k/v [B, H, S, hd] f32 tensors, H == KV)."""
+    Sq, Skv, hd = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / np.sqrt(hd)
+    qp = torch.arange(Sq)[:, None]
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, Skv, bk):
+        kt, vt = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        s = _product(q, kt.transpose(-1, -2), route)
+        if softcap > 0:
+            x = np.float32(softcap * LOG2E) * torch.tanh(s * np.float32(scale / softcap))
+        else:
+            x = s * np.float32(scale * LOG2E)
+        kp = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = torch.ones(Sq, kt.shape[2], dtype=torch.bool)
+        if causal:
+            keep &= qp >= kp
+        if window > 0:
+            keep &= qp - kp < window
+        x = torch.where(keep, x, torch.full_like(x, -1e30))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if route == "bf16":
+            p = p.to(torch.bfloat16).float()
+        acc = acc * alpha + _product(p, vt, route)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+#: (causal, window, softcap); a softcap of 5 bites at these unit-variance
+#: logits as Gemma-2's 50 does at a trained model's
+EMULATED = {
+    "causal": (True, 0, 0.0), "window": (True, 48, 0.0), "softcap": (True, 0, 5.0),
+}
+
+
+def _emulation_inputs(hd, name, seed):
+    """[1, 2, 192, hd] q/k/v from numpy, in `name`'s precision, as f32
+    numpy arrays."""
+    q, k, v = _qkv(seed, (1, 2, 192, hd), (1, 2, 192, hd))
+    if name == "bf16":
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                   for a in (q, k, v))
+    return q, k, v
+
+
+def _jax_ref(q, k, v, case):
+    causal, window, softcap = EMULATED[case]
+    return _np(jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                        causal=causal, window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+@pytest.mark.parametrize("hd", [64, 112, 256])
+def test_3xtf32_arithmetic_within_the_f32_tolerance(hd, case):
+    """The f32 route (3xTF32; 32-key tiles at hd 256 as the kernel takes
+    them in f32, 64 below) against JAX's f32 reference: within 1e-5."""
+    q, k, v = _emulation_inputs(hd, "f32", 10 + hd)
+    causal, window, softcap = EMULATED[case]
+    got = _emulate(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                   window=window, softcap=softcap, route="3xtf32",
+                   bk=32 if hd > 128 else 64)
+    np.testing.assert_allclose(_np(got), _jax_ref(q, k, v, case), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [64, 112, 256])
+def test_1xtf32_arithmetic_misses_the_f32_tolerance(hd):
+    """Why the f32 route splits each operand: one TF32 product per f32
+    product lands outside the 1e-5 the kernel is held to."""
+    q, k, v = _emulation_inputs(hd, "f32", 10 + hd)
+    got = _emulate(*(torch.from_numpy(a) for a in (q, k, v)), causal=True, window=0,
+                   softcap=0.0, route="1xtf32", bk=64)
+    err = float(np.abs(_np(got) - _jax_ref(q, k, v, "causal")).max())
+    assert err > 1e-5, err
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+@pytest.mark.parametrize("hd", [64, 112, 256])
+def test_bf16_p_arithmetic_within_one_bf16_rounding(hd, case):
+    """The bf16 route (P rounded to bf16 for PV, the output rounded to
+    bf16) against JAX's reference on the same bf16 values computed in f32:
+    within 2^-7 of the largest |output|."""
+    q, k, v = _emulation_inputs(hd, "bf16", 20 + hd)
+    causal, window, softcap = EMULATED[case]
+    got = _emulate(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                   window=window, softcap=softcap, route="bf16", bk=64)
+    got = got.to(torch.bfloat16)
+    want = _jax_ref(q, k, v, case)
+    err = float(np.abs(_np(got) - want).max())
+    assert err <= 2.0 ** -7 * float(np.abs(want).max()), err
