@@ -27,9 +27,14 @@ Phases:
              each kernel vs its plain version, bit for bit: every
              correction dtype, top-k and rand-k, bits 2-32, every
              encoding, at the main path's [16, 4096] f64, ragged rows,
-             rows longer than shared memory and rows with NaN; times at
-             [16, 4096] f64 and [16384, 4096] f32 against the HBM bound
-             and `torch.topk` of |c + e| (the library yardstick)
+             rows longer than shared memory and rows with NaN; pack also
+             on all-tie, one-exponent and split-tie rows at odd lengths,
+             more rows than twice the SMs and unaligned operands; times at
+             [16, 4096] f64 and [16384, 4096] f32 (pack: top-k and rand-k
+             8-bit) against the HBM bound and `torch.topk` of the scores
+             (the library yardstick); pack's main-shape device time per
+             call (profiler) beside its wall time, and each `pack_kernel`
+             instantiation's registers, spills and shared memory
   flash_attention
              kernel vs plain version (tolerance 1e-5 in f32; in bf16 one
              rounding, 2^-7 of the largest |output|), and both vs an f64
@@ -448,8 +453,111 @@ def phase_compress_correction(torch, card: str, shared: dict) -> dict:
             "library": "torch.topk(|c + e|, k) (the select alone)"}
 
 
+def select_rows(torch, R, C, dt, seed):
+    """A leaf whose rows the staged pack's select must take apart, cycled
+    over R: all equal, one exponent byte (|v| in [1, 2)), a block of ties
+    below a few larger values (tied rand-k scores too), NaN every third
+    column (NaN rand-k scores too), zeros and Gaussian; feedback only
+    where it keeps the ties; f64 uniforms."""
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    f64 = dict(generator=gen, device=DEVICE, dtype=torch.float64)
+    scale = 50.0 if dt == "fp8" else 100.0
+    c = torch.randn(R, C, **f64) * scale
+    e = torch.randn(R, C, **f64) * (scale * 0.1)
+    us, ur = torch.rand(R, C, **f64), torch.rand(R, C, **f64)
+    big = max(1, C // 10)
+    kinds = torch.arange(R, device=DEVICE) % 6
+    c[kinds == 0], us[kinds == 0] = 2.5, 0.5
+    c[kinds == 1] = 1.0 + torch.rand(int((kinds == 1).sum()), C, **f64)
+    two = kinds == 2
+    c[two] = torch.rand(int(two.sum()), C, **f64) - 2.0
+    c[two.nonzero()[:, None], torch.arange(0, C, 3, device=DEVICE)] = 7.0
+    us[two.nonzero()[:, None], torch.arange(0, C, 3, device=DEVICE)] = 0.75
+    c[two.nonzero()[:, None], torch.arange(big, device=DEVICE)] = 50.0
+    three = (kinds == 3).nonzero()[:, None]
+    c[three, torch.arange(0, C, 3, device=DEVICE)] = float("nan")
+    us[three, torch.arange(0, C, 3, device=DEVICE)] = float("nan")
+    c[kinds == 4] = 0.0
+    e[(kinds == 0) | (kinds == 1) | (kinds == 2) | (kinds == 4)] = 0.0
+    dtype = dtypes_of(torch)[dt]
+    return ref.cast_to(c, dtype), ref.cast_to(e, dtype), us, ur
+
+
+def pack_select_cases(torch, sms: int):
+    """(tag, leaf, k, bits, mode, encoding, index dtype, shifted) of the
+    staged pack's own matrix: select rows at odd lengths (rows starting
+    off a vector boundary) in every dtype, more rows than twice the SMs
+    (the 256-thread CTAs; fewer take 512) and operands one element off an
+    aligned base (scalar accesses)."""
+    payloads = [("quant", 8), ("quant_dense", 4), ("sparse", 32), ("dense", 2)]
+    for dt, mode, C in itertools.product(dtypes_of(torch), ("topk", "randk"),
+                                         (37, 1001, 4097)):
+        for j, k in enumerate(sorted({1, C // 3, C - 1, C})):
+            for enc, bits in payloads:
+                yield (f"{dt} {mode} {enc} select-rows 6x{C} k{k}", (6, C, dt, C), k,
+                       bits, mode, enc, (torch.int32, torch.uint16)[j % 2], False)
+    R = 2 * sms + 7
+    for dt, mode, enc in itertools.product(("f64", "f32", "bf16"), ("topk", "randk"),
+                                           ENCODINGS):
+        bits = 32 if enc == "sparse" else 8
+        yield (f"{dt} {mode} {enc} {R}x4096", (R, 4096, dt, 3), 1024, bits, mode, enc,
+               torch.uint16, False)
+        yield (f"{dt} {mode} {enc} 5x1000 shifted", (5, 1000, dt, 5), 250, bits, mode,
+               enc, torch.int32, True)
+
+
+def shifted(torch, t):
+    """A contiguous copy of t one element past an aligned base."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def pack_kernel_report() -> list:
+    """Each staged `pack_kernel` instantiation's registers, spills and
+    static shared memory (the ptxas report of this process's build)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    names = {"d": "f64", "f": "f32", "13__nv_bfloat16": "bf16", "13__nv_fp8_e4m3": "fp8"}
+    out = []
+    for u in _build.ptxas_usage("pack_payload"):
+        m = re.search(r"11pack_kernelI(d|f|13__nv_bfloat16|13__nv_fp8_e4m3)(d|f)(d|f)Li(\d+)E",
+                      u["function"])
+        if m:
+            out.append({"c": names[m.group(1)], "uniforms": names[m.group(3)],
+                        "threads": int(m.group(4)), "registers": u.get("registers"),
+                        "spill_store_bytes": u.get("spill_store_bytes"),
+                        "spill_load_bytes": u.get("spill_load_bytes"),
+                        "static_smem_bytes": u.get("static_smem_bytes")})
+    return out
+
+
+def device_ms_per_call(torch, run, kernel: str, calls: int = 50) -> float:
+    """Device time of `kernel` per call of run(), from the profiler (None
+    if the profiler saw no such kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    us = [getattr(ev, "self_device_time_total", None) or ev.self_cuda_time_total
+          for ev in prof.key_averages()
+          if ev.device_type == DeviceType.CUDA and kernel in ev.key]
+    return sum(us) / 1e3 / calls if us else None
+
+
 def phase_pack_payload(torch, card: str, shared: dict) -> dict:
     from repro_torch.kernels import pack_payload_2d, ref
+    from repro_torch.kernels.pack_payload import pack_staged
 
     n = 0
     for tag, args, k, bits, mode, enc, idt in pack_cases(torch):
@@ -462,35 +570,62 @@ def phase_pack_payload(torch, card: str, shared: dict) -> dict:
             check(bitwise(torch, g, w), f"pack_payload {tag}: {name} differs from "
                                         "the plain version")
         n += 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tag, (R, C, dt, seed), k, bits, mode, enc, idt, off in pack_select_cases(torch, sms):
+        leaf = select_rows(torch, R, C, dt, seed)
+        if off:
+            leaf = tuple(shifted(torch, t) for t in leaf)
+        kw = dict(k=k, bits=bits, mode=mode, encoding=enc, index_dtype=idt)
+        got = pack_payload_2d(*leaf, **kw)
+        want = ref.pack_payload_ref(*leaf, **kw)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, want, ("data", "idx", "scale", "resid")):
+            check(bitwise(torch, g, w), f"pack_payload {tag}: {name} differs from "
+                                        "the plain version")
+        n += 1
+    check(pack_staged(4096, 1024, "topk", "quant", 256, torch.float64, torch.uint16)
+          and not pack_staged(60000, 15000, "topk", "quant", 3750, torch.float32),
+          "pack_payload: shared-memory staging not as expected")
     timing = {}
     # (b)'s shape: [16, 4096] f64, 8-bit, top-k 0.25, quant with uint16
-    # indices; and a large f32 leaf
-    for name, (R, C, dt), reps in [("main", (16, 4096, "f64"), 200),
-                                   ("large", (*LARGE, "f32"), 10)]:
+    # indices; and a large f32 leaf, top-k and rand-k (with u_sel)
+    for name, (R, C, dt), mode, reps in [("main", (16, 4096, "f64"), "topk", 200),
+                                         ("large", (*LARGE, "f32"), "topk", 10),
+                                         ("large_randk8", (*LARGE, "f32"), "randk", 10)]:
         c, e, us, ur = make_leaf(torch, R, C, dt, True, 11)
+        us = us if mode == "randk" else None
         k = C // 4
-        kw = dict(k=k, bits=8, mode="topk", encoding="quant", index_dtype=torch.uint16)
+        kw = dict(k=k, bits=8, mode=mode, encoding="quant", index_dtype=torch.uint16)
         ct = ref.compute_dtype(c.dtype)
-        ceff_abs = (c.to(ct) + e.to(ct)).abs()
-        got = pack_payload_2d(c, e, None, ur, **kw)
-        want = ref.pack_payload_ref(c, e, None, ur, **kw)
+        score = us.to(ct) if mode == "randk" else (c.to(ct) + e.to(ct)).abs()
+        got = pack_payload_2d(c, e, us, ur, **kw)
+        want = ref.pack_payload_ref(c, e, us, ur, **kw)
         err = max_abs_err(torch, got, want)
         check(err == 0.0, f"pack_payload {name}: max |err| {err}")
+        run = lambda: pack_payload_2d(c, e, us, ur, **kw)
         timing[name] = {
-            "shape": [R, C], "dtype": dt, "k": k, "bits": 8, "mode": "topk",
+            "shape": [R, C], "dtype": dt, "k": k, "bits": 8, "mode": mode,
             "encoding": "quant", "max_abs_err": err,
+            "threads_per_cta": 256 if R >= 2 * sms else 512,
             **time_case(
-                torch, lambda: pack_payload_2d(c, e, None, ur, **kw),
-                lambda: ref.pack_payload_ref(c, e, None, ur, **kw),
-                lambda: torch.topk(ceff_abs, k, dim=-1),
-                nbytes(c, e, ur, *got), reps, 20 if R == 16 else 3, card),
+                torch, run, lambda: ref.pack_payload_ref(c, e, us, ur, **kw),
+                lambda: torch.topk(score, k, dim=-1),
+                nbytes(c, e, us, ur, *got), reps, 20 if R == 16 else 3, card),
         }
-        shared.setdefault("payloads", {})[name] = (want[:3], C, c.dtype, k)
-        del c, e, us, ur, ceff_abs, got, want
+        if name == "main":
+            # wall per call (back-to-back calls, CUDA events) against the
+            # kernel's own device time: their difference is the host's
+            dev = device_ms_per_call(torch, run, "pack_kernel")
+            timing[name].update(device_ms_per_call=dev, host_ms_per_call=(
+                None if dev is None else timing[name]["ms"] - dev))
+        if name != "large_randk8":
+            shared.setdefault("payloads", {})[name] = (want[:3], C, c.dtype, k)
+        del c, e, us, ur, score, got, want
         torch.cuda.empty_cache()
     shared.setdefault("timing", {})["pack_payload"] = timing
-    return {"cases_bitwise": n, "timing": timing,
-            "library": "torch.topk(|c + e|, k) (the select alone)"}
+    return {"cases_bitwise": n, "timing": timing, "pack_kernel": pack_kernel_report(),
+            "library": "torch.topk(score, k) (the select alone; score = |c + e| "
+                       "for top-k, u_sel for rand-k)"}
 
 
 def phase_unpack_payload(torch, card: str, shared: dict) -> dict:

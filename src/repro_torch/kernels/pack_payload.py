@@ -12,7 +12,8 @@ packed wire format of `fed/transport.py`:
                      zero row
 
 Both run the CUDA kernels of `csrc/pack_payload.cu` on CUDA tensors (one
-CTA per row, any row length) and their plain versions
+CTA per row, any row length: a row that fits shared memory is staged
+there, a longer one streams) and their plain versions
 (`ref.pack_payload_ref`, `ref.decode_payload_ref`) on CPU tensors; every
 output is bitwise equal between the two.  There is no fallback: a CUDA
 tensor the kernels do not take raises.  `launches` on each wrapper counts
@@ -21,6 +22,7 @@ kernel launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -52,6 +54,8 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, d, d, p,
         ]
         lib.unpack_payload_launch.restype = i
+        lib.pack_payload_staged.argtypes = [i, i, i, i, i, i, i]
+        lib.pack_payload_staged.restype = i
         lib.pack_payload_error_string.argtypes = [i]
         lib.pack_payload_error_string.restype = ctypes.c_char_p
     return lib
@@ -76,6 +80,21 @@ def payload_data_shape(encoding: str, R: int, C: int, k: int, bits: int):
         n = C if encoding == "quant_dense" else k
         return (R, ref.word_layout(n, bits)[2])
     return (R, k) if encoding == "sparse" else (R, C)
+
+
+@functools.lru_cache(maxsize=256)
+def pack_staged(C: int, k: int, mode: str, encoding: str, words: int,
+                dtype: torch.dtype, index_dtype: torch.dtype = torch.int32) -> bool:
+    """Whether pack stages a row of C columns (k kept, `words` words of
+    data) in shared memory on this card; a longer row streams from global
+    memory, and its quant levels need a scratch row.  Needs the card."""
+    got = _library().pack_payload_staged(
+        int(C), int(k), int(mode == "topk"), ENCODING_CODES[encoding],
+        int(index_dtype == torch.uint16), int(words), DTYPE_CODES[dtype])
+    if got < 0:
+        raise ValueError(f"pack_payload: no staging rule for C={C}, k={k}, "
+                         f"{dtype}")
+    return bool(got)
 
 
 def pack_payload_2d(
@@ -123,9 +142,13 @@ def pack_payload_2d(
     resid = torch.empty_like(c)
     if R == 0:
         return data, idx, scale, resid
-    # levels of a row too long for shared memory are staged here
+    words = shape[1] if quant else 0
+    # the quant levels of a row that streams are staged here
     scratch = (torch.empty((R, k), dtype=torch.uint32, device=c.device)
-               if encoding == "quant" else None)
+               if encoding == "quant"
+               and not pack_staged(C, k, mode, encoding, words, c.dtype,
+                                   index_dtype)
+               else None)
     u = us if us is not None else ur
     s, inv_s = quant_constants(bits)
     lib = _library()
@@ -135,8 +158,7 @@ def pack_payload_2d(
             c.data_ptr(), ptr(e), ptr(us), ptr(ur), data.data_ptr(),
             idx.data_ptr(), scale.data_ptr(), resid.data_ptr(), ptr(scratch),
             R, C, k, bits, int(mode == "topk"), ENCODING_CODES[encoding],
-            int(index_dtype == torch.uint16), shape[1] if quant else 0,
-            DTYPE_CODES[c.dtype],
+            int(index_dtype == torch.uint16), words, DTYPE_CODES[c.dtype],
             UNIFORM_CODES[u.dtype] if u is not None else 0, s, inv_s,
             stream_of(c),
         )

@@ -30,6 +30,7 @@ from repro_torch.kernels import (
     unpack_payload_2d,
 )
 from repro_torch.kernels.compress_correction import staged_in_shared_memory
+from repro_torch.kernels.pack_payload import pack_staged, payload_data_shape
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params
 from repro_torch.problems import make_quadratic_problem
@@ -238,6 +239,9 @@ def test_cuda_rows_longer_than_shared_memory_stream(cuda_device, case):
     dt, mode, R, C = case
     assert not staged_in_shared_memory(C, DT[dt], mode == "randk")
     assert staged_in_shared_memory(4096, DT[dt], mode == "randk")
+    for enc in ENCODINGS:
+        words = payload_data_shape(enc, R, C, C // 4, 4)[1] if enc.startswith("quant") else 0
+        assert not pack_staged(C, C // 4, mode, enc, words, DT[dt])
     c, e, us, ur = _leaf(cuda_device, R, C, dt, True, 7)
     for bits in (4, 32):
         _check_compress(c, e, us, ur, C // 4, bits, mode)
@@ -258,6 +262,98 @@ def test_cuda_nan_rows_and_f32_uniforms(cuda_device, dt, mode):
                 _check_compress(c, e, us, ur, k, bits, mode)
             for enc in ENCODINGS:
                 _check_pack(c, e, us, ur, k, 8, mode, enc, torch.int32)
+
+
+def _select_rows(dev, R, C, dt, seed):
+    """Rows the staged pack's select must take apart, cycled over R: all
+    equal, one exponent byte (|v| in [1, 2)), a block of ties below a few
+    larger values (tied rand-k scores too), NaN every third column (NaN
+    rand-k scores too), zeros and Gaussian; feedback only where it keeps
+    the ties; f64 uniforms."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=gen, device=dev, dtype=torch.float64)
+    scale = 50.0 if dt == "fp8" else 100.0
+    c = torch.randn(R, C, **f64) * scale
+    e = torch.randn(R, C, **f64) * (scale * 0.1)
+    us, ur = torch.rand(R, C, **f64), torch.rand(R, C, **f64)
+    sign = torch.where(torch.rand(R, C, **f64) < 0.5, -1.0, 1.0)
+    big = max(1, C // 10)
+    for r in range(R):
+        kind = r % 6
+        if kind == 0:
+            c[r], us[r] = 2.5, 0.5
+        elif kind == 1:
+            c[r] = (1.0 + torch.rand(C, **f64)) * sign[r]
+        elif kind == 2:
+            c[r] = torch.rand(C, **f64) - 2.0
+            c[r, ::3], us[r, ::3] = 7.0, 0.75
+            c[r, :big] = 50.0
+        elif kind == 3:
+            c[r, ::3], us[r, ::3] = float("nan"), float("nan")
+        elif kind == 4:
+            c[r] = 0.0
+        if kind in (0, 1, 2, 4):
+            e[r] = 0.0
+    return ref.cast_to(c, DT[dt]), ref.cast_to(e, DT[dt]), us, ur
+
+
+@pytest.mark.parametrize("C", [37, 1001, 4097])
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_pack_select_rows_and_unaligned_starts(cuda_device, dt, mode, C):
+    """All-tie, one-exponent, split-tie, NaN and zero rows, at odd row
+    lengths (so most rows start off a vector boundary), k from 1 to C."""
+    c, e, us, ur = _select_rows(cuda_device, 6, C, dt, C)
+    for j, k in enumerate(sorted({1, C // 3, C - 1, C})):
+        idx_dtype = (torch.int32, torch.uint16)[j % 2]
+        for enc, bits in [("quant", 8), ("quant_dense", 4), ("sparse", 32), ("dense", 2)]:
+            _check_pack(c, e, us, ur, k, bits, mode, enc, idx_dtype)
+
+
+@pytest.mark.parametrize("R", [3, 600], ids=["few_rows", "many_rows"])
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16"])
+def test_cuda_pack_launch_routes(cuda_device, dt, R):
+    """Rows fewer and more than twice the SMs take the 512- and 128-thread
+    CTAs; both equal the plain version, one launch per call."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert R < 2 * sms if R == 3 else R >= 2 * sms
+    for C, mode in [(4096, "topk"), (1000, "randk")]:
+        c, e, us, ur = _select_rows(cuda_device, R, C, dt, R + C)
+        pack_payload_2d.launches = 0
+        for enc in ENCODINGS:
+            _check_pack(c, e, us, ur, C // 4, 8 if enc != "sparse" else 32, mode, enc,
+                        torch.uint16)
+        assert pack_payload_2d.launches == len(ENCODINGS)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_pack_unaligned_base_pointers(cuda_device, dt):
+    """Operands whose base is off a 16-byte boundary take the scalar
+    accesses of the staged route (and the same bits)."""
+    R, C = 5, 1000
+    c, e, us, ur = _select_rows(cuda_device, R, C, dt, 11)
+
+    def shifted(t):  # a contiguous copy one element past an aligned base
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    cs, es, uss, urs = map(shifted, (c, e, us, ur))
+    assert cs.data_ptr() % 16 and uss.data_ptr() % 16
+    for mode in ("topk", "randk"):
+        for enc in ENCODINGS:
+            _check_pack(cs, es, uss, urs, C // 4, 8 if enc != "sparse" else 32, mode,
+                        enc, torch.int32)
+
+
+def test_cuda_pack_stages_rows_that_fit(cuda_device):
+    """The main path's rows are staged in shared memory, so no scratch row
+    is allocated for them; rows past the card's shared memory stream."""
+    for dt in DT.values():
+        for mode in ("topk", "randk"):
+            assert pack_staged(4096, 1024, mode, "quant", 256, dt)
+    assert not pack_staged(60000, 15000, "topk", "quant", 3750, torch.float32)
 
 
 def test_cuda_compress_kernels_count_launches_and_raise(cuda_device):
