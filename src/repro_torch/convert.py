@@ -12,7 +12,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .core.types import MinimaxProblem, tree_map
+from .core.types import MinimaxProblem, identity_proj, tree_map
 from .device import DeviceLike, resolve_device
 
 #: ml_dtypes names -> (same-width unsigned view, torch dtype)
@@ -49,24 +49,45 @@ def tree_from_numpy(
     return tree_map(lambda a: tensor_from_numpy(a, device, dtype), tree)
 
 
+def _problem_kind(kind: str):
+    """(loss, proj_y) of a problem kind: the projection travels with it."""
+    from .core.projections import l2_ball_proj, simplex_proj
+    from .problems import agnostic, quadratic, robust_regression, toy
+
+    kinds = {
+        "quadratic": (quadratic._loss, identity_proj),
+        "toy": (toy._loss, identity_proj),
+        "robust_regression": (robust_regression._loss, l2_ball_proj(1.0)),
+        "agnostic": (agnostic._loss, simplex_proj()),
+    }
+    if kind not in kinds:
+        raise ValueError(f"unknown problem kind {kind!r} ({' | '.join(kinds)})")
+    return kinds[kind]
+
+
 def problem_from_numpy(
     kind: str,
     agent_data: Any,
     device: DeviceLike = None,
     dtype: Optional[torch.dtype] = None,
 ) -> MinimaxProblem:
-    """The port's `MinimaxProblem` of `kind` ("quadratic" | "toy") on the
-    JAX package's agent data (numpy), e.g. the `repro.problems` builders'
-    `agent_data` after `np.asarray`."""
-    if kind == "quadratic":
-        from .problems.quadratic import _loss
-    elif kind == "toy":
-        from .problems.toy import _loss
-    else:
-        raise ValueError(f"unknown problem kind {kind!r} (quadratic | toy)")
-    data = tree_from_numpy(dict(agent_data), device, dtype)
+    """The port's `MinimaxProblem` of `kind` ("quadratic" | "toy" |
+    "robust_regression" | "agnostic") on the JAX package's agent data
+    (numpy), e.g. the `repro.problems` builders' `agent_data` after
+    `np.asarray`.  The kind brings its Proj_Y: the unit l2 ball for
+    robust regression (the builder's default radius), the simplex for
+    agnostic FL.  `dtype` casts the floating leaves only (agnostic's int32
+    `agent_index` stays integral)."""
+    loss, proj_y = _problem_kind(kind)
+    device = resolve_device(device)
+
+    def leaf(a):
+        t = tensor_from_numpy(a, device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    data = tree_map(leaf, dict(agent_data))
     m = int(next(iter(data.values())).shape[0])
-    return MinimaxProblem(loss=_loss, agent_data=data, num_agents=m)
+    return MinimaxProblem(loss=loss, agent_data=data, num_agents=m, proj_y=proj_y)
 
 
 def strategy_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:

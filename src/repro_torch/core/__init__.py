@@ -34,6 +34,12 @@ from .fedgda_gt import (
     make_fedgda_gt_round,
     make_fedgda_gt_round_reference,
 )
+from .generalization import (
+    empirical_rademacher,
+    generalization_gap,
+    lemma3_vc_bound,
+    theorem2_bound,
+)
 from .fixed_point import (
     APPENDIX_C_MINIMAX_POINT,
     appendix_c_fixed_point,
@@ -77,4 +83,8 @@ __all__ = [
     "appendix_c_fixed_point",
     "local_operators",
     "prop1_residual",
+    "empirical_rademacher",
+    "generalization_gap",
+    "lemma3_vc_bound",
+    "theorem2_bound",
 ]

@@ -12,7 +12,6 @@ from typing import Callable
 
 from torch.func import vmap
 
-from ..device import not_ported
 from .engine import make_round
 from .types import (
     LossFn,
@@ -24,6 +23,7 @@ from .types import (
     tree_leaves,
     tree_map,
     tree_mean_over_agents,
+    vmap_grad_xy,
 )
 
 
@@ -70,6 +70,30 @@ def make_local_sgda_round_reference(
     return round
 
 
-def make_scheduled_local_sgda_round(*args, **kwargs) -> Callable:
-    """Local SGDA with a call-time stepsize: not ported yet."""
-    raise not_ported("make_scheduled_local_sgda_round", "Queue 1 item 2")
+def make_scheduled_local_sgda_round(
+    loss: LossFn,
+    num_local_steps: int,
+    proj_x: ProjFn = identity_proj,
+    proj_y: ProjFn = identity_proj,
+) -> Callable:
+    """Local SGDA with the stepsize as a CALL-TIME argument:
+    round(x, y, agent_data, eta) -> (x, y).
+
+    This is the regime of [25, 26]: with a diminishing eta_t, Local SGDA
+    converges to the exact solution — sublinearly (the accurate-but-slow
+    branch of the paper's tradeoff, cf. the constant-stepsize bias floor
+    of Proposition 1).  One round function serves every round: eta is an
+    argument, a Python float from `optim.schedules` or a tensor."""
+    vgrad = vmap_grad_xy(loss)
+
+    def round(x: Pytree, y: Pytree, agent_data: Pytree, eta):
+        m = tree_leaves(agent_data)[0].shape[0]
+        xs = tree_broadcast_agents(x, m)
+        ys = tree_broadcast_agents(y, m)
+        for _ in range(num_local_steps):
+            g = vgrad(xs, ys, agent_data)
+            xs = tree_map(lambda u, v: u - eta * v, xs, g.gx)
+            ys = tree_map(lambda u, v: u + eta * v, ys, g.gy)
+        return proj_x(tree_mean_over_agents(xs)), proj_y(tree_mean_over_agents(ys))
+
+    return round

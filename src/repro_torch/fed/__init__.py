@@ -1,5 +1,7 @@
-"""Federated layer of the port: communication strategies and the packed
-wire transport (the runtimes are ROADMAP Queue 1 items 3 and 10)."""
+"""Federated layer of the port: the synchronous runner, communication
+strategies and the packed wire transport (the asynchronous runtime is
+ROADMAP Queue 1 item 10)."""
+from .runtime import FederatedRunner, RoundStats
 from .strategies import (
     CommStrategy,
     CompressedGT,
@@ -21,6 +23,8 @@ from .transport import (
 )
 
 __all__ = [
+    "FederatedRunner",
+    "RoundStats",
     "CommStrategy",
     "CompressedGT",
     "FullSync",

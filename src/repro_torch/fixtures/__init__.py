@@ -15,8 +15,22 @@ the Theorem 1 problem above (K=10, eta=2e-4, `THM1_ROUNDS` rounds, keys
 convergence tests (`quad6_G`, `quad6_Ab`; K=4, eta=2e-4, `QUAD6_ROUNDS`
 rounds, keys `quad6_<run>_gap`), each with the final gap appended.
 
-`tests/test_torch_fixtures.py` rebuilds both files from the JAX package;
-run that file as a script to rewrite them.
+`robust_agnostic.npz` holds, for each alpha of `ROBUST_ALPHAS`, the Sec
+5.2 robust-regression problem exactly as the JAX builder draws it from
+PRNGKey(0) at Fig 2's size (`ROBUST`: d=20, n=100, m=10; keys
+`robust<alpha>_a`, `_b`), JAX's stepsize 0.1 / L (`_eta`) and, for each
+run of `ROBUST_RUNS` (FedGDA-GT and Local SGDA with K=10 for T=800
+rounds, centralized projected GDA for T*K rounds, all from x0 = y0 = 0),
+x at every `ROBUST_EVERY`-th round from round 0 to the end (`_<run>_x`)
+and the robust loss of the last x (`_<run>_robust_loss`).  It also holds
+the Appendix A.2 agnostic problem of `examples/agnostic_federated.py`
+(`AGNOSTIC`; `agnostic_a`, `agnostic_b`) and JAX's final x, lambda and
+per-agent risks of FedGDA-GT from x0 = 0, lambda0 uniform, with the
+simplex projection (`agnostic_*`) and with lambda frozen at uniform
+(`uniform_*`).
+
+`tests/test_torch_fixtures.py` rebuilds the three files from the JAX
+package; run that file as a script to rewrite them.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ import numpy as np
 
 PAPER_QUADRATIC = Path(__file__).resolve().parent / "paper_quadratic.npz"
 COMPRESSED_ROUNDS = Path(__file__).resolve().parent / "compressed_rounds.npz"
+ROBUST_AGNOSTIC = Path(__file__).resolve().parent / "robust_agnostic.npz"
 
 #: run name -> (`resolve_strategy` name, kwargs); the same names and
 #: kwargs build the strategy in the JAX package and in the port
@@ -64,6 +79,35 @@ QUAD6_ROUNDS = 1500
 QUAD6 = (6, 40, 8, 4, 2e-4)
 
 
+#: (dim, num_samples, num_agents, K, rounds) of Fig 2
+#: (`benchmarks/fig2_robust_regression.py`)
+ROBUST = (20, 100, 10, 10, 800)
+ROBUST_ALPHAS = (1.0, 5.0, 20.0)
+#: FedGDA-GT, Local SGDA, centralized projected GDA (K=1, rounds * K)
+ROBUST_RUNS = ("gt", "ls", "c")
+ROBUST_EVERY = 10
+#: (dim, num_samples, num_agents, shift, K, eta, rounds) of the agnostic run
+AGNOSTIC = (8, 80, 5, 4.0, 5, 2e-3, 1500)
+
+
+def robust_key(alpha: float) -> str:
+    """Key prefix of the alpha problem: "robust1", "robust5", "robust20"."""
+    return f"robust{alpha:g}"
+
+
+def robust_agnostic_keys() -> list:
+    """The arrays `robust_agnostic.npz` holds, sorted."""
+    keys = ["agnostic_a", "agnostic_b"] + [
+        f"{run}_{what}" for run in ("agnostic", "uniform")
+        for what in ("x", "lambda", "risks")]
+    for alpha in ROBUST_ALPHAS:
+        pre = robust_key(alpha)
+        keys += [f"{pre}_a", f"{pre}_b", f"{pre}_eta"] + [
+            f"{pre}_{run}_{what}" for run in ROBUST_RUNS
+            for what in ("x", "robust_loss")]
+    return sorted(keys)
+
+
 def load_paper_quadratic() -> Dict[str, np.ndarray]:
     with np.load(PAPER_QUADRATIC) as f:
         return {k: f[k] for k in f.files}
@@ -74,13 +118,30 @@ def load_compressed_rounds() -> Dict[str, np.ndarray]:
         return {k: f[k] for k in f.files}
 
 
+def load_robust_agnostic() -> Dict[str, np.ndarray]:
+    with np.load(ROBUST_AGNOSTIC) as f:
+        return {k: f[k] for k in f.files}
+
+
 def fixture_problem(which: str, device=None):
-    """(problem, x*, y*) of fixture problem `which` ("thm1" | "sec51" |
-    "quad6"), the JAX-drawn data as the port's `MinimaxProblem` on
-    `device` (default CUDA)."""
+    """(problem, x*, y*) of fixture problem `which`, the JAX-drawn data as
+    the port's `MinimaxProblem` on `device` (default CUDA): the quadratics
+    "thm1" | "sec51" | "quad6" with their closed-form minimax point, and
+    "robust1" | "robust5" | "robust20" | "agnostic", which have none
+    (x*, y* are None; the robust problems carry Proj_Y = the unit ball,
+    the agnostic one the simplex)."""
     from ..convert import problem_from_numpy
     from ..problems import quadratic_minimax_point
 
+    if which.startswith("robust") or which == "agnostic":
+        fix = load_robust_agnostic()
+        kind = "agnostic" if which == "agnostic" else "robust_regression"
+        data = {"a": fix[f"{which}_a"], "b": fix[f"{which}_b"]}
+        if kind == "agnostic":
+            m = data["a"].shape[0]
+            data["agent_index"] = np.arange(m, dtype=np.int32)
+            data["m"] = np.full((m,), float(m))
+        return problem_from_numpy(kind, data, device), None, None
     fix = load_compressed_rounds() if which == "quad6" else load_paper_quadratic()
     prob = problem_from_numpy(
         "quadratic", {"G": fix[f"{which}_G"], "Ab": fix[f"{which}_Ab"]}, device

@@ -1,7 +1,8 @@
 """Seed-exact counter-based PRNG: JAX's threefry2x32, bit for bit.
 
-The subset of `jax.random` that the compressed-correction strategies draw
-from (`PRNGKey`, `split`, `fold_in`, random bits, `uniform`), equal to
+The subset of `jax.random` that the compressed-correction strategies and
+the Section 4 Rademacher estimate draw from (`PRNGKey`, `split`,
+`fold_in`, random bits, `uniform`, `bernoulli`, `rademacher`), equal to
 jax 0.9's default `threefry2x32` implementation with
 `jax_threefry_partitionable=True`:
 
@@ -13,7 +14,10 @@ jax 0.9's default `threefry2x32` implementation with
     index (hi and lo words of the index) under key: 32-bit draws are
     `bits1 ^ bits2`, 64-bit draws `(bits1 << 32) | bits2`;
   * `uniform` keeps the top mantissa bits of a draw: OR-ed into 1.0 and
-    minus 1 in JAX, here the same value as mantissa * 2^-nmant.
+    minus 1 in JAX, here the same value as mantissa * 2^-nmant;
+  * `bernoulli(key, p, shape)` is `uniform(key, shape, dtype of p) < p`
+    (jax's default "low" mode), and `rademacher` is 2 * bernoulli(key,
+    0.5) - 1 in the target dtype.
 
 Keys are int64 tensors of shape (2,) holding the two words, on the CPU:
 `split` and `fold_in` hash single counters, which Python integers do in
@@ -24,12 +28,12 @@ masked after every add and shift; `>>` on int64 is arithmetic, which is
 logical for those non-negative values.  A 64-bit draw does not fit a
 signed int64, so the 52-bit f64 mantissa is built from the two words.
 
-Bernoulli, randint, normal and permutation are not ported yet (ROADMAP
-Queue 1 item 4).
+randint, normal and permutation are not ported yet (ROADMAP Queue 1
+item 4).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -143,3 +147,38 @@ def uniform(
     else:
         raise ValueError(f"uniform draws float64 or float32, got {dtype}")
     return out.reshape(tuple(shape))
+
+
+def bernoulli(
+    key: torch.Tensor, p: Union[float, torch.Tensor] = 0.5,
+    shape: Optional[Sequence[int]] = None, device: DeviceLike = None,
+) -> torch.Tensor:
+    """`jax.random.bernoulli(key, p, shape)`: bool draws, True with
+    probability p, bit for bit.  The uniforms take p's dtype: a Python
+    float is weakly typed in JAX, hence f64 under `jax_enable_x64` (as
+    everywhere in the repository); a tensor p keeps its f32 or f64.
+    `shape` defaults to p's shape; `device` to p's for a tensor p."""
+    if isinstance(p, torch.Tensor):
+        dtype = p.dtype
+        if device is None:
+            device = p.device
+        if shape is None:
+            shape = tuple(p.shape)
+    else:
+        dtype = torch.float64
+        shape = () if shape is None else shape
+    device = resolve_device(device)
+    if isinstance(p, torch.Tensor):
+        p = p.to(device)
+    return uniform(key, tuple(shape), dtype, device) < p
+
+
+def rademacher(
+    key: torch.Tensor, shape: Sequence[int] = (),
+    dtype: torch.dtype = torch.int64, device: DeviceLike = None,
+) -> torch.Tensor:
+    """`jax.random.rademacher(key, shape, dtype)`: +1 / -1 draws, bit for
+    bit (2 * bernoulli(key, 0.5, shape) - 1 in `dtype`; JAX's default
+    integer dtype under x64 is int64)."""
+    b = bernoulli(key, 0.5, shape, device).to(dtype)
+    return (2 * b - 1).to(dtype)

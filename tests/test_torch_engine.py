@@ -29,7 +29,7 @@ import repro.core as jcore
 import repro.core.projections as jproj
 import repro.fed as jfed
 from repro.problems import make_quadratic_problem as jax_quadratic
-from repro_torch import core, resolve_device
+from repro_torch import core, optim, resolve_device
 from repro_torch.convert import problem_from_numpy, tree_from_numpy
 from repro_torch.core import engine
 from repro_torch.fed import (
@@ -378,7 +378,11 @@ class TestPackageRules:
         code = (
             "import sys, repro_torch, repro_torch.core, repro_torch.fed, "
             "repro_torch.kernels, repro_torch.problems, repro_torch.convert, "
-            "repro_torch.fixtures\n"
+            "repro_torch.fixtures, repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.core.generalization, repro_torch.fed.runtime, "
+            "repro_torch.benchmarks.fig1_quadratic, "
+            "repro_torch.benchmarks.fig2_robust_regression, "
+            "repro_torch.benchmarks.fig3_fixed_point\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
         )
@@ -426,5 +430,5 @@ class TestPackageRules:
                          (engine.fixed_size_mask, "item 5")]:
             with pytest.raises(NotImplementedError, match=item):
                 fn()
-        with pytest.raises(NotImplementedError, match="item 2"):
-            core.make_scheduled_local_sgda_round(tp.loss, 2)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            optim.make_momentum_fedgda_gt_round(tp.loss, 2, ETA)

@@ -6,10 +6,14 @@ JAX package builds:
   * `compressed_rounds.npz`: JAX's gap trajectories of the
     communication-efficient rounds (CompressedGT / QuantizedGT, the
     fixture package's `RUNS`) on the Theorem 1 problem and on the d=6,
-    m=8 quadratic, with that problem's data.
+    m=8 quadratic, with that problem's data;
+  * `robust_agnostic.npz`: the Fig 2 robust-regression problems (alpha 1,
+    5, 20) with JAX's stepsizes, iterates every 10th round and robust
+    losses, and the Appendix A.2 agnostic problem with JAX's final
+    lambda and per-agent risks.
 
 They are the one place where the port's card run (`chip_smoke.py`) meets
-JAX's numbers.  Run this file as a script to rewrite both:
+JAX's numbers.  Run this file as a script to rewrite all three:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py
 """
 import jax
@@ -19,24 +23,42 @@ import pytest
 
 from repro.core import (
     make_fedgda_gt_round,
+    make_local_sgda_round,
     make_round,
     run_rounds,
     run_strategy_rounds,
     tree_sq_dist,
 )
 from repro.fed import resolve_strategy
-from repro.problems import make_quadratic_problem, quadratic_minimax_point
+from repro.problems import (
+    make_agnostic_problem,
+    make_quadratic_problem,
+    make_robust_regression_problem,
+    per_agent_risks,
+    quadratic_minimax_point,
+    robust_loss,
+    uniform_lambda,
+)
 from repro_torch.fixtures import (
+    AGNOSTIC,
     COMPRESSED_ROUNDS,
     PAPER_QUADRATIC,
     QUAD6,
     QUAD6_ROUNDS,
     QUAD6_RUNS,
+    ROBUST,
+    ROBUST_AGNOSTIC,
+    ROBUST_ALPHAS,
+    ROBUST_EVERY,
+    ROBUST_RUNS,
     RUNS,
     THM1_ROUNDS,
     THM1_RUNS,
     load_compressed_rounds,
     load_paper_quadratic,
+    load_robust_agnostic,
+    robust_agnostic_keys,
+    robust_key,
 )
 
 pytestmark = pytest.mark.torch
@@ -105,6 +127,70 @@ def build_compressed_fixture() -> dict:
     return out
 
 
+def stable_eta(prob) -> float:
+    """`benchmarks/fig2_robust_regression.py` `_stable_eta`: 0.1 / L."""
+    a = prob.agent_data["a"]
+    dim = a.shape[-1]
+    H = 2 * jnp.einsum("mnd,mne->de", a, a) / (a.shape[0] * a.shape[1])
+    return 0.1 / float(jnp.linalg.eigvalsh(H + jnp.eye(dim))[-1])
+
+
+def robust_trajectory(rnd, data, dim, rounds, every):
+    """x at rounds 0, every, 2*every, ..., rounds (x0 = y0 = 0)."""
+    x = y = jnp.zeros(dim)
+    xs = [x]
+    for t in range(1, rounds + 1):
+        x, y = rnd(x, y, data)
+        if t % every == 0:
+            xs.append(x)
+    return np.stack([np.asarray(v) for v in xs])
+
+
+def build_robust_agnostic_fixture() -> dict:
+    """`benchmarks/fig2_robust_regression.py` at its own size for each
+    alpha, and `examples/agnostic_federated.py`'s setup."""
+    out = {}
+    dim, n, m, K, T = ROBUST
+    for alpha in ROBUST_ALPHAS:
+        prob = make_robust_regression_problem(
+            jax.random.PRNGKey(0), dim=dim, num_samples=n, num_agents=m,
+            alpha=alpha)
+        eta = stable_eta(prob)
+        rounds = {
+            "gt": (make_fedgda_gt_round(prob.loss, K, eta, proj_y=prob.proj_y), T),
+            "ls": (make_local_sgda_round(prob.loss, K, eta, eta,
+                                         proj_y=prob.proj_y), T),
+            "c": (make_local_sgda_round(prob.loss, 1, eta, eta,
+                                        proj_y=prob.proj_y), T * K),
+        }
+        pre = robust_key(alpha)
+        out[f"{pre}_a"] = np.asarray(prob.agent_data["a"])
+        out[f"{pre}_b"] = np.asarray(prob.agent_data["b"])
+        out[f"{pre}_eta"] = np.asarray(eta)
+        for run in ROBUST_RUNS:
+            rnd, rounds_of = rounds[run]
+            xs = robust_trajectory(jax.jit(rnd), prob.agent_data, dim, rounds_of,
+                                   ROBUST_EVERY)
+            out[f"{pre}_{run}_x"] = xs
+            out[f"{pre}_{run}_robust_loss"] = np.asarray(
+                robust_loss(prob, jnp.asarray(xs[-1])))
+    dim, n, m, shift, K, eta, T = AGNOSTIC
+    prob = make_agnostic_problem(jax.random.PRNGKey(0), dim=dim, num_samples=n,
+                                 num_agents=m, shift=shift)
+    out["agnostic_a"] = np.asarray(prob.agent_data["a"])
+    out["agnostic_b"] = np.asarray(prob.agent_data["b"])
+    for run, proj_y in (("agnostic", prob.proj_y),
+                        ("uniform", lambda y: uniform_lambda(m))):
+        rnd = jax.jit(make_fedgda_gt_round(prob.loss, K, eta, proj_y=proj_y))
+        x, y = jnp.zeros(dim), uniform_lambda(m)
+        for _ in range(T):
+            x, y = rnd(x, y, prob.agent_data)
+        out[f"{run}_x"] = np.asarray(x)
+        out[f"{run}_lambda"] = np.asarray(y)
+        out[f"{run}_risks"] = np.asarray(per_agent_risks(prob, x))
+    return out
+
+
 @pytest.fixture(scope="module")
 def rebuilt():
     return build_fixture()
@@ -113,6 +199,11 @@ def rebuilt():
 @pytest.fixture(scope="module")
 def rebuilt_compressed():
     return build_compressed_fixture()
+
+
+@pytest.fixture(scope="module")
+def rebuilt_robust_agnostic():
+    return build_robust_agnostic_fixture()
 
 
 def test_fixture_has_the_expected_arrays():
@@ -134,6 +225,27 @@ def test_compressed_fixture_has_the_expected_arrays():
     for run in QUAD6_RUNS:
         assert got[f"quad6_{run}_gap"].shape == (QUAD6_ROUNDS + 1,)
     assert all(v.dtype == np.float64 for v in got.values())
+
+
+def test_robust_agnostic_fixture_has_the_expected_arrays():
+    got = load_robust_agnostic()
+    assert sorted(got) == robust_agnostic_keys()
+    dim, n, m, K, T = ROBUST
+    for alpha in ROBUST_ALPHAS:
+        pre = robust_key(alpha)
+        assert got[f"{pre}_a"].shape == (m, n, dim)
+        assert got[f"{pre}_b"].shape == (m, n)
+        assert got[f"{pre}_eta"].shape == ()
+        for run in ROBUST_RUNS:
+            rounds = T * K if run == "c" else T
+            assert got[f"{pre}_{run}_x"].shape == (rounds // ROBUST_EVERY + 1, dim)
+            assert got[f"{pre}_{run}_robust_loss"].shape == ()
+    dim, n, m = AGNOSTIC[:3]
+    assert got["agnostic_a"].shape == (m, n, dim)
+    for run in ("agnostic", "uniform"):
+        assert got[f"{run}_lambda"].shape == got[f"{run}_risks"].shape == (m,)
+    assert all(v.dtype == np.float64 for v in got.values())
+    assert ROBUST_AGNOSTIC.stat().st_size < 1.5e6
 
 
 def _assert_fixture_equal(key, got, want):
@@ -166,6 +278,18 @@ def test_compressed_fixture_equals_the_jax_package(rebuilt_compressed, key):
                           rebuilt_compressed[key])
 
 
+@pytest.mark.parametrize("key", robust_agnostic_keys())
+def test_robust_agnostic_fixture_equals_the_jax_package(
+        rebuilt_robust_agnostic, key):
+    """Data, stepsizes, iterates, losses, lambda and risks: 1e-12
+    relative, the data's tolerance above (XLA's CPU sums may follow the
+    host's vector width; iterates and losses run a few thousand
+    contracting rounds of them)."""
+    got, want = load_robust_agnostic()[key], rebuilt_robust_agnostic[key]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     PAPER_QUADRATIC.parent.mkdir(parents=True, exist_ok=True)
@@ -173,3 +297,5 @@ if __name__ == "__main__":
     print(f"wrote {PAPER_QUADRATIC}")
     np.savez(COMPRESSED_ROUNDS, **build_compressed_fixture())
     print(f"wrote {COMPRESSED_ROUNDS}")
+    np.savez(ROBUST_AGNOSTIC, **build_robust_agnostic_fixture())
+    print(f"wrote {ROBUST_AGNOSTIC}")

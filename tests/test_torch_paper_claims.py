@@ -7,8 +7,11 @@ the JAX package's own gates in tests/test_paper_claims.py.
     > 1e-14 (f64 round-off in another summation order: ~4e-7 measured
     near the 1e-14 cut, ~1e-15 at the start).
   * Sec 5.1 at the paper's scale for 100 rounds, per round against JAX.
-  * Proposition 1 through the closed-form residual, and K=1 GDA reaching
-    the Appendix C minimax point.
+  * Proposition 1 through the closed-form residual, K=1 GDA reaching the
+    Appendix C minimax point, and a larger K giving a larger bias
+    (tests/test_paper_claims.py:109).
+  * Proposition 2 on homogeneous agents: a K-fold faster per-round rate
+    (:121) and FedGDA-GT equal to centralized GDA (:147, rtol 1e-8).
 """
 import jax
 import jax.numpy as jnp
@@ -142,6 +145,22 @@ class TestProposition1:
             assert core.appendix_c_fixed_point(K, 1e-3, 1e-3) == \
                 jcore.appendix_c_fixed_point(K, 1e-3, 1e-3)
 
+    def test_larger_K_larger_bias(self):
+        """The closed-form fixed point moves away from 3.3 as K grows, and
+        Local SGDA's converged iterate on the port sits on it."""
+        eta = 0.001
+        prob = make_appendix_c_problem(device="cpu")
+        x0 = torch.tensor(0.0, dtype=torch.float64)
+        biases = []
+        for K in (2, 10, 50):
+            fx, _ = core.appendix_c_fixed_point(K, eta, eta)
+            biases.append(abs(fx - 3.3))
+            if K == 50:  # contracts by ~0.76 a round: 200 rounds suffice
+                rnd = core.make_local_sgda_round(prob.loss, K, eta, eta)
+                (x, _), _ = core.run_rounds(rnd, x0, x0, prob.agent_data, 200)
+                np.testing.assert_allclose(float(x), fx, rtol=1e-10)
+        assert biases[0] < biases[1] < biases[2]
+
     def test_k1_gda_reaches_the_minimax_point(self):
         prob = make_appendix_c_problem(device="cpu")
         rnd = core.make_local_sgda_round(prob.loss, 1, 0.1, 0.1)
@@ -149,3 +168,53 @@ class TestProposition1:
         (x, y), _ = core.run_rounds(rnd, x0, x0, prob.agent_data, 200)
         np.testing.assert_allclose(float(x), 3.3, rtol=1e-9)
         np.testing.assert_allclose(float(y), 3.3, rtol=1e-9)
+
+
+def _homogeneous(rng, dim, n, m):
+    """One agent's JAX-drawn quadratic replicated m times (identical
+    objectives), as the port's problem, and the single agent's problem."""
+    base = jax_quadratic(rng, dim=dim, num_samples=n, num_agents=1)
+    data = {k: np.asarray(v) for k, v in base.agent_data.items()}
+    hom = {k: np.broadcast_to(v, (m,) + v.shape[1:]) for k, v in data.items()}
+    return (problem_from_numpy("quadratic", hom, device="cpu"),
+            problem_from_numpy("quadratic", data, device="cpu"))
+
+
+class TestProposition2:
+    def test_homogeneous_speedup_at_least_K(self, rng):
+        """Identical agents: K local steps decay the gap at least 0.9 K
+        times faster per round than one (tests/test_paper_claims.py:121)."""
+        dim, m, eta, K = 10, 6, 5e-5, 8
+        hom, base = _homogeneous(rng, dim, 50, m)
+        xs, ys = quadratic_minimax_point(base)
+        x0 = torch.zeros(dim, dtype=torch.float64)
+        met = _gap_metric(xs, ys)
+        _, m1 = core.run_rounds(core.make_fedgda_gt_round(hom.loss, 1, eta),
+                                x0, x0, hom.agent_data, 1500, met)
+        _, mK = core.run_rounds(core.make_fedgda_gt_round(hom.loss, K, eta),
+                                x0, x0, hom.agent_data, 1500, met)
+
+        def per_round_rate(g):  # slope of log-gap on the pre-floor segment
+            g = g.numpy()
+            idx = np.where((g > 1e-12) & (g < 1e2))[0]
+            lo, hi = idx[0], idx[-1]
+            return (np.log(g[hi]) - np.log(g[lo])) / (hi - lo)
+
+        rate1, rateK = per_round_rate(m1["gap"]), per_round_rate(mK["gap"])
+        assert rateK <= rate1 * (K * 0.9), (rate1, rateK)
+
+    def test_homogeneous_equals_centralized_gda(self, rng):
+        """Appendix D.4: with identical agents FedGDA-GT equals K
+        centralized GDA steps, to rtol 1e-8 (tests/test_paper_claims.py:147)."""
+        dim, m, eta, K = 8, 4, 1e-4, 5
+        hom, base = _homogeneous(rng, dim, 40, m)
+        x0 = torch.zeros(dim, dtype=torch.float64)
+        r_fed = core.make_fedgda_gt_round(hom.loss, K, eta)
+        step = core.make_gda_step(base.loss, eta, eta)
+        xf = yf = xc = yc = x0
+        for _ in range(20):
+            xf, yf = r_fed(xf, yf, hom.agent_data)
+            for _ in range(K):
+                xc, yc = step(xc, yc, base.agent_data)
+        np.testing.assert_allclose(xf.numpy(), xc.numpy(), rtol=1e-8)
+        np.testing.assert_allclose(yf.numpy(), yc.numpy(), rtol=1e-8)

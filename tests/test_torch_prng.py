@@ -1,8 +1,9 @@
 """`repro_torch.prng` against `jax.random`, bit for bit (jax 0.9's
 threefry2x32 with `jax_threefry_partitionable=True`, the default).
 
-Keys, `split` (both outputs), `fold_in`, 32- and 64-bit draws and f32 /
-f64 uniforms on a table of seeds and shapes, and the exact key chain the
+Keys, `split` (both outputs), `fold_in`, 32- and 64-bit draws, f32 /
+f64 uniforms, Bernoulli and Rademacher draws on a table of seeds and
+shapes, and the exact key chain the
 compressors draw from (`repro/fed/strategies.py` `transform_correction`:
 split, fold_in(sub, 2i + tag), fold_in(leaf_key, 0 | 1), uniform).
 """
@@ -96,6 +97,38 @@ def test_the_compressors_key_chain(seed):
                     want = jax.random.uniform(jax.random.fold_in(jl, which), shape)
                     got = prng.uniform(prng.fold_in(tl, which), shape, device="cpu")
                     assert _same_bits(want, got)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bernoulli_bitwise(seed, shape):
+    """p = 0.5 as a Python float (weakly typed: f64 uniforms under x64),
+    and f32 / f64 p arrays (the uniforms take p's dtype)."""
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    want = np.asarray(jax.random.bernoulli(jk, 0.5, shape))
+    got = prng.bernoulli(tk, 0.5, shape, device="cpu")
+    assert got.dtype == torch.bool and np.array_equal(want, got.numpy())
+    n = int(np.prod(shape))
+    p = np.linspace(0.0, 1.0, n).reshape(shape)
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.float64, torch.float64)):
+        want = np.asarray(jax.random.bernoulli(jk, jnp.asarray(p, jdt)))
+        got = prng.bernoulli(tk, torch.tensor(p, dtype=tdt))
+        assert tuple(got.shape) == shape
+        assert np.array_equal(want, got.numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("dtype", ["f64", "f32", "int"])
+def test_rademacher_bitwise(seed, shape, dtype):
+    """+1 / -1 in the target dtype; JAX's default under x64 is int64."""
+    jdt, tdt = {"f64": (jnp.float64, torch.float64),
+                "f32": (jnp.float32, torch.float32),
+                "int": (None, torch.int64)}[dtype]
+    want = np.asarray(jax.random.rademacher(jax.random.PRNGKey(seed), shape, jdt))
+    got = prng.rademacher(prng.PRNGKey(seed), shape, tdt, device="cpu").numpy()
+    assert want.dtype == got.dtype
+    assert np.array_equal(want.reshape(-1).view(np.uint8), got.reshape(-1).view(np.uint8))
 
 
 def test_threefry_on_tensors_equals_on_ints():
