@@ -10,7 +10,9 @@ version on the card, then drives the port's main paths: FedGDA-GT rounds
 communication-efficient rounds (CompressedGT / QuantizedGT, the packed
 wire transport) with the `compress_correction`, `pack_payload` and
 `unpack_payload` kernels, on the paper's problems and at a width where the
-card does real work, the rest of the paper's experiments (Fig 2's
+card does real work, the stochastic and client-sampling rounds (SAGDA,
+PartialParticipation, noisy QuantizedGT) through the same kernels with
+seeded draws on the card, the rest of the paper's experiments (Fig 2's
 robust regression, agnostic FL) through the `FederatedRunner` with a
 checkpoint resume, and the serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
@@ -21,7 +23,9 @@ exits non-zero without the final line.  The last two lines are the card's
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Phases:
+Phases (in this order, but for the host-bound ones on JAX's numbers,
+theorem1 through runner_resume, device_draws and stochastic_claims, which
+run right after setup, before any profiler session slows the host):
   setup      card, power limit, torch / CUDA versions, kernel build time
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
              (every dtype pair, both signs) and a ragged 2^20+17; times
@@ -105,6 +109,35 @@ Phases:
              the Theorem 1 problem: 20 rounds checkpointed every 10 against
              10 rounds, `restore_checkpoint`, 10 more: x, y, feedback
              buffers and key bitwise equal, through the kernels
+  device_draws
+             the seeded draws on the card against the port's CPU draws:
+             randint (int64 and int32, spans that are and are not powers
+             of 2, maxval <= minval) and permutation (16, 2000, 2^20) bit
+             for bit, normal within DRAW_ULP (CUDA's log1p is another
+             implementation), key batches equal to stacked single-key
+             draws; the time of one noisy main-path round's draw
+  stochastic_claims
+             on JAX's fixture data: Section 4's separation (d=10, m=6,
+             K=10, eta=5e-4, 1500 rounds; noiseless SAGDA, Local SGDA,
+             SAGDA at sigma 0.1 and 0.01) per round within rtol 1e-5 of
+             JAX's gaps with the claim's own assertions
+             (tests/test_paper_claims.py:198-256);
+             PartialParticipation(0.5, seed 0) on the Theorem 1 problem
+             (K=10, eta=2e-4, 500 rounds): masks bit for bit, gaps within
+             rtol 1e-5; SAGDA with MinibatchNoise(0.5) on Fig 2's alpha-5
+             problem (200 rounds) at the Fig 2 gate; noisy rand-k
+             CompressedGT (300 rounds) within rtol 1e-5
+  stochastic_main_path
+             the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
+             under SAGDA with Gaussian noise (sigma 0.1),
+             PartialParticipation 0.5 and QuantizedGT 8-bit top-k 0.25
+             over the wire with sigma 0.1: iterates and state through the
+             kernels equal the plain path's bit for bit; gt_update
+             launches 200 (noisy: no fused anchor step) and 180 (partial),
+             pack / unpack 20; ms per round, the device's busy share and
+             launches of a round under the profiler, and the draws' share
+             of them and of the device time (one broadcast draws several
+             rounds in one pass: per round is a pass over its rounds)
   robust_main_path
              robust regression from the port's generator at d=n=4096,
              m=16, alpha 5, f64 (a is 2.15 GB), FedGDA-GT K=10 for 10
@@ -132,7 +165,7 @@ Phases:
              and the device's busy share of each
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
-             path's shapes)
+             path's shapes; its launches on each stochastic_main_path run)
 """
 from __future__ import annotations
 
@@ -1489,6 +1522,252 @@ def phase_compressed_profile(torch, shared: dict) -> dict:
         "gt_update": "gt_update_kernel"})
 
 
+# ------------------------------------- stochastic and client-sampling rounds
+#: normal draws on the card against the port's CPU draws, in ulp: CUDA's
+#: log1p is another implementation than the CPU's (each within ~1 ulp), and
+#: erf_inv's polynomial carries the difference (the CPU against JAX: 3 and
+#: 30 ulp, tests/test_torch_prng.py)
+DRAW_ULP = {"torch.float32": 8, "torch.float64": 64}
+
+
+def ulp_diff(np, a, b) -> int:
+    """Largest distance in units in the last place of two float arrays of
+    one dtype (same-sign finite values)."""
+    ut = {4: np.int32, 8: np.int64}[a.dtype.itemsize]
+    return int(np.max(np.abs(a.view(ut).astype(np.int64) - b.view(ut).astype(np.int64))))
+
+
+def phase_device_draws(torch, np, card: str) -> dict:
+    """The seeded draws on the card against the port's CPU draws: randint and
+    permutation bit for bit, normal within DRAW_ULP; key batches equal to
+    stacked single-key draws; the time of a noisy main-path round's draw."""
+    from repro_torch import prng
+
+    key = prng.PRNGKey(11)
+    batch = prng.fold_in(prng.split(key, 16), 3)  # [16, 2]
+    evals = prng.fold_in(batch[None], np.arange(11)[:, None])  # [11, 16, 2]
+    out = {"randint": {}, "permutation": {}, "normal": {}}
+    for dt in (torch.int64, torch.int32):
+        for lo, hi in ((0, 8192), (0, 1000), (-5, 2 ** 31 - 7), (3, 3)):
+            got = prng.randint(evals, (4096,), lo, hi, dt, DEVICE).cpu()
+            want = prng.randint(evals, (4096,), lo, hi, dt, "cpu")
+            same = torch.equal(got, want)
+            check(same, f"device_draws: randint {dt} [{lo}, {hi}) differs")
+            out["randint"][f"{dt}[{lo},{hi})"] = same
+    for n in (16, 2000, 1 << 20):
+        same = torch.equal(prng.permutation(key, n, DEVICE).cpu(),
+                           prng.permutation(key, n, "cpu"))
+        check(same, f"device_draws: permutation of {n} differs")
+        out["permutation"][str(n)] = same
+    leaf_keys = prng.fold_in(prng.split(evals)[..., 0, :][None], np.arange(2)[:, None, None])
+    for dt in (torch.float32, torch.float64):
+        got = prng.normal(leaf_keys, (4096,), dt, DEVICE).cpu().numpy()
+        want = prng.normal(leaf_keys, (4096,), dt, "cpu").numpy()
+        ulp = ulp_diff(np, got, want)
+        share = float(np.mean(got != want))
+        check(ulp <= DRAW_ULP[str(dt)], f"device_draws: normal {dt} {ulp} ulp off "
+                                        f"the CPU's (bound {DRAW_ULP[str(dt)]})")
+        check(abs(float(got.mean())) < 0.01 and abs(float(got.std()) - 1) < 0.01,
+              f"device_draws: normal {dt} moments {got.mean()} {got.std()}")
+        out["normal"][str(dt)] = {"max_ulp_vs_cpu": ulp, "share_differing": share,
+                                  "bound_ulp": DRAW_ULP[str(dt)],
+                                  "draws": int(got.size)}
+    stacked = torch.stack([prng.normal(k, (4096,), torch.float64, DEVICE)
+                           for k in evals[0]])
+    check(torch.equal(stacked, prng.normal(evals[0], (4096,), torch.float64, DEVICE)),
+          "device_draws: a key batch differs from stacked single-key draws")
+    # one noisy main-path round's draw: x and y, 11 evaluations, 16 agents
+    ms = time_ms(torch, lambda: prng.normal(leaf_keys, (4096,), torch.float64,
+                                            DEVICE), reps=20)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        prng.normal(leaf_keys, (4096,), torch.float64, DEVICE)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+    out["round_draw"] = {"shape": [2, 11, 16, 4096], "dtype": "torch.float64",
+                         "device_ms": ms, "wall_ms": wall_ms, "card": card}
+    return out
+
+
+def phase_stochastic_claims(torch, np) -> dict:
+    """Section 4's separation, PartialParticipation on the Theorem 1 problem
+    and the noisy fixture runs, on the card against JAX's numbers."""
+    from repro_torch.fixtures import (
+        SEC4, load_stochastic_rounds, noisy_run, partial_run, sec4_run_gaps)
+
+    fix = load_stochastic_rounds()
+    rounds = SEC4[-1]
+    out, gaps = {}, {}
+    for run in ("gt", "ls", "hi", "lo"):
+        zero_counts()
+        t0 = time.perf_counter()
+        gaps[run] = sec4_run_gaps(run, DEVICE)
+        wall = time.perf_counter() - t0
+        want = fix[f"sec4_{run}_gap"]
+        part = parting_round(np, gaps[run], want, TOL_GAP_RTOL)
+        check(part is None, f"stochastic_claims sec4 {run}: gap parts from JAX's "
+                            f"at round {part}")
+        out[f"sec4_{run}"] = {"final_gap": float(gaps[run][-1]),
+                              "jax_final_gap": float(want[-1]),
+                              "max_rel_err_vs_jax": trajectory_error(np, gaps[run], want),
+                              "ms_per_round": wall / rounds * 1e3,
+                              "launches": kernel_counts()}
+    g_gt = gaps["gt"]
+    seg = g_gt[(g_gt > 1e-14) & (g_gt < 1e2)]
+    rates = np.diff(np.log(seg))
+    floor = {run: float(gaps[run][-100:].mean()) for run in ("ls", "hi", "lo")}
+    claims = {
+        "noiseless_below_1e-20": bool(g_gt[-1] < 1e-20),
+        "noiseless_linear": bool(np.all(rates < 0)
+                                 and np.std(rates) < 0.25 * abs(np.mean(rates))),
+        "local_sgda_floor_above_1e-2": floor["ls"] > 1e-2,
+        "sagda_floor_below_1e-4_of_local": floor["hi"] < 1e-4 * floor["ls"],
+        "variance_floor_ratio_30_300": 30.0 < floor["hi"] / floor["lo"] < 300.0,
+        "variance_floor_above_noiseless": floor["lo"] > float(g_gt[-1]),
+    }
+    for name, ok in claims.items():
+        check(ok, f"stochastic_claims: Section 4 claim {name} fails ({floor})")
+    zero_counts()
+    t0 = time.perf_counter()
+    masks, pgap = partial_run(DEVICE)
+    wall = time.perf_counter() - t0
+    same_masks = bool(np.array_equal(masks, fix["partial_mask"]))
+    part = parting_round(np, pgap, fix["partial_gap"], TOL_GAP_RTOL)
+    check(same_masks, "stochastic_claims: participation masks differ from JAX's")
+    check(part is None, f"stochastic_claims: partial gap parts from JAX's at {part}")
+    out["partial_thm1"] = {"masks_bitwise": same_masks, "rounds": len(masks),
+                           "final_gap": float(pgap[-1]),
+                           "max_rel_err_vs_jax": trajectory_error(
+                               np, pgap, fix["partial_gap"]),
+                           "ms_per_round": wall / len(masks) * 1e3,
+                           "launches": kernel_counts()}
+    zero_counts()
+    t0 = time.perf_counter()
+    xr = noisy_run("robust5_minibatch", DEVICE)
+    wall = time.perf_counter() - t0
+    err = robust_rel_err(np, xr, fix["noisy_robust5_minibatch_x"])
+    check(err <= ROBUST_X_RTOL[5.0], f"stochastic_claims: minibatch robust5 x off "
+                                     f"JAX's by {err:.3e}")
+    out["robust5_minibatch"] = {"x_rel_err_vs_jax": err,
+                                "rtol": ROBUST_X_RTOL[5.0], "wall_s": wall,
+                                "launches": kernel_counts()}
+    zero_counts()
+    cgap = noisy_run("thm1_cgt_randk", DEVICE)
+    part = parting_round(np, cgap, fix["noisy_thm1_cgt_randk_gap"], TOL_GAP_RTOL)
+    check(part is None, f"stochastic_claims: noisy rand-k gap parts at {part}")
+    out["thm1_cgt_randk_noisy"] = {
+        "max_rel_err_vs_jax": trajectory_error(np, cgap, fix["noisy_thm1_cgt_randk_gap"]),
+        "launches": kernel_counts()}
+    return {"runs": out, "claims": claims, "floors": floor,
+            "tolerance": TOL_GAP_RTOL, "sec4_rounds": rounds}
+
+
+def phase_stochastic_main_path(torch, card: str, shared: dict, rounds: int) -> dict:
+    """The main path's problem (d=4096, m=16, f64) under SAGDA with Gaussian
+    noise, PartialParticipation 0.5 and noisy QuantizedGT over the wire:
+    iterates through the kernels equal the plain path's bit for bit (the
+    same draws feed both), with the kernels' launches, ms per round, the
+    device's busy share and the draws' share of launches and time."""
+    from repro_torch import core
+    from repro_torch.core.engine import round_eval_keys, rounds_ahead
+    from repro_torch.fed import (
+        SAGDA, GaussianNoise, PartialParticipation, QuantizedGT)
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m = prob.agent_data, prob.num_agents
+    noise = GaussianNoise(sigma=0.1)
+    runs = {
+        "sagda_gaussian": (SAGDA(noise=noise), {"gt_update": 2 * K * rounds}),
+        "partial_gt_50": (PartialParticipation(participation=0.5, seed=0),
+                          {"gt_update": 2 * (K - 1) * rounds}),
+        "quantized_wire_gaussian": (
+            QuantizedGT(bits=8, ratio=0.25, mode="topk", wire_transport=True,
+                        noise=noise),
+            {"gt_update": 2 * K * rounds, "pack_payload": 2 * rounds,
+             "unpack_payload": 2 * rounds}),
+    }
+
+    def record(x, y):
+        return {"x": x, "y": y,
+                "gap": core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)}
+
+    out = {}
+    for tag, (strategy, expected) in runs.items():
+        plain = (dataclasses.replace(strategy, use_kernel=False)
+                 if hasattr(strategy, "use_kernel") else strategy)
+        rnd = core.make_round(prob.loss, strategy, K, eta, explicit_state=True)
+        rnd_plain = core.make_round(prob.loss, plain, K, eta, explicit_state=True,
+                                    update_fn=core.default_update)
+        rnd(x0, x0, data, strategy.init_state(x0, x0, m))  # warm-up rounds
+        rnd_plain(x0, x0, data, plain.init_state(x0, x0, m))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        (_, _, st), got = core.run_strategy_rounds(
+            rnd, x0, x0, data, rounds, strategy.init_state(x0, x0, m), record)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        t0 = time.perf_counter()
+        (_, _, st_plain), want = core.run_strategy_rounds(
+            rnd_plain, x0, x0, data, rounds, plain.init_state(x0, x0, m), record)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        same = all(torch.equal(got[k], want[k]) for k in ("x", "y")) and all(
+            torch.equal(st[k].cpu(), st_plain[k].cpu()) for k in st)
+        check(same, f"stochastic_main_path {tag}: kernel iterates differ from "
+                    "the plain path's")
+        for name, n in expected.items():
+            check(launches[name] == n, f"stochastic_main_path {tag}: "
+                  f"{launches[name]} {name} launches, expected {n}")
+        check(bool(torch.isfinite(got["x"]).all() and torch.isfinite(got["y"]).all()),
+              f"stochastic_main_path {tag}: non-finite iterates")
+        gap = got["gap"].cpu().numpy()
+        # the profiled round is the second: its draws come from the first
+        # round's pass (a pass's cost is in "draws" below)
+        st0 = strategy.init_state(x0, x0, m)
+        x1, y1, st1 = rnd(x0, x0, data, st0)
+        prof = profile_round(torch, lambda: rnd(x1, y1, data, st1), {
+            "gt_update": "gt_update_kernel", "pack_payload": "pack_kernel",
+            "unpack_payload": "unpack_kernel"})
+        info = {"strategy": repr(strategy), "rounds": rounds, "K": K,
+                "ms_per_round_kernels": kernel_s / rounds * 1e3,
+                "ms_per_round_plain": plain_s / rounds * 1e3,
+                "gap_first": float(gap[0]), "gap_last": float(gap[-1]),
+                "bitwise_kernels_vs_plain": same, "launches": launches,
+                "profile": prof, "card": card}
+        if strategy.noise is not None:
+            # one broadcast's pass: this round's draws and the next ones'
+            xs0 = core.tree_broadcast_agents(x0, m)
+            ahead = rounds_ahead(strategy.noise, K + 1, xs0, xs0, data)
+            keys, s = [], st0
+            for _ in range(ahead):
+                k, s = strategy.sample_noise_keys(s, m)
+                keys.append(k)
+            evals = round_eval_keys(torch.stack(keys), K + 1).reshape(-1, m, 2)
+            dprof = profile_round(
+                torch, lambda: strategy.noise.draws(evals, xs0, xs0, data), {})
+            per = {"launches": dprof.get("kernel_launches", 0) / ahead,
+                   "device_ms": dprof.get("device_busy_ms", 0.0) / ahead,
+                   "wall_ms": dprof["round_wall_ms"] / ahead}
+            info["draws"] = {
+                "rounds_per_pass": ahead,
+                "launches_per_pass": dprof.get("kernel_launches"),
+                "device_ms_per_pass": dprof.get("device_busy_ms"),
+                "wall_ms_per_pass": dprof["round_wall_ms"],
+                "launches_per_round": per["launches"],
+                "device_ms_per_round": per["device_ms"],
+                "wall_ms_per_round": per["wall_ms"],
+                "share_of_round_launches": per["launches"] / max(
+                    1, prof.get("kernel_launches", 1) + per["launches"]),
+                "share_of_round_device_ms": per["device_ms"] / max(
+                    1e-9, prof.get("device_busy_ms", 1.0) + per["device_ms"])}
+        out[tag] = info
+    return out
+
+
 # ----------------------------------------- the rest of the paper's claims
 def robust_rel_err(np, got, want) -> float:
     """Largest ||got - want|| / ||want|| over the rows (iterates); a zero
@@ -1781,7 +2060,7 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
     check(err == 0.0, f"gt_update at the main path's shape: max |err| {err}")
     ms = time_ms(torch, lambda: gt_update(z, g, c, eta=eta, sign=-1.0), reps=200)
     plain_ms = time_ms(torch, lambda: ref.gt_update_ref(z, g, c, eta, -1.0), reps=200)
-    return [{
+    entries = [{
         "name": "gt_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gt_update.cu",
         "replaces": "src/repro/kernels/gt_update.py:26",
@@ -1796,6 +2075,12 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
                                        "z + s*(g + c)", "card": card,
     }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS] + [
         model_entry(name, shared, card) for name in MODEL_KERNELS]
+    # the stochastic main path's runs: each kernel's launches there
+    for entry in entries:
+        entry["stochastic_main_path_launches"] = {
+            tag: run["launches"][entry["name"]]
+            for tag, run in shared.get("stochastic", {}).items()}
+    return entries
 
 
 def compressed_entry(name: str, shared: dict, card: str) -> dict:
@@ -1889,6 +2174,19 @@ def main() -> int:
         return out
 
     run("setup", lambda: phase_setup(torch, card))
+    # the host-bound phases on JAX's numbers first: a torch.profiler
+    # session (pack_payload's device time, flash's library kernels, the
+    # profile phases) leaves every later launch ~20% slower on the host
+    # (PERF.md §6, PR 17)
+    run("theorem1", lambda: phase_theorem1(torch, np, fix))
+    run("sec51", lambda: phase_sec51(torch, np, fix))
+    run("prop1", lambda: phase_prop1(torch))
+    run("compressed_claims", lambda: phase_compressed_claims(torch, np))
+    run("fig2", lambda: phase_fig2(np, card))
+    run("agnostic", lambda: phase_agnostic(torch, np, card))
+    run("runner_resume", lambda: phase_runner_resume(torch, card))
+    run("device_draws", lambda: phase_device_draws(torch, np, card))
+    run("stochastic_claims", lambda: phase_stochastic_claims(torch, np))
     run("gt_update", lambda: phase_gt_update(torch, card, cases))
     run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
@@ -1896,10 +2194,6 @@ def main() -> int:
         run("unpack_payload", lambda: phase_unpack_payload(torch, card, shared))
     run("flash_attention", lambda: phase_flash_attention(torch, np, card, shared))
     run("ssm_scan", lambda: phase_ssm_scan(torch, card, shared))
-    run("theorem1", lambda: phase_theorem1(torch, np, fix))
-    run("sec51", lambda: phase_sec51(torch, np, fix))
-    run("prop1", lambda: phase_prop1(torch))
-    run("compressed_claims", lambda: phase_compressed_claims(torch, np))
     run("main_path", lambda: phase_main_path(
         torch, card, shared, dim=4096, samples=8192, agents=16, K=10, rounds=10))
     if "state" in shared:
@@ -1909,11 +2203,12 @@ def main() -> int:
         if compressed is not None:
             shared["compressed"] = compressed
             run("compressed_profile", lambda: phase_compressed_profile(torch, shared))
+        stochastic = run("stochastic_main_path", lambda: phase_stochastic_main_path(
+            torch, card, shared, rounds=10))
+        if stochastic is not None:
+            shared["stochastic"] = stochastic
         for key in ("problem", "data", "round", "compressed_round"):  # G: 2.1 GB
             shared.pop(key, None)
-    run("fig2", lambda: phase_fig2(np, card))
-    run("agnostic", lambda: phase_agnostic(torch, np, card))
-    run("runner_resume", lambda: phase_runner_resume(torch, card))
     run("robust_main_path", lambda: phase_robust_main_path(
         torch, card, dim=4096, samples=4096, agents=16, alpha=5.0, K=10, rounds=10))
     torch.cuda.empty_cache()

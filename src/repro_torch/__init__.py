@@ -7,12 +7,19 @@ Entry points that create tensors run on CUDA unless the caller passes
 `device="cpu"` (see `device.resolve_device`); with no CUDA and no
 explicit device they raise instead of falling back to the CPU.
 
-Ported so far: `core` (types, projections, the phase-split engine, GDA /
-Local SGDA / FedGDA-GT constructors, the Proposition 1 fixed-point
-tools), `fed.strategies` (FullSync, LocalOnly, GradientTracking, and the
-communication-efficient CompressedGT / QuantizedGT), `fed.transport` (the
-packed wire format), `prng` (JAX's threefry keys and uniforms, bit for
-bit), `problems` (Sec 5.1 quadratic, Appendix C toy), `configs` (the ten
+Ported so far: `core` (types, projections, the phase-split engine with
+client sampling and stochastic / momentum rounds, GDA / Local SGDA /
+FedGDA-GT constructors, the Proposition 1 fixed-point tools, the Section
+4 bounds), `fed.strategies` (FullSync, LocalOnly, GradientTracking,
+PartialParticipation, the communication-efficient CompressedGT /
+QuantizedGT, SAGDA and Local SGDA+), `fed.noise` (seeded Gaussian and
+minibatch noise), `fed.comm` (the communication table), `fed.transport`
+(the packed wire format), `fed.runtime` (the synchronous runner and
+checkpoints), `optim` (schedules, heavy-ball momentum), `data` (Dirichlet
+partitions), `prng` (JAX's threefry keys, uniforms, randint and
+permutation bit for bit, normals to a few ulp), `problems` (Sec 5.1
+quadratic and its Dirichlet variant, robust regression, agnostic FL,
+Appendix C toy), `configs` (the ten
 architectures), `models` (the forward path of the dense, local-attention,
 Mamba-1, Mamba-2 and zamba2 hybrid kinds, text frontend, KV/SSM caches),
 `launch.serve` (prefill and greedy decode), `kernels` (the hand-written

@@ -90,15 +90,36 @@ def problem_from_numpy(
     return MinimaxProblem(loss=loss, agent_data=data, num_agents=m, proj_y=proj_y)
 
 
+#: the RNG entries of a strategy state: the sampling / compression chain
+#: and the dedicated noise stream
+KEY_ENTRIES = ("key", "noise_key")
+
+
+def problem_split_from_numpy(
+    kind: str,
+    agent_data: Any,
+    test_data: Any = None,
+    device: DeviceLike = None,
+):
+    """(problem, test_data) of a problem with a held-out split, such as the
+    JAX package's `make_dirichlet_quadratic_problem` (its train and test
+    sufficient statistics as numpy): the port's `MinimaxProblem` and the
+    test split's agent-stacked tensors on `device` (default CUDA; test_data
+    None stays None), as `core.generalization_gap` takes them."""
+    prob = problem_from_numpy(kind, agent_data, device)
+    test = None if test_data is None else tree_from_numpy(dict(test_data), device)
+    return prob, test
+
+
 def strategy_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
     """A strategy state of the JAX package (as numpy) as the port's: the
     per-agent trees ("ex" / "ey" error-feedback buffers, bf16 / fp8 kept
-    bit for bit) on `device` (default CUDA), and an RNG "key" (uint32[2])
-    as the port's `prng` key (int64 words, on the CPU).  Both sides then
-    start a round from the same state."""
+    bit for bit) on `device` (default CUDA), and the RNG keys "key" and
+    "noise_key" (uint32[2]) as the port's `prng` keys (int64 words, on the
+    CPU).  Both sides then start a round from the same state."""
     out = {}
     for name, value in state.items():
-        if name == "key":
+        if name in KEY_ENTRIES:
             words = np.asarray(value).astype(np.int64)
             if words.shape != (2,):
                 raise ValueError(f"a key is uint32[2], got shape {words.shape}")

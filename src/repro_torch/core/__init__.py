@@ -18,8 +18,10 @@ from .engine import (
     agent_weighted_sum,
     anchor_step,
     default_update,
+    make_noise_vgrad,
     make_phases,
     make_round,
+    noise_eval_keys,
     run_strategy_rounds,
     tracking_corrections,
 )
@@ -66,8 +68,10 @@ __all__ = [
     "agent_weighted_sum",
     "anchor_step",
     "default_update",
+    "make_noise_vgrad",
     "make_phases",
     "make_round",
+    "noise_eval_keys",
     "run_strategy_rounds",
     "tracking_corrections",
     "make_gda_step",

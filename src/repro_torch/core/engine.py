@@ -1,9 +1,12 @@
 """Phase-split federated minimax round engine (port of
-`repro/core/engine.py`, deterministic subset).
+`repro/core/engine.py`).
 
 One communication round is four phases over an explicit `RoundState`:
 
-  broadcast             server ships (x^t, y^t) to the agents
+  broadcast             server ships (x^t, y^t) to the agents; a strategy
+                        may sample participants (client-sampling weights)
+                        and, when stochastic, the round's per-agent noise
+                        keys
   exchange_corrections  (if the strategy corrects drift) agents exchange
                         gradients once at the anchor point and form the
                         tracking correction c_i = gbar - g_i, optionally
@@ -26,19 +29,31 @@ is evaluated at the same point as the tracking gradient, so g_i + c_i ==
 gbar and the first step is z <- z -/+ eta * gbar (`anchor_step`), saving
 one gradient evaluation and one update per round.
 
+Stochastic rounds: a strategy with a `noise` model draws each gradient
+from a seeded oracle (the fold tree is documented in `fed/noise.py`): the
+anchor exchange at eval index 0, local step k at 1 + k, and the fused
+anchor step is off (the tracked gbar and the first local step see
+different draws).  A draw depends on its keys and the leaves' shapes
+only, so broadcast draws a round's evaluations, and those of the rounds
+after it on the strategy's key chain, in one pass (`NoiseModel.draws`,
+`rounds_ahead`), and each gradient applies its share
+(`NoiseModel.apply`).  With `momentum` the local steps are
+heavy-ball steps (Local SGDA+; `optim.momentum.heavy_ball`).  With
+neither, the round is the deterministic trace, op for op.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue
-item): stochastic gradients and momentum, elastic step budgets and
-availability masks, the sparse / pod layouts, client sampling, and
-`constrain_agents` (SPMD sharding).
+item): elastic step budgets and availability masks (`agent_where`), the
+sparse / pod layouts, and `constrain_agents` (SPMD sharding).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..device import not_ported
+from ..device import DeviceLike, not_ported
 from .types import (
     LossFn,
     ProjFn,
@@ -123,12 +138,81 @@ def _not_ported_fn(name: str, item: str) -> Callable:
 
 
 agent_where = _not_ported_fn("agent_where", "Queue 1 item 8")
-fixed_size_mask = _not_ported_fn("fixed_size_mask", "Queue 1 item 5")
-renormalized_weights = _not_ported_fn("renormalized_weights", "Queue 1 item 5")
 pod_weighted_sums = _not_ported_fn("pod_weighted_sums", "Queue 1 item 9")
 pods_total = _not_ported_fn("pods_total", "Queue 1 item 9")
-noise_eval_keys = _not_ported_fn("noise_eval_keys", "Queue 1 item 7")
-make_noise_vgrad = _not_ported_fn("make_noise_vgrad", "Queue 1 item 7")
+
+
+def fixed_size_mask(key: torch.Tensor, m: int, size: int,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """Boolean [m] mask with exactly `size` uniformly chosen agents active
+    (uniform without replacement via `prng.permutation`), JAX's bit for
+    bit.  Drawn on `device` (default CUDA)."""
+    from .. import prng
+
+    sel = prng.permutation(key, m, device)[:size]
+    mask = torch.zeros((m,), dtype=torch.bool, device=sel.device)
+    mask[sel] = True
+    return mask
+
+
+def renormalized_weights(active, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Uniform aggregation weights over the active set, re-normalized to
+    sum to 1 for any nonempty active set (a boolean mask or 0/1 floats;
+    f64 by default, JAX's default float under x64)."""
+    a = torch.as_tensor(active).to(dtype or torch.float64)
+    return a / torch.sum(a)
+
+
+def noise_eval_keys(noise_keys: torch.Tensor, idx) -> torch.Tensor:
+    """Per-agent evaluation keys of a stochastic gradient call: fold the
+    in-round call index (0 = the anchor exchange, 1 + k = local step k)
+    into each agent's per-round noise key ([m, 2] keys, on the CPU).  An
+    index array broadcasts against the keys' leading axes."""
+    from .. import prng
+
+    return prng.fold_in(noise_keys, idx)
+
+
+def round_eval_keys(noise_keys: torch.Tensor, num_evals: int) -> torch.Tensor:
+    """`noise_eval_keys` at the indices 0 .. num_evals - 1 in one fold:
+    [..., num_evals, m, 2] for the [..., m, 2] noise keys of one round or
+    more."""
+    return noise_eval_keys(noise_keys[..., None, :, :],
+                           np.arange(num_evals)[:, None])
+
+
+#: a noisy broadcast draws at most this many rounds in one pass, and at
+#: most this many bytes of draws: a pass's threefry words (twice the bytes
+#: of f64 draws) then stay within an H100's 50 MB L2.  A round of the
+#: d=4096, m=16 main path (11 MiB) draws alone; at 5 rounds a pass its
+#: draw took 2.41 ms of device time a round, against 1.76 ms alone
+#: (chip_smoke's stochastic_main_path and device_draws)
+DRAW_AHEAD_ROUNDS = 64
+DRAW_AHEAD_BYTES = 16 << 20
+
+
+def rounds_ahead(noise, num_evals: int, xs: Pytree, ys: Pytree,
+                 agent_data: Pytree) -> int:
+    """The rounds one pass of a noisy broadcast draws: the round's own and
+    those after it, within DRAW_AHEAD_ROUNDS and DRAW_AHEAD_BYTES."""
+    per_round = num_evals * noise.draw_bytes(xs, ys, agent_data)
+    return max(1, min(DRAW_AHEAD_ROUNDS, DRAW_AHEAD_BYTES // max(1, per_round)))
+
+
+def make_noise_vgrad(vgrad: Callable, noise) -> Callable:
+    """The per-agent stochastic gradient oracle of a noise model:
+    `(keys[m], xs, ys, agent_data) -> SaddleField`, the stochastic
+    counterpart of `vgrad(xs, ys, agent_data)`, one evaluation of
+    `noise.grad` (`fed.noise.NoiseModel`).  The reference vmaps the
+    model's one-agent `grad` over the agents; here the model takes the
+    agent batch and the vmapped oracle `vgrad`, so each draw covers every
+    agent in one pass.  The round uses the same draws and applies them
+    (`make_phases`)."""
+
+    def nvgrad(keys, xs, ys, agent_data):
+        return noise.grad(vgrad, keys, xs, ys, agent_data)
+
+    return nvgrad
 
 
 @dataclasses.dataclass
@@ -149,6 +233,8 @@ class RoundState:
     cy: Pytree = None
     gbar_x: Pytree = None          # anchor-point global gradients
     gbar_y: Pytree = None
+    noise_keys: Optional[torch.Tensor] = None  # [m, 2] per-round noise keys
+    noise_draws: Optional[list] = None  # the round's draws, by eval index
     fused: bool = False            # anchor shortcut applies
 
 
@@ -170,11 +256,9 @@ def _num_agents(agent_data: Pytree) -> int:
     return tree_leaves(agent_data)[0].shape[0]
 
 
-def _reject_elastic(step_budgets, active, noise_keys, active_indices):
+def _reject_elastic(step_budgets, active, active_indices):
     if step_budgets is not None or active is not None:
         raise not_ported("elastic step budgets / availability", "Queue 1 item 8")
-    if noise_keys is not _UNSET and noise_keys is not None:
-        raise not_ported("stochastic noise keys", "Queue 1 item 7")
     if active_indices is not None:
         raise not_ported("the sparse O(active) layout", "Queue 1 item 9")
 
@@ -206,10 +290,6 @@ def make_phases(
         update_fn = make_gt_update_fn()
     if constrain_agents is not None:
         raise not_ported("constrain_agents (SPMD sharding)", "Queue 1 item 13")
-    if getattr(strategy, "noise", None) is not None:
-        raise not_ported("stochastic strategies", "Queue 1 item 7")
-    if float(getattr(strategy, "momentum", 0.0) or 0.0):
-        raise not_ported("local momentum", "Queue 1 item 7")
     vgrad = vmap_grad_xy(loss)
 
     if getattr(strategy, "sync_every_step", False):
@@ -231,8 +311,10 @@ def make_phases(
         def broadcast(x, y, agent_data, state, *, weights=_UNSET,
                       step_budgets=None, active=None, noise_keys=_UNSET,
                       active_indices=None):
-            del agent_data
-            _reject_elastic(step_budgets, active, noise_keys, active_indices)
+            # FullSync is a deterministic baseline: noise_keys accepted
+            # for signature uniformity, never consumed
+            del agent_data, noise_keys
+            _reject_elastic(step_budgets, active, active_indices)
             w = None if weights is _UNSET else weights
             return RoundState(x=x, y=y, state=state, weights=w)
 
@@ -253,25 +335,74 @@ def make_phases(
 
     use_corr = bool(getattr(strategy, "use_correction", False))
     cdt = getattr(strategy, "correction_dtype", None)
+    # stochastic knobs: None / 0.0 keep the deterministic trace op for op
+    # (no zeroed noise, no 0-scaled velocity)
+    noise = getattr(strategy, "noise", None)
+    momentum = float(getattr(strategy, "momentum", 0.0) or 0.0)
+    if momentum:
+        # lazy: optim.momentum imports core
+        from ..optim.momentum import heavy_ball
+    # rounds drawn ahead, by their noise keys (`round_draws`)
+    ahead: dict = {}
+
+    def round_draws(noise_keys, state, xs, ys, agent_data):
+        """The round's draws by eval index: the anchor exchange (0) and the
+        K local steps (1 + k).  `state` (the strategy state after this
+        round's keys; None where the caller gave the keys) continues the
+        key chain: one pass draws the rounds after this one too, and
+        those rounds find their draws in `ahead`."""
+        tag = noise_keys.cpu().numpy().tobytes()
+        if tag in ahead:
+            return ahead.pop(tag)
+        ahead.clear()
+        m, evals = noise_keys.shape[0], num_local_steps + 1
+        keys = [noise_keys]
+        if state is not None:
+            for _ in range(rounds_ahead(noise, evals, xs, ys, agent_data) - 1):
+                k, state = strategy.sample_noise_keys(state, m)
+                keys.append(k)
+        flat = noise.draws(round_eval_keys(torch.stack(keys), evals).reshape(-1, m, 2),
+                           xs, ys, agent_data)
+        for r in range(1, len(keys)):
+            ahead[keys[r].cpu().numpy().tobytes()] = flat[r * evals:(r + 1) * evals]
+        return flat[:evals]
 
     def broadcast(x, y, agent_data, state, *, weights=_UNSET,
                   step_budgets=None, active=None, noise_keys=_UNSET,
                   active_indices=None):
-        _reject_elastic(step_budgets, active, noise_keys, active_indices)
+        _reject_elastic(step_budgets, active, active_indices)
         m = _num_agents(agent_data)
         if weights is _UNSET:
             weights, state = strategy.sample_weights(state, m)
+        chain = None
+        if noise_keys is _UNSET:
+            noise_keys = None
+            if noise is not None:
+                noise_keys, state = strategy.sample_noise_keys(state, m)
+                chain = state
+        if weights is not None:
+            # sampled on the host; the aggregates run where the iterates are
+            weights = weights.to(tree_leaves(x)[0].device)
         xs = tree_broadcast_agents(x, m)
         ys = tree_broadcast_agents(y, m)
-        return RoundState(x=x, y=y, state=state, xs=xs, ys=ys, weights=weights)
+        draws = None
+        if noise is not None and noise_keys is not None:
+            draws = round_draws(noise_keys, chain, xs, ys, agent_data)
+        return RoundState(x=x, y=y, state=state, xs=xs, ys=ys, weights=weights,
+                          noise_keys=noise_keys, noise_draws=draws)
 
     def exchange_corrections(rs, agent_data):
         if not use_corr:
             return rs
         m = _num_agents(agent_data)
         if m > 1:
-            # one gradient exchange at the anchor point
-            g0 = vgrad(rs.xs, rs.ys, agent_data)
+            # one gradient exchange at the anchor point (eval index 0 of
+            # the noise stream when stochastic)
+            if rs.noise_draws is None:
+                g0 = vgrad(rs.xs, rs.ys, agent_data)
+            else:
+                g0 = noise.apply(vgrad, rs.noise_draws[0], rs.xs, rs.ys,
+                                 agent_data)
             gbar_x = agent_mean(g0.gx, rs.weights)
             gbar_y = agent_mean(g0.gy, rs.weights)
             cx, cy = tracking_corrections(g0.gx, g0.gy, gbar_x, gbar_y, cdt)
@@ -283,9 +414,12 @@ def make_phases(
                 cx = cx.decode()
             if hasattr(cy, "decode"):
                 cy = cy.decode()
+            # momentum folds the correction into a velocity, so the first
+            # step is no longer the plain anchor update
+            fused = bool(strategy.exact_correction) and not momentum
             return dataclasses.replace(
                 rs, cx=cx, cy=cy, gbar_x=gbar_x, gbar_y=gbar_y,
-                fused=bool(strategy.exact_correction), state=state,
+                fused=fused, state=state,
             )
         # m == 1: the correction is identically zero and elided
         cx = tree_map(torch.zeros_like, rs.xs)
@@ -294,13 +428,38 @@ def make_phases(
 
     def local_steps(rs, agent_data):
         xs, ys = rs.xs, rs.ys
+
+        def grads(xs, ys, k):
+            # k is the in-round step index; the stochastic oracle draws at
+            # eval index 1 + k (0 belongs to the anchor exchange)
+            if rs.noise_draws is None:
+                return vgrad(xs, ys, agent_data)
+            return noise.apply(vgrad, rs.noise_draws[1 + k], xs, ys, agent_data)
+
         start = 0
         if rs.fused:
             xs = anchor_step(xs, rs.gbar_x, eta_x, -1.0)
             ys = anchor_step(ys, rs.gbar_y, eta_y, +1.0)
             start = 1
-        for _ in range(start, num_local_steps):
-            g = vgrad(xs, ys, agent_data)
+        if momentum:
+            # heavy-ball local steps (Local SGDA+): per-round velocities,
+            # zero-initialized, carrying the corrected step direction
+            def eff(g, c):
+                if not use_corr:
+                    return g
+                return tree_map(lambda gv, cv: gv + cv.to(gv.dtype), g, c)
+
+            vx = tree_map(torch.zeros_like, xs)
+            vy = tree_map(torch.zeros_like, ys)
+            for k in range(start, num_local_steps):
+                g = grads(xs, ys, k)
+                vx = heavy_ball(vx, eff(g.gx, rs.cx), momentum)
+                vy = heavy_ball(vy, eff(g.gy, rs.cy), momentum)
+                xs = tree_map(lambda u, v: u - eta_x * v, xs, vx)
+                ys = tree_map(lambda u, v: u + eta_y * v, ys, vy)
+            return dataclasses.replace(rs, xs=xs, ys=ys)
+        for k in range(start, num_local_steps):
+            g = grads(xs, ys, k)
             if use_corr:
                 xs = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
                 ys = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)

@@ -1,13 +1,25 @@
 """Federated layer of the port: the synchronous runner, communication
-strategies and the packed wire transport (the asynchronous runtime is
-ROADMAP Queue 1 item 10)."""
+strategies (deterministic, client sampling, compressed, stochastic), noise
+models, communication accounting and the packed wire transport (the
+asynchronous runtime is ROADMAP Queue 1 item 10)."""
+from .comm import comm_table
+from .noise import (
+    GaussianNoise,
+    MinibatchNoise,
+    NoiseModel,
+    noise_key,
+    resolve_noise,
+)
 from .runtime import FederatedRunner, RoundStats
 from .strategies import (
+    SAGDA,
     CommStrategy,
     CompressedGT,
     FullSync,
     GradientTracking,
     LocalOnly,
+    LocalSGDAPlus,
+    PartialParticipation,
     QuantizedGT,
     resolve_strategy,
 )
@@ -30,8 +42,17 @@ __all__ = [
     "FullSync",
     "GradientTracking",
     "LocalOnly",
+    "LocalSGDAPlus",
+    "PartialParticipation",
     "QuantizedGT",
+    "SAGDA",
     "resolve_strategy",
+    "GaussianNoise",
+    "MinibatchNoise",
+    "NoiseModel",
+    "noise_key",
+    "resolve_noise",
+    "comm_table",
     "HEADER_BYTES",
     "LeafPayload",
     "LeafSpec",

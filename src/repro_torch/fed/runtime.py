@@ -35,6 +35,9 @@ from ..device import not_ported
 
 Pytree = Any
 
+#: keyword arguments of `core.engine.make_round` that `from_strategy` forwards
+_ROUND_KWARGS = ("proj_x", "proj_y", "update_fn", "constrain_agents")
+
 
 @dataclasses.dataclass
 class RoundStats:
@@ -132,17 +135,28 @@ class FederatedRunner(RunnerHistoryMixin):
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 0,
         telemetry=None,
-        **round_kwargs,
+        **kwargs,
     ) -> "FederatedRunner":
         """Build the round for `strategy` (name or CommStrategy) via the
-        unified engine and wrap it in a runner."""
+        unified engine and wrap it in a runner.  The keyword arguments of
+        `make_round` (proj_x, proj_y, update_fn) go to the round; any other
+        goes to `resolve_strategy` with a strategy name, so
+        `from_strategy(loss, "sagda", ..., noise_sigma=0.1)` builds the
+        noisy strategy (the reference passes every extra keyword to the
+        round)."""
         from ..core.engine import make_round
         from .strategies import resolve_strategy
 
         if telemetry is not None:
             raise not_ported("runner telemetry and phase spans",
                              "Queue 1 item 11")
-        strategy = resolve_strategy(strategy)
+        round_kwargs = {k: v for k, v in kwargs.items() if k in _ROUND_KWARGS}
+        strategy_kwargs = {k: v for k, v in kwargs.items()
+                           if k not in _ROUND_KWARGS}
+        if strategy_kwargs and not isinstance(strategy, str):
+            raise TypeError(f"strategy knobs {sorted(strategy_kwargs)} need a "
+                            "strategy name, not a built strategy")
+        strategy = resolve_strategy(strategy, **strategy_kwargs)
         rnd = make_round(
             loss,
             strategy,

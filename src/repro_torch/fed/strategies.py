@@ -1,7 +1,8 @@
 """Communication strategies for the round engine (port of
 `repro/fed/strategies.py`: the base protocol plus FullSync, LocalOnly,
-GradientTracking and the compressed-correction family CompressedGT /
-QuantizedGT).
+GradientTracking, client sampling (PartialParticipation), the
+compressed-correction family CompressedGT / QuantizedGT and the
+stochastic family SAGDA / LocalSGDAPlus).
 
 A `CommStrategy` says WHAT the agents communicate each round and HOW
 local drift is corrected; `core.engine.make_round` reads only these hooks:
@@ -13,7 +14,16 @@ local drift is corrected; `core.engine.make_round` reads only these hooks:
   correction_dtype   optional reduced storage dtype for the correction
   stateful           round carries persistent cross-round state
   init_state(x,y,m)  build that state
+  noise              optional `fed.noise.NoiseModel`: the anchor and local
+                     gradients become seeded stochastic draws; None is
+                     the deterministic round, op for op
+  momentum           (LocalSGDAPlus) heavy-ball local steps
   sample_weights(state, m) -> (weights | None, state)
+                     client-sampling weights, drawn on the host (the
+                     engine moves them to the iterates' device)
+  sample_noise_keys(state, m) -> (keys | None, state)
+                     the round's [m, 2] per-agent keys from the dedicated
+                     noise stream (`fed.noise`), folded by agent index
   transform_correction(cx, cy, state) -> (cx, cy, state)
                      cx / cy may come back as `transport.PackedTree` wire
                      payloads (objects with a `.decode()` hook) instead of
@@ -23,9 +33,10 @@ local drift is corrected; `core.engine.make_round` reads only these hooks:
                      (`transport.measured_bytes_per_round` measures the
                      packed buffers)
 
-The other families of the reference (client sampling, the stochastic
-family) raise NotImplementedError from `resolve_strategy`, naming their
-ROADMAP queue item.
+Not ported (each raises NotImplementedError naming its ROADMAP queue
+item): the elastic re-anchoring hooks `rebase_state` (item 8) and
+`realign_state_rows`, and `sample_noise_keys_ids` of the sparse layout
+(item 9).
 """
 from __future__ import annotations
 
@@ -35,9 +46,12 @@ from typing import Any, Optional, Tuple
 import torch
 
 from .. import prng
+from ..core.engine import fixed_size_mask, renormalized_weights
 from ..core.types import Pytree, tree_flatten, tree_leaves, tree_map
 from ..device import not_ported
 from ..kernels.compress_correction import compress_leaf
+from .noise import noise_key as _noise_stream_key
+from .noise import resolve_noise
 from .transport import LeafSpec, PackedTree, dense_payload_bytes, encode_leaf
 
 Weights = Optional[torch.Tensor]
@@ -69,17 +83,46 @@ class CommStrategy:
     sync_every_step = False
     use_correction = False
     correction_dtype: Any = None
+    #: optional `fed.noise.NoiseModel`; None is the deterministic round
+    noise: Any = None
+    #: seed of the dedicated noise stream (`fed.noise.noise_key`, a fold of
+    #: NOISE_STREAM, never the raw PRNGKey(seed) of the other chains)
+    noise_seed: int = 0
 
     @property
     def exact_correction(self) -> bool:
-        return True
+        # gradient noise voids the anchor-point cancellation: the tracked
+        # gbar and the first local step see different draws
+        return self.noise is None
 
     @property
     def stateful(self) -> bool:
-        return False
+        return self.noise is not None
+
+    def _noise_state(self) -> State:
+        """The noise stream's state entry (empty when deterministic), which
+        concrete strategies merge into their own `init_state`."""
+        if self.noise is None:
+            return {}
+        return {"noise_key": _noise_stream_key(self.noise_seed)}
 
     def init_state(self, x: Pytree, y: Pytree, m: int) -> State:
-        return {}
+        return self._noise_state()
+
+    def sample_noise_keys(self, state: State, m: int):
+        """Per-agent noise keys for ONE round ([m, 2], on the CPU): split
+        the dedicated stream once, then fold each agent's index into the
+        round subkey.  None when the strategy is deterministic."""
+        if self.noise is None:
+            return None, state
+        state = dict(state)
+        key, sub = prng.split(state["noise_key"])
+        state["noise_key"] = key
+        return prng.fold_in(sub, list(range(m))), state
+
+    def sample_noise_keys_ids(self, state: State, ids):
+        raise not_ported("noise keys of the sparse O(active) layout",
+                         "Queue 1 item 9")
 
     @property
     def sharded_state_keys(self) -> Tuple[str, ...]:
@@ -137,6 +180,52 @@ class GradientTracking(CommStrategy):
     def bytes_per_round(self, x, y, num_local_steps):
         # up: grad + local model; down: global grad + averaged model
         return 4 * _payload_bytes((x, y))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialParticipation(GradientTracking):
+    """Gradient tracking with client sampling: each round a uniform subset
+    of S = max(1, round(participation * m)) agents participates; gbar and
+    the aggregate are plain means over the sampled set.  The sampling
+    chain is the raw PRNGKey(seed), one split a round, the subset
+    `engine.fixed_size_mask` of the subkey, JAX's bit for bit (drawn on
+    the host: m keys of 32 bits and a stable sort).
+
+    participation >= 1 is the identity configuration: sampling is elided
+    and the round is exactly GradientTracking."""
+
+    participation: float = 0.5
+    seed: int = 0
+    name = "partial_participation"
+
+    @property
+    def _sampling(self) -> bool:
+        return self.participation < 1.0
+
+    @property
+    def stateful(self) -> bool:
+        return self._sampling or self.noise is not None
+
+    def init_state(self, x, y, m):
+        state = self._noise_state()
+        if self._sampling:
+            state["key"] = prng.PRNGKey(self.seed)
+        return state
+
+    def sample_weights(self, state, m):
+        if not self._sampling:
+            return None, state
+        S = max(1, int(round(self.participation * m)))
+        if S >= m:
+            return None, state
+        state = dict(state)
+        key, sub = prng.split(state["key"])
+        state["key"] = key
+        return renormalized_weights(fixed_size_mask(sub, m, S, "cpu")), state
+
+    def bytes_per_round(self, x, y, num_local_steps):
+        # expected per-agent payload: only sampled agents communicate
+        return int(round(self.participation * 4 * _payload_bytes((x, y))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,8 +298,9 @@ class _CorrectionCompressor(CommStrategy):
 
     @property
     def exact_correction(self) -> bool:
-        # a lossy transform voids the anchor-point cancellation
-        return not self._active
+        # a lossy transform (or gradient noise) voids the anchor-point
+        # cancellation
+        return not self._active and self.noise is None
 
     @property
     def _compressor_state(self) -> bool:
@@ -218,7 +308,7 @@ class _CorrectionCompressor(CommStrategy):
 
     @property
     def stateful(self) -> bool:
-        return self._compressor_state
+        return self._compressor_state or self.noise is not None
 
     @property
     def sharded_state_keys(self) -> Tuple[str, ...]:
@@ -227,7 +317,7 @@ class _CorrectionCompressor(CommStrategy):
         return ()
 
     def init_state(self, x, y, m):
-        state: State = {}
+        state: State = self._noise_state()
         if not self._compressor_state:
             return state
         if self.error_feedback:
@@ -386,14 +476,42 @@ class QuantizedGT(_CorrectionCompressor):
         )
 
 
-def _stochastic(kw) -> bool:
-    """Whether the kwargs ask for a noise model (`fed/noise.py`
-    `resolve_noise` of the reference: a model name or a nonzero scale)."""
-    return (
-        kw.get("noise") not in (None, "", "none")
-        or bool(kw.get("noise_sigma"))
-        or bool(kw.get("noise_fraction"))
-    )
+@dataclasses.dataclass(frozen=True)
+class SAGDA(GradientTracking):
+    """Stochastic sampled averaged GDA (Yang et al. 2022): the
+    gradient-tracking round driven by a stochastic gradient oracle; the
+    anchor exchange and every local step consume fresh draws from the
+    dedicated noise stream.  noise=None is the identity configuration: the
+    round is exactly GradientTracking, op for op."""
+
+    name = "sagda"
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalSGDAPlus(CommStrategy):
+    """Local SGDA+ (Sharma et al. 2022): Local SGDA's uncorrected K-step
+    round with heavy-ball momentum on the local step (per-round
+    velocities, zero-initialized) and a stochastic gradient oracle.
+    momentum=0, noise=None is the identity configuration: the round is
+    exactly LocalOnly, op for op."""
+
+    momentum: float = 0.0
+    name = "local_sgda_plus"
+
+    def bytes_per_round(self, x, y, num_local_steps):
+        # momentum never leaves the agent: one model up/download per round
+        return 2 * _payload_bytes((x, y))
+
+
+def _noise_kwargs(kw) -> dict:
+    """The noise knobs of the stochastic-capable aliases; empty when the
+    spec resolves to the deterministic regime, so identity configurations
+    build strategies equal to the deterministic ones."""
+    n = resolve_noise(kw.get("noise"), sigma=kw.get("noise_sigma"),
+                      fraction=kw.get("noise_fraction"))
+    if n is None:
+        return {}
+    return {"noise": n, "noise_seed": kw.get("noise_seed", 0)}
 
 
 def _compressed(kw) -> dict:
@@ -405,6 +523,16 @@ def _compressed(kw) -> dict:
         seed=kw.get("seed", 0),
         use_kernel=kw.get("use_kernel", True),
         wire_transport=kw.get("wire_transport", False),
+        **_noise_kwargs(kw),
+    )
+
+
+def _partial(kw) -> "PartialParticipation":
+    return PartialParticipation(
+        participation=kw.get("participation", 0.5),
+        correction_dtype=kw.get("correction_dtype"),
+        seed=kw.get("seed", 0),
+        **_noise_kwargs(kw),
     )
 
 
@@ -415,11 +543,19 @@ _ALIASES = {
     "local_sgda": lambda kw: LocalOnly(),
     "local_only": lambda kw: LocalOnly(),
     "fedgda_gt": lambda kw: GradientTracking(
-        correction_dtype=kw.get("correction_dtype"),
+        correction_dtype=kw.get("correction_dtype"), **_noise_kwargs(kw),
     ),
     "gradient_tracking": lambda kw: GradientTracking(
-        correction_dtype=kw.get("correction_dtype"),
+        correction_dtype=kw.get("correction_dtype"), **_noise_kwargs(kw),
     ),
+    "sagda": lambda kw: SAGDA(
+        correction_dtype=kw.get("correction_dtype"), **_noise_kwargs(kw),
+    ),
+    "local_sgda_plus": lambda kw: LocalSGDAPlus(
+        momentum=kw.get("momentum", 0.0), **_noise_kwargs(kw),
+    ),
+    "partial_gt": _partial,
+    "partial_participation": _partial,
     "compressed_gt": lambda kw: CompressedGT(
         compression_ratio=kw.get("compression_ratio", 0.1), **_compressed(kw),
     ),
@@ -430,34 +566,24 @@ _ALIASES = {
     ),
 }
 
-#: families of the reference not ported yet -> their ROADMAP item
-_NOT_PORTED = {
-    "partial_gt": "Queue 1 item 5",
-    "partial_participation": "Queue 1 item 5",
-    "sagda": "Queue 1 item 7",
-    "local_sgda_plus": "Queue 1 item 7",
-}
-
 
 def resolve_strategy(spec, **kwargs) -> CommStrategy:
     """Map an algorithm name (or a ready strategy) to a CommStrategy.
 
-    Ported names: "gda" / "sync_gda" / "full_sync", "local_sgda" /
-    "local_only", "fedgda_gt" / "gradient_tracking" (kwarg
-    `correction_dtype`), "compressed_gt" (compression_ratio,
-    compression_mode, error_feedback, correction_dtype, seed, use_kernel,
-    wire_transport) and "quantized_gt" (the same plus quantization_bits;
-    compression_ratio defaults to 1).  The reference's other names, and
-    noise kwargs, raise NotImplementedError; unknown names raise
-    ValueError."""
+    Names: "gda" / "sync_gda" / "full_sync", "local_sgda" / "local_only"
+    (deterministic baselines: they ignore the noise knobs), "fedgda_gt" /
+    "gradient_tracking" and "sagda" (kwarg `correction_dtype`),
+    "local_sgda_plus" (momentum), "partial_gt" / "partial_participation"
+    (participation, correction_dtype, seed), "compressed_gt"
+    (compression_ratio, compression_mode, error_feedback, correction_dtype,
+    seed, use_kernel, wire_transport) and "quantized_gt" (the same plus
+    quantization_bits; compression_ratio defaults to 1).  Every name but
+    the baselines takes the noise knobs noise / noise_sigma /
+    noise_fraction / noise_seed (`fed.noise.resolve_noise`).  The port's
+    compressors default to `use_kernel=True` (the reference's to its
+    interpret-mode False); unknown names raise ValueError."""
     if isinstance(spec, CommStrategy):
         return spec
-    if isinstance(spec, str) and spec in _NOT_PORTED:
-        raise not_ported(f"strategy {spec!r}", _NOT_PORTED[spec])
-    if spec in ("fedgda_gt", "gradient_tracking") and _stochastic(kwargs):
-        raise not_ported("stochastic gradient tracking", "Queue 1 item 7")
-    if spec in ("compressed_gt", "quantized_gt") and _stochastic(kwargs):
-        raise not_ported(f"stochastic {spec}", "Queue 1 item 7")
     try:
         factory = _ALIASES[spec]
     except (KeyError, TypeError):

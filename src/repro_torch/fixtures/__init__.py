@@ -29,7 +29,31 @@ per-agent risks of FedGDA-GT from x0 = 0, lambda0 uniform, with the
 simplex projection (`agnostic_*`) and with lambda frozen at uniform
 (`uniform_*`).
 
-`tests/test_torch_fixtures.py` rebuilds the three files from the JAX
+`stochastic_rounds.npz` holds the stochastic and client-sampling rounds:
+  * the Section 4 separation of tests/test_paper_claims.py
+    (`TestStochasticSeparation`; `SEC4`: d=10, n=40, m=6, K=10, eta=5e-4,
+    T=1500, x0 = y0 = 0) on the quadratic the JAX builder draws from
+    PRNGKey(0) (`sec4_G`, `sec4_Ab`), with JAX's gap trajectories of the
+    four runs of `SEC4_RUNS` (`sec4_<run>_gap`: noiseless SAGDA, Local
+    SGDA, SAGDA at sigma 0.1 and 0.01, each with the final gap appended);
+  * PartialParticipation(0.5, seed 0) on the Theorem 1 problem
+    (`PARTIAL`: K=10, eta=2e-4, 500 rounds from x0 = y0 = 0): JAX's
+    per-round participation masks (`partial_mask`, [500, 8] bool) and gaps
+    (`partial_gap`);
+  * the noisy runs of `NOISY_RUNS`: SAGDA with MinibatchNoise(0.5) on Fig
+    2's alpha-5 robust regression (the `robust5` data of
+    `robust_agnostic.npz`, its stepsize, the unit ball; x every
+    `ROBUST_EVERY`-th round, `noisy_<run>_x`) and rand-k CompressedGT with
+    Gaussian noise on the Theorem 1 problem (gaps, `noisy_<run>_gap`);
+  * the two Dirichlet quadratics of `benchmarks/generalization.py`'s
+    stochastic table (`DIRICHLET`: d=12, n=60, m=6, four components, a
+    held-out split of 60, from PRNGKey(7), alpha 0.1 and 100), train and
+    test sufficient statistics and mixture weights (`dirichlet<alpha>_G`,
+    `_Ab`, `_test_G`, `_test_Ab`, `_weights`) and JAX's rows of that table
+    (`dirichlet<alpha>_rows`: per strategy x noise of `GEN_ROWS`, rounds to
+    eps (inf if never), final distance and generalization gap).
+
+`tests/test_torch_fixtures.py` rebuilds the four files from the JAX
 package; run that file as a script to rewrite them.
 """
 from __future__ import annotations
@@ -42,6 +66,7 @@ import numpy as np
 PAPER_QUADRATIC = Path(__file__).resolve().parent / "paper_quadratic.npz"
 COMPRESSED_ROUNDS = Path(__file__).resolve().parent / "compressed_rounds.npz"
 ROBUST_AGNOSTIC = Path(__file__).resolve().parent / "robust_agnostic.npz"
+STOCHASTIC_ROUNDS = Path(__file__).resolve().parent / "stochastic_rounds.npz"
 
 #: run name -> (`resolve_strategy` name, kwargs); the same names and
 #: kwargs build the strategy in the JAX package and in the port
@@ -90,6 +115,37 @@ ROBUST_EVERY = 10
 AGNOSTIC = (8, 80, 5, 4.0, 5, 2e-3, 1500)
 
 
+#: (dim, num_samples, num_agents, K, eta, rounds) of the Section 4 runs
+SEC4 = (10, 40, 6, 10, 5e-4, 1500)
+#: run -> (`resolve_strategy` name, kwargs), in the port and in JAX
+SEC4_RUNS = {
+    "gt": ("sagda", {}),
+    "ls": ("local_sgda_plus", {}),
+    "hi": ("sagda", {"noise_sigma": 0.1}),
+    "lo": ("sagda", {"noise_sigma": 0.01}),
+}
+#: (K, eta, rounds) of PartialParticipation(0.5, seed 0) on "thm1"
+PARTIAL = (10, 2e-4, 500)
+PARTIAL_KW = {"participation": 0.5, "seed": 0}
+#: run -> (problem, strategy name, kwargs, K, eta (None: the fixture's
+#: stepsize), rounds)
+NOISY_RUNS = {
+    "robust5_minibatch": ("robust5", "sagda",
+                          {"noise": "minibatch", "noise_fraction": 0.5,
+                           "noise_seed": 0}, 10, None, 200),
+    "thm1_cgt_randk": ("thm1", "compressed_gt",
+                       {"compression_ratio": 0.5, "compression_mode": "randk",
+                        "seed": 0, "noise_sigma": 0.1, "noise_seed": 1},
+                       10, 2e-4, 300),
+}
+#: (dim, num_samples, num_agents, num_components, alphas) of the
+#: generalization benchmark's stochastic table, drawn from PRNGKey(7)
+DIRICHLET = (12, 60, 6, 4, (0.1, 100.0))
+#: (strategy, noise) of each row of `dirichlet<alpha>_rows`, in order
+GEN_ROWS = tuple((s, n) for n in ("none", "gaussian")
+                 for s in ("local_sgda", "local_sgda_plus", "sagda"))
+
+
 def robust_key(alpha: float) -> str:
     """Key prefix of the alpha problem: "robust1", "robust5", "robust20"."""
     return f"robust{alpha:g}"
@@ -106,6 +162,41 @@ def robust_agnostic_keys() -> list:
             f"{pre}_{run}_{what}" for run in ROBUST_RUNS
             for what in ("x", "robust_loss")]
     return sorted(keys)
+
+
+def dirichlet_key(alpha: float) -> str:
+    """Key prefix of a Dirichlet problem: "dirichlet0.1", "dirichlet100"."""
+    return f"dirichlet{alpha:g}"
+
+
+def stochastic_rounds_keys() -> list:
+    """The arrays `stochastic_rounds.npz` holds, sorted."""
+    keys = ["sec4_G", "sec4_Ab", "partial_mask", "partial_gap",
+            "noisy_robust5_minibatch_x", "noisy_thm1_cgt_randk_gap"]
+    keys += [f"sec4_{run}_gap" for run in SEC4_RUNS]
+    for alpha in DIRICHLET[4]:
+        pre = dirichlet_key(alpha)
+        keys += [f"{pre}_{what}" for what in
+                 ("G", "Ab", "test_G", "test_Ab", "weights", "rows")]
+    return sorted(keys)
+
+
+def load_stochastic_rounds() -> Dict[str, np.ndarray]:
+    with np.load(STOCHASTIC_ROUNDS) as f:
+        return {k: f[k] for k in f.files}
+
+
+def dirichlet_problem(alpha: float, device=None):
+    """(problem, test_data, weights) of the Dirichlet quadratic at `alpha`
+    as JAX draws it from PRNGKey(7), on `device` (default CUDA)."""
+    from ..convert import problem_split_from_numpy, tensor_from_numpy
+
+    fix = load_stochastic_rounds()
+    pre = dirichlet_key(alpha)
+    prob, test = problem_split_from_numpy(
+        "quadratic", {"G": fix[f"{pre}_G"], "Ab": fix[f"{pre}_Ab"]},
+        {"G": fix[f"{pre}_test_G"], "Ab": fix[f"{pre}_test_Ab"]}, device)
+    return prob, test, tensor_from_numpy(fix[f"{pre}_weights"], device)
 
 
 def load_paper_quadratic() -> Dict[str, np.ndarray]:
@@ -126,7 +217,7 @@ def load_robust_agnostic() -> Dict[str, np.ndarray]:
 def fixture_problem(which: str, device=None):
     """(problem, x*, y*) of fixture problem `which`, the JAX-drawn data as
     the port's `MinimaxProblem` on `device` (default CUDA): the quadratics
-    "thm1" | "sec51" | "quad6" with their closed-form minimax point, and
+    "thm1" | "sec51" | "quad6" | "sec4" with their closed-form minimax point, and
     "robust1" | "robust5" | "robust20" | "agnostic", which have none
     (x*, y* are None; the robust problems carry Proj_Y = the unit ball,
     the agnostic one the simplex)."""
@@ -142,7 +233,8 @@ def fixture_problem(which: str, device=None):
             data["agent_index"] = np.arange(m, dtype=np.int32)
             data["m"] = np.full((m,), float(m))
         return problem_from_numpy(kind, data, device), None, None
-    fix = load_compressed_rounds() if which == "quad6" else load_paper_quadratic()
+    fix = {"quad6": load_compressed_rounds,
+           "sec4": load_stochastic_rounds}.get(which, load_paper_quadratic)()
     prob = problem_from_numpy(
         "quadratic", {"G": fix[f"{which}_G"], "Ab": fix[f"{which}_Ab"]}, device
     )
@@ -180,3 +272,76 @@ def compressed_run_gaps(run: str, which: str, device=None,
         strategy.init_state(x0, x0, prob.num_agents), gap,
     )
     return met["gap"].cpu().numpy()
+
+
+def _strategy_gaps(prob, xs, ys, strategy, K: int, eta: float, rounds: int,
+                   record_x: bool = False) -> np.ndarray:
+    """Per-round gaps (or, with `record_x`, x every ROBUST_EVERY-th round)
+    of `strategy` on `prob` from x0 = y0 = 0 with its own initial state."""
+    import torch
+
+    from ..core import make_round, run_strategy_rounds, tree_sq_dist
+
+    # x and y live in R^d for the quadratic (Ab) and robust regression (a)
+    lead = prob.agent_data["Ab" if "Ab" in prob.agent_data else "a"]
+    x0 = y0 = torch.zeros(lead.shape[-1], dtype=torch.float64, device=lead.device)
+    rnd = make_round(prob.loss, strategy, K, eta, proj_y=prob.proj_y,
+                     explicit_state=True)
+    state = strategy.init_state(x0, y0, prob.num_agents)
+    if record_x:
+        x, y, out = x0, y0, [x0]
+        for t in range(1, rounds + 1):
+            x, y, state = rnd(x, y, prob.agent_data, state)
+            if t % ROBUST_EVERY == 0:
+                out.append(x)
+        return torch.stack(out).cpu().numpy()
+
+    def gap(x, y):
+        return {"gap": tree_sq_dist(x, xs) + tree_sq_dist(y, ys)}
+
+    _, met = run_strategy_rounds(rnd, x0, y0, prob.agent_data, rounds, state, gap)
+    return met["gap"].cpu().numpy()
+
+
+def sec4_run_gaps(run: str, device=None) -> np.ndarray:
+    """The port's per-round gaps of Section 4 run `run` (`SEC4_RUNS`) on
+    the `sec4` problem, the counterpart of `sec4_<run>_gap`."""
+    from ..fed import resolve_strategy
+
+    prob, xs, ys = fixture_problem("sec4", device)
+    _, _, _, K, eta, T = SEC4
+    name, kw = SEC4_RUNS[run]
+    return _strategy_gaps(prob, xs, ys, resolve_strategy(name, **kw), K, eta, T)
+
+
+def partial_run(device=None, rounds: Optional[int] = None):
+    """(masks, gaps) of the port's PartialParticipation(0.5, seed 0) run on
+    the Theorem 1 problem: the counterparts of `partial_mask` (the
+    strategy's per-round draws, [rounds, m] bool) and `partial_gap`."""
+    from ..fed import PartialParticipation
+
+    prob, xs, ys = fixture_problem("thm1", device)
+    K, eta, T = PARTIAL
+    rounds = T if rounds is None else rounds
+    strategy = PartialParticipation(**PARTIAL_KW)
+    x0 = xs.new_zeros(xs.shape)
+    state, masks = strategy.init_state(x0, x0, prob.num_agents), []
+    for _ in range(rounds):
+        w, state = strategy.sample_weights(state, prob.num_agents)
+        masks.append((w > 0).numpy())
+    gaps = _strategy_gaps(prob, xs, ys, strategy, K, eta, rounds)
+    return np.stack(masks), gaps
+
+
+def noisy_run(run: str, device=None) -> np.ndarray:
+    """The port's noisy fixture run `run` (`NOISY_RUNS`): x every
+    ROBUST_EVERY-th round on a robust problem, per-round gaps on a
+    quadratic, the counterparts of `noisy_<run>_x` / `noisy_<run>_gap`."""
+    from ..fed import resolve_strategy
+
+    which, name, kw, K, eta, T = NOISY_RUNS[run]
+    prob, xs, ys = fixture_problem(which, device)
+    if eta is None:
+        eta = float(load_robust_agnostic()[f"{which}_eta"])
+    return _strategy_gaps(prob, xs, ys, resolve_strategy(name, **kw), K, eta, T,
+                          record_x=xs is None)

@@ -63,6 +63,65 @@ def make_quadratic_problem(
     )
 
 
+def _sufficient_stats(A, b):
+    """Per-agent per-sample-MEAN sufficient statistics G_i = A_i^T A_i / n,
+    Ab_i = A_i^T b_i / n: the loss is an empirical risk, so train and
+    held-out risks are on one scale."""
+    n = A.shape[1]
+    G = torch.einsum("mnd,mne->mde", A, A) / n
+    Ab = torch.einsum("mnd,mn->md", A, b) / n
+    return G, Ab
+
+
+def make_dirichlet_quadratic_problem(
+    generator: torch.Generator,
+    dim: int = 20,
+    num_samples: int = 100,
+    num_agents: int = 10,
+    alpha: float = 1.0,
+    num_components: int = 4,
+    test_samples: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device: DeviceLike = None,
+):
+    """Dirichlet-heterogeneous quadratic game with a held-out split: agent
+    i draws its mixture over `num_components` latent targets theta_c from
+    Dirichlet(alpha) (`data.dirichlet_partition_weights`), then each of
+    its samples picks a component from that mixture (`torch.multinomial`)
+    and draws row A ~ N(0, I), b = A theta_c + eps, eps ~ N(0, 0.25).
+    Sufficient statistics are per-sample means, so the train risk and the
+    held-out risk of `test_data` are comparable.
+
+    Returns (problem, test_data, weights) on `device` (default CUDA);
+    `test_data` is None when `test_samples == 0`, `weights` the [m, C]
+    mixture matrix."""
+    from ..data.synthetic import dirichlet_partition_weights
+
+    device = resolve_device(device)
+    gdev = generator.device
+    weights = dirichlet_partition_weights(generator, num_agents,
+                                          num_components, alpha, dtype=dtype)
+    theta = torch.randn((num_components, dim), generator=generator,
+                        dtype=dtype, device=gdev)
+
+    def sample_split(n):
+        comp = torch.multinomial(weights, n, replacement=True,
+                                 generator=generator)  # [m, n]
+        A = torch.randn((num_agents, n, dim), generator=generator,
+                        dtype=dtype, device=gdev)
+        eps = 0.5 * torch.randn((num_agents, n), generator=generator,
+                                dtype=dtype, device=gdev)
+        b = torch.einsum("mnd,mnd->mn", A, theta[comp]) + eps
+        G, Ab = _sufficient_stats(A.to(device), b.to(device))
+        return {"G": G, "Ab": Ab}
+
+    agent_data = sample_split(num_samples)
+    test_data = sample_split(test_samples) if test_samples else None
+    problem = MinimaxProblem(loss=_loss, agent_data=agent_data,
+                             num_agents=num_agents)
+    return problem, test_data, weights.to(device)
+
+
 def quadratic_minimax_point(
     problem: MinimaxProblem,
 ) -> Tuple[torch.Tensor, torch.Tensor]:

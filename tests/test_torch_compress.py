@@ -146,8 +146,10 @@ def test_knob_validation_and_aliases():
                              wire_transport=True, use_kernel=False)
     assert q == fed.QuantizedGT(bits=4, wire_transport=True, use_kernel=False)
     for name in ("compressed_gt", "quantized_gt"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fed.resolve_strategy(name, noise_sigma=0.1)
+        # the noise knobs ride on the compressors (a noisy round)
+        noisy = fed.resolve_strategy(name, noise_sigma=0.1, noise_seed=2)
+        assert noisy.noise == fed.GaussianNoise(0.1) and noisy.noise_seed == 2
+        assert noisy.stateful and not noisy.exact_correction
     st = s.init_state(torch.zeros(3), torch.zeros(2), 4)
     with pytest.raises(NotImplementedError, match="item 8"):
         s.rebase_state(st, torch.ones(4, dtype=torch.bool))

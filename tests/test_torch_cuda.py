@@ -423,6 +423,98 @@ def test_cuda_wire_transform_returns_packed_trees(cuda_device):
     assert px.wire_bytes() == px.specs[0].wire_bytes()
 
 
+# --------------------------------------- stochastic and sampling rounds
+#: normal draws on the card against the port's CPU draws, in ulp (CUDA's
+#: log1p is another implementation; chip_smoke's DRAW_ULP)
+DRAW_ULP = {torch.float32: 8, torch.float64: 64}
+
+
+def _ulp(a, b):
+    it = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return int((a.view(it).to(torch.int64) - b.view(it).to(torch.int64)).abs().max())
+
+
+@pytest.mark.parametrize("dt", [torch.int64, torch.int32], ids=["i64", "i32"])
+def test_cuda_randint_and_permutation_equal_cpu(cuda_device, dt):
+    from repro_torch import prng
+
+    keys = prng.fold_in(prng.split(prng.PRNGKey(4), 8), 2)
+    for lo, hi in ((0, 8192), (0, 1000), (-5, 2 ** 31 - 7), (9, 2)):
+        got = prng.randint(keys, (513,), lo, hi, dt, cuda_device)
+        assert torch.equal(got.cpu(), prng.randint(keys, (513,), lo, hi, dt, "cpu"))
+    for n in (1, 16, 2000, 70000):
+        assert torch.equal(prng.permutation(prng.PRNGKey(n), n, cuda_device).cpu(),
+                           prng.permutation(prng.PRNGKey(n), n, "cpu"))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_normal_within_its_ulp_of_cpu(cuda_device, dt):
+    from repro_torch import prng
+
+    keys = prng.fold_in(prng.split(prng.PRNGKey(6), 16), 1)
+    got = prng.normal(keys, (4096,), dt, cuda_device)
+    want = prng.normal(keys, (4096,), dt, "cpu")
+    assert _ulp(got.cpu(), want) <= DRAW_ULP[dt]
+    stacked = torch.stack([prng.normal(k, (4096,), dt, cuda_device) for k in keys])
+    assert torch.equal(got, stacked)
+    u = prng.uniform(keys, (999,), dt, cuda_device, -3.0, 5.5)
+    assert torch.equal(u.cpu(), prng.uniform(keys, (999,), dt, "cpu", -3.0, 5.5))
+
+
+@pytest.mark.parametrize("tag", ["sagda_gaussian", "partial_gt_50",
+                                 "quantized_wire_gaussian", "minibatch_robust"])
+def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
+    """chip_smoke's stochastic main path at a reduced size: iterates and
+    state through the kernels equal the plain path's bit for bit (the same
+    draws feed both), with gt_update launched K x 2 times a noisy round
+    ((K - 1) x 2 with the fused anchor step) and pack / unpack twice."""
+    import dataclasses
+
+    from repro_torch.fed import (
+        SAGDA, GaussianNoise, MinibatchNoise, PartialParticipation)
+    from repro_torch.problems import make_robust_regression_problem
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rounds, K, m, d = 3, 4, 8, 256
+    if tag == "minibatch_robust":
+        prob = make_robust_regression_problem(gen, dim=64, num_samples=96,
+                                              num_agents=m, alpha=5.0,
+                                              device=cuda_device)
+        d = 64
+    else:
+        prob = make_quadratic_problem(gen, dim=d, num_samples=512, num_agents=m,
+                                      device=cuda_device)
+    strategy, launches = {
+        "sagda_gaussian": (SAGDA(noise=GaussianNoise(0.1)), (2 * K, 0)),
+        "partial_gt_50": (PartialParticipation(participation=0.5, seed=1),
+                          (2 * (K - 1), 0)),
+        "quantized_wire_gaussian": (
+            QuantizedGT(bits=8, ratio=0.25, wire_transport=True,
+                        noise=GaussianNoise(0.1)), (2 * K, 2)),
+        "minibatch_robust": (SAGDA(noise=MinibatchNoise(0.5)), (2 * K, 0)),
+    }[tag]
+    plain = (dataclasses.replace(strategy, use_kernel=False)
+             if hasattr(strategy, "use_kernel") else strategy)
+    out = {}
+    for name, s, kw in (("kernels", strategy, {}),
+                        ("plain", plain, {"update_fn": core.default_update})):
+        rnd = core.make_round(prob.loss, s, K, 1e-4, explicit_state=True,
+                              proj_y=prob.proj_y, **kw)
+        x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
+        gt_update.launches = pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        (x, y, st), _ = core.run_strategy_rounds(
+            rnd, x0, x0, prob.agent_data, rounds, s.init_state(x0, x0, m))
+        out[name] = (x, y, st, gt_update.launches, pack_payload_2d.launches,
+                     unpack_payload_2d.launches)
+    assert torch.equal(out["kernels"][0], out["plain"][0])
+    assert torch.equal(out["kernels"][1], out["plain"][1])
+    for key in out["kernels"][2]:
+        assert torch.equal(out["kernels"][2][key].cpu(), out["plain"][2][key].cpu())
+    gt, packs = launches
+    assert out["kernels"][3:] == (gt * rounds, packs * rounds, packs * rounds)
+    assert out["plain"][3:] == (0, 0, 0)
+
+
 # ------------------------------------------------------ model kernels
 #: flash attention's tolerance against its plain version: f32 sums in
 #: another order (rtol = atol); both compute a bf16 case in f32 and round

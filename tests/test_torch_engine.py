@@ -29,7 +29,7 @@ import repro.core as jcore
 import repro.core.projections as jproj
 import repro.fed as jfed
 from repro.problems import make_quadratic_problem as jax_quadratic
-from repro_torch import core, optim, resolve_device
+from repro_torch import core, resolve_device
 from repro_torch.convert import problem_from_numpy, tree_from_numpy
 from repro_torch.core import engine
 from repro_torch.fed import (
@@ -342,17 +342,20 @@ class TestStrategies:
     @pytest.mark.parametrize("name", ["partial_gt", "compressed_gt", "quantized_gt",
                                       "sagda", "local_sgda_plus"])
     def test_unported_names_raise_not_implemented(self, name):
-        # the compressors are ported; their stochastic-gradient variants
-        # (noise kwargs) are not
-        kw = {"noise": "gaussian"} if name in ("compressed_gt", "quantized_gt") else {}
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            resolve_strategy(name, **kw)
+        # every name resolves now, noisy too; what stays unported of them
+        # is the sparse O(active) layout's noise keys (item 9)
+        s = resolve_strategy(name, noise="gaussian")
+        st = s.init_state(torch.zeros(3), torch.zeros(3), 4)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+            s.sample_noise_keys_ids(st, [0, 2])
 
     def test_unknown_name_and_noise(self):
         with pytest.raises(ValueError, match="unknown algorithm"):
             resolve_strategy("nope")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            resolve_strategy("fedgda_gt", noise="gaussian")
+        with pytest.raises(ValueError, match="unknown noise model"):
+            resolve_strategy("fedgda_gt", noise="laplace")
+        s = resolve_strategy("fedgda_gt", noise="gaussian")
+        assert type(s) is GradientTracking and s.noise is not None
 
 
 class TestProjections:
@@ -382,7 +385,10 @@ class TestPackageRules:
             "repro_torch.core.generalization, repro_torch.fed.runtime, "
             "repro_torch.benchmarks.fig1_quadratic, "
             "repro_torch.benchmarks.fig2_robust_regression, "
-            "repro_torch.benchmarks.fig3_fixed_point\n"
+            "repro_torch.benchmarks.fig3_fixed_point, repro_torch.data, "
+            "repro_torch.fed.noise, repro_torch.fed.comm, repro_torch.optim.momentum, "
+            "repro_torch.benchmarks.comm_efficiency, "
+            "repro_torch.benchmarks.generalization\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n"
         )
@@ -426,9 +432,9 @@ class TestPackageRules:
         with pytest.raises(NotImplementedError, match="item 8"):
             ph.broadcast(x, x, tp.agent_data, {}, step_budgets=torch.ones(8))
         for fn, item in [(engine.pod_weighted_sums, "item 9"),
-                         (engine.noise_eval_keys, "item 7"),
-                         (engine.fixed_size_mask, "item 5")]:
+                         (engine.pods_total, "item 9"),
+                         (engine.agent_where, "item 8")]:
             with pytest.raises(NotImplementedError, match=item):
                 fn()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            optim.make_momentum_fedgda_gt_round(tp.loss, 2, ETA)
+        with pytest.raises(NotImplementedError, match="item 9"):
+            ph.broadcast(x, x, tp.agent_data, {}, active_indices=torch.arange(8))

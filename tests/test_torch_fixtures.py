@@ -10,10 +10,14 @@ JAX package builds:
   * `robust_agnostic.npz`: the Fig 2 robust-regression problems (alpha 1,
     5, 20) with JAX's stepsizes, iterates every 10th round and robust
     losses, and the Appendix A.2 agnostic problem with JAX's final
-    lambda and per-agent risks.
+    lambda and per-agent risks;
+  * `stochastic_rounds.npz`: the Section 4 separation's problem and JAX's
+    four gap trajectories, PartialParticipation's masks and gaps, the
+    noisy robust-regression and compressed runs, and the two Dirichlet
+    problems with JAX's rows of the stochastic generalization table.
 
 They are the one place where the port's card run (`chip_smoke.py`) meets
-JAX's numbers.  Run this file as a script to rewrite all three:
+JAX's numbers.  Run this file as a script to rewrite all four:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py
 """
 import jax
@@ -39,9 +43,18 @@ from repro.problems import (
     robust_loss,
     uniform_lambda,
 )
+import benchmarks.generalization as jgen
 from repro_torch.fixtures import (
     AGNOSTIC,
     COMPRESSED_ROUNDS,
+    DIRICHLET,
+    GEN_ROWS,
+    NOISY_RUNS,
+    PARTIAL,
+    PARTIAL_KW,
+    SEC4,
+    SEC4_RUNS,
+    STOCHASTIC_ROUNDS,
     PAPER_QUADRATIC,
     QUAD6,
     QUAD6_ROUNDS,
@@ -54,11 +67,14 @@ from repro_torch.fixtures import (
     RUNS,
     THM1_ROUNDS,
     THM1_RUNS,
+    dirichlet_key,
     load_compressed_rounds,
     load_paper_quadratic,
     load_robust_agnostic,
+    load_stochastic_rounds,
     robust_agnostic_keys,
     robust_key,
+    stochastic_rounds_keys,
 )
 
 pytestmark = pytest.mark.torch
@@ -191,6 +207,97 @@ def build_robust_agnostic_fixture() -> dict:
     return out
 
 
+def strategy_run(prob, strategy, K, eta, rounds, metric=None, proj_y=None):
+    """JAX's run of `strategy` from x0 = y0 = 0 with its own initial state:
+    per-round gaps under `metric`, else x every ROBUST_EVERY-th round."""
+    dim = prob.agent_data["Ab" if "Ab" in prob.agent_data else "a"].shape[-1]
+    x0 = jnp.zeros(dim)
+    kw = {} if proj_y is None else {"proj_y": proj_y}
+    rnd = jax.jit(make_round(prob.loss, strategy, K, eta, explicit_state=True,
+                             **kw))
+    state = strategy.init_state(x0, x0, prob.num_agents)
+    if metric is not None:
+        _, met = run_strategy_rounds(rnd, x0, x0, prob.agent_data, rounds,
+                                     state, metric)
+        return np.asarray(met["gap"])
+    x = y = x0
+    xs = [x]
+    for t in range(1, rounds + 1):
+        x, y, state = rnd(x, y, prob.agent_data, state)
+        if t % ROBUST_EVERY == 0:
+            xs.append(x)
+    return np.stack([np.asarray(v) for v in xs])
+
+
+def build_stochastic_fixture() -> dict:
+    out = {}
+    dim, n, m, K, eta, T = SEC4
+    sec4 = make_quadratic_problem(jax.random.PRNGKey(0), dim=dim,
+                                  num_samples=n, num_agents=m)
+    out["sec4_G"] = np.asarray(sec4.agent_data["G"])
+    out["sec4_Ab"] = np.asarray(sec4.agent_data["Ab"])
+    for run, (name, kw) in SEC4_RUNS.items():
+        out[f"sec4_{run}_gap"] = strategy_run(
+            sec4, resolve_strategy(name, **kw), K, eta, T, _gap_metric(sec4))
+    thm1 = make_quadratic_problem(jax.random.PRNGKey(0), dim=20,
+                                  num_samples=100, num_agents=8)
+    K, eta, T = PARTIAL
+    pp = resolve_strategy("partial_gt", **PARTIAL_KW)
+    state, masks = pp.init_state(jnp.zeros(20), jnp.zeros(20), 8), []
+    for _ in range(T):
+        w, state = pp.sample_weights(state, 8)
+        masks.append(np.asarray(w) > 0)
+    out["partial_mask"] = np.stack(masks)
+    out["partial_gap"] = strategy_run(thm1, pp, K, eta, T, _gap_metric(thm1))
+    for run, (which, name, kw, K, eta, T) in NOISY_RUNS.items():
+        strategy = resolve_strategy(name, **kw)
+        if which == "thm1":
+            out[f"noisy_{run}_gap"] = strategy_run(thm1, strategy, K, eta, T,
+                                                   _gap_metric(thm1))
+            continue
+        rdim, rn, rm = ROBUST[:3]
+        prob = make_robust_regression_problem(
+            jax.random.PRNGKey(0), dim=rdim, num_samples=rn, num_agents=rm,
+            alpha=float(which[len("robust"):]))
+        out[f"noisy_{run}_x"] = strategy_run(prob, strategy, K, stable_eta(prob),
+                                             T, proj_y=prob.proj_y)
+    out.update(build_dirichlet_rows())
+    return out
+
+
+def build_dirichlet_rows() -> dict:
+    """`benchmarks/generalization.py` `stochastic_rows`, as numbers: the
+    problems it draws from PRNGKey(7) and, per (strategy, noise) of
+    GEN_ROWS, rounds to eps, the final distance and the generalization gap
+    of the trained iterates."""
+    from repro.core import generalization_gap
+    from repro.problems import make_dirichlet_quadratic_problem
+
+    dim, n, m, comps, alphas = DIRICHLET
+    out = {}
+    for alpha in alphas:
+        prob, test, w = make_dirichlet_quadratic_problem(
+            jax.random.PRNGKey(7), dim=dim, num_samples=n, num_agents=m,
+            alpha=alpha, num_components=comps, test_samples=n)
+        x_star, y_star = quadratic_minimax_point(prob)
+        gap_fn = jax.jit(generalization_gap(prob.loss, prob.agent_data, test))
+        strategies = {noise: dict(jgen._stoch_strategies(noise))
+                      for noise in ("none", "gaussian")}
+        rows = []
+        for name, noise in GEN_ROWS:
+            r_eps, final, x, y = jgen._stoch_one(
+                prob, strategies[noise][name], x_star, y_star)
+            rows.append([r_eps, final, float(gap_fn(x, y))])
+        pre = dirichlet_key(alpha)
+        out[f"{pre}_G"] = np.asarray(prob.agent_data["G"])
+        out[f"{pre}_Ab"] = np.asarray(prob.agent_data["Ab"])
+        out[f"{pre}_test_G"] = np.asarray(test["G"])
+        out[f"{pre}_test_Ab"] = np.asarray(test["Ab"])
+        out[f"{pre}_weights"] = np.asarray(w)
+        out[f"{pre}_rows"] = np.asarray(rows, np.float64)
+    return out
+
+
 @pytest.fixture(scope="module")
 def rebuilt():
     return build_fixture()
@@ -290,6 +397,54 @@ def test_robust_agnostic_fixture_equals_the_jax_package(
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
 
 
+@pytest.fixture(scope="module")
+def rebuilt_stochastic():
+    return build_stochastic_fixture()
+
+
+def test_stochastic_fixture_has_the_expected_arrays():
+    got = load_stochastic_rounds()
+    assert sorted(got) == stochastic_rounds_keys()
+    dim, n, m, K, eta, T = SEC4
+    assert got["sec4_G"].shape == (m, dim, dim)
+    for run in SEC4_RUNS:
+        assert got[f"sec4_{run}_gap"].shape == (T + 1,)
+    assert got["partial_mask"].shape == (PARTIAL[2], 8)
+    assert got["partial_mask"].dtype == bool
+    assert (got["partial_mask"].sum(axis=1) == 4).all()
+    assert got["partial_gap"].shape == (PARTIAL[2] + 1,)
+    assert got["noisy_robust5_minibatch_x"].shape == (
+        NOISY_RUNS["robust5_minibatch"][5] // ROBUST_EVERY + 1, ROBUST[0])
+    assert got["noisy_thm1_cgt_randk_gap"].shape == (
+        NOISY_RUNS["thm1_cgt_randk"][5] + 1,)
+    dim, n, m, comps, alphas = DIRICHLET
+    # the generalization benchmark's own sizes
+    assert (dim, n, m, alphas) == (jgen.S_DIM, jgen.S_N, jgen.S_M, jgen.S_ALPHAS)
+    for alpha in alphas:
+        pre = dirichlet_key(alpha)
+        assert got[f"{pre}_G"].shape == got[f"{pre}_test_G"].shape == (m, dim, dim)
+        assert got[f"{pre}_weights"].shape == (m, comps)
+        assert got[f"{pre}_rows"].shape == (len(GEN_ROWS), 3)
+    assert STOCHASTIC_ROUNDS.stat().st_size < 1e6
+
+
+@pytest.mark.parametrize("key", stochastic_rounds_keys())
+def test_stochastic_fixture_equals_the_jax_package(rebuilt_stochastic, key):
+    """Masks and rounds-to-eps exactly; gaps as the other fixtures' gaps
+    (1e-5 relative above 1e-14); data, iterates, distances and
+    generalization gaps 1e-12 relative (XLA's CPU sums may follow the
+    host's vector width)."""
+    got, want = load_stochastic_rounds()[key], rebuilt_stochastic[key]
+    assert got.shape == want.shape
+    if key == "partial_mask":
+        assert np.array_equal(got, want)
+    elif key.endswith("_rows"):
+        assert np.array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1:], want[:, 1:], rtol=1e-9, atol=1e-15)
+    else:
+        _assert_fixture_equal(key, got, want)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     PAPER_QUADRATIC.parent.mkdir(parents=True, exist_ok=True)
@@ -299,3 +454,5 @@ if __name__ == "__main__":
     print(f"wrote {COMPRESSED_ROUNDS}")
     np.savez(ROBUST_AGNOSTIC, **build_robust_agnostic_fixture())
     print(f"wrote {ROBUST_AGNOSTIC}")
+    np.savez(STOCHASTIC_ROUNDS, **build_stochastic_fixture())
+    print(f"wrote {STOCHASTIC_ROUNDS}")

@@ -189,3 +189,16 @@ def test_generalization_gap_on_a_robust_regression_split():
         want = float(jfn(jnp.asarray(x), jnp.asarray(y)))
         got = float(tfn(torch.tensor(x), torch.tensor(y)))
         np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_theorem2_table_equals_jaxs(capsys):
+    """The driver's first table (threshold class, Theorem-2 bound against
+    the measured gap) row for row as JAX's prints it: the Gaussians are
+    the port's normals (a few ulp off JAX's), the Rademacher signs JAX's
+    bit for bit."""
+    import benchmarks.generalization as jgen
+    from repro_torch.benchmarks import generalization as gen_driver
+
+    assert gen_driver.run(device="cpu") == jgen.run()
+    assert all(r["bound_holds"] for r in gen_driver.run(device="cpu"))
+    capsys.readouterr()

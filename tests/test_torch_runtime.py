@@ -187,6 +187,51 @@ def test_resume_equals_uninterrupted_bitwise(quad6, tmp_path, run):
     assert torch.equal(last["x"], xf) and torch.equal(last["y"], yf)
 
 
+@pytest.mark.parametrize("name,kw,keys", [
+    ("sagda", dict(noise_sigma=0.1, noise_seed=3), {"noise_key"}),
+    ("partial_gt", dict(participation=0.5, seed=2), {"key"}),
+    ("partial_gt", dict(participation=0.5, seed=2, noise_sigma=0.05),
+     {"key", "noise_key"}),
+], ids=["sagda_noisy", "partial_gt", "partial_gt_noisy"])
+def test_stochastic_resume_equals_uninterrupted_bitwise(quad6, tmp_path, name, kw, keys):
+    """`from_strategy(loss, name, ..., noise_sigma=...)` builds the noisy
+    strategy; 20 rounds against 10, restore, 10: the noise key and the
+    sampling key travel in the state, so the resumed run draws what the
+    uninterrupted one draws, bit for bit."""
+    _, prob = quad6
+
+    def runner(sub=None):
+        return FederatedRunner.from_strategy(
+            prob.loss, name, prob.agent_data, K, ETA,
+            checkpoint_dir=None if sub is None else str(tmp_path / sub),
+            checkpoint_every=0 if sub is None else 10, **kw)
+
+    full = runner("full")
+    assert full._strategy == resolve_strategy(name, **kw)
+    xf, yf = full.run(_zeros(), _zeros(), 20)
+    runner("part").run(_zeros(), _zeros(), 10)
+    ck = restore_checkpoint(latest_checkpoint(str(tmp_path / "part"))[1], "cpu")
+    assert set(ck["strategy_state"]) == keys
+    resumed = runner()
+    xr, yr = resumed.run(ck["x"], ck["y"], 10, state=ck["strategy_state"])
+    assert torch.equal(xf, xr) and torch.equal(yf, yr)
+    for k in keys:
+        assert torch.equal(full._state[k], resumed._state[k]), k
+    # and not by accident: the noise moves the run
+    if "noise_sigma" in kw:
+        plain = FederatedRunner.from_strategy(
+            prob.loss, name, prob.agent_data, K, ETA,
+            **{k: v for k, v in kw.items() if not k.startswith("noise")})
+        assert not torch.equal(plain.run(_zeros(), _zeros(), 20)[0], xf)
+
+
+def test_from_strategy_rejects_knobs_with_a_built_strategy(quad6):
+    _, prob = quad6
+    with pytest.raises(TypeError, match="strategy name"):
+        FederatedRunner.from_strategy(prob.loss, resolve_strategy("sagda"),
+                                      prob.agent_data, K, ETA, noise_sigma=0.1)
+
+
 def test_stateless_runner_checkpoints_x_and_y(quad6, tmp_path):
     _, prob = quad6
     runner = FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data,

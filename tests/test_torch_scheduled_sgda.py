@@ -58,10 +58,6 @@ class TestSchedules:
             assert type(s(t)) is float
             assert s(t) == float(np.float64(js(t)))
 
-    def test_momentum_is_not_ported_yet(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            optim.heavy_ball()
-
 
 def test_scheduled_round_against_jax_per_round(rng):
     """The same diminishing schedule into JAX's round (a traced eta) and
