@@ -14,7 +14,9 @@ card does real work, the stochastic and client-sampling rounds (SAGDA,
 PartialParticipation, noisy QuantizedGT) through the same kernels with
 seeded draws on the card, the rest of the paper's experiments (Fig 2's
 robust regression, agnostic FL) through the `FederatedRunner` with a
-checkpoint resume, and the serving path of zamba2-7b at full width
+checkpoint resume, the elastic client population (churn and straggler
+schedules drawn on the card, membership-aware FedGDA-GT) through the same
+runner and kernels, and the serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
 `ssm_scan` kernels.  Every phase prints one JSON line (fig2 also the
 reference's CSV table); any failed check
@@ -24,8 +26,9 @@ exits non-zero without the final line.  The last two lines are the card's
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Phases (in this order, but for the host-bound ones on JAX's numbers,
-theorem1 through runner_resume, device_draws and stochastic_claims, which
-run right after setup, before any profiler session slows the host):
+theorem1 through runner_resume, device_draws, stochastic_claims and
+elastic_claims, which run right after setup, before any profiler session
+slows the host):
   setup      card, power limit, torch / CUDA versions, kernel build time
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
              (every dtype pair, both signs) and a ragged 2^20+17; times
@@ -138,6 +141,30 @@ run right after setup, before any profiler session slows the host):
              launches of a round under the profiler, and the draws' share
              of them and of the device time (one broadcast draws several
              rounds in one pass: per round is a pass over its rounds)
+  elastic_claims
+             the elastic benchmark on JAX's fixture (m=10, d=30, K=10,
+             eta=1e-4, seed 0): the four scenarios' schedules (1200
+             rounds) drawn on the card equal JAX's bit for bit, and a
+             chunked build (chunk 64) equals the dense one; the flaky rows
+             FedGDA-GT with and without rebasing and Local SGDA at 1200
+             rounds through the runner, per round within rtol 1e-5 of
+             JAX's gaps above 1e-14 (the error between 1e-18 and 1e-14
+             printed), with the headline: rebase reaches 1e-6 at JAX's
+             round 138 and ends below 1e-18, no-rebase ends above 1e+2,
+             Local SGDA never reaches 1e-6; a flaky CompressedGT run
+             checkpointed at round 100 and resumed with its elastic_state
+             and strategy_state equals 200 uninterrupted rounds bit for
+             bit; every table row's active-set bytes equal JAX's
+  elastic_main_path
+             the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
+             under a flaky schedule (seed 0) through `FederatedRunner`:
+             FedGDA-GT with rebasing (gt_update, 180 launches) and
+             CompressedGT top-k 0.1 over the wire (gt_update 200, pack /
+             unpack 20), each bitwise equal to the plain path (iterates,
+             state, tracker); ms and kernel launches per round beside the
+             static FedGDA-GT round's, one round of each under the
+             profiler; a stable round forced through the elastic round
+             within 1e-12 of `make_round`'s
   robust_main_path
              robust regression from the port's generator at d=n=4096,
              m=16, alpha 5, f64 (a is 2.15 GB), FedGDA-GT K=10 for 10
@@ -165,7 +192,8 @@ run right after setup, before any profiler session slows the host):
              and the device's busy share of each
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
-             path's shapes; its launches on each stochastic_main_path run)
+             path's shapes; its launches on each stochastic_main_path,
+             elastic_main_path and elastic_claims run)
 """
 from __future__ import annotations
 
@@ -1768,6 +1796,254 @@ def phase_stochastic_main_path(torch, card: str, shared: dict, rounds: int) -> d
     return out
 
 
+# ------------------------------------------------- the elastic population
+#: flaky rows of the elastic benchmark held to JAX's per-round gaps at its
+#: full T (1200 rounds), and the headline each must keep
+ELASTIC_ROWS_HELD = ("fedgda_gt", "fedgda_gt_norebase", "local_sgda")
+ELASTIC_RESUME = 100  # CompressedGT: 100 rounds + tail(100) against 200
+
+
+def gap_band_error(np, got, want, lo: float, hi: float) -> float:
+    """Largest relative gap difference on rounds with lo < JAX's gap <= hi
+    (0 when there is none): measured, not gated, below the gates' floor."""
+    sel = (want > lo) & (want <= hi)
+    return float(np.max(np.abs(got[sel] - want[sel]) / want[sel])) if sel.any() else 0.0
+
+
+def phase_elastic_claims(torch, np) -> dict:
+    """The elastic benchmark on JAX's numbers (the `elastic_rounds`
+    fixture): the four scenarios' schedules drawn on the card bit for bit
+    (dense and chunked), the flaky headline rows per round against JAX's
+    gaps, a checkpointed CompressedGT resume bit for bit, and the table's
+    bytes."""
+    import math
+    import shutil
+
+    from repro_torch import sim
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.fed import FederatedRunner, resolve_strategy
+    from repro_torch.fixtures import (
+        ELASTIC, ELASTIC_ROWS, ELASTIC_SCENARIOS, ELASTIC_TABLE_COLS,
+        elastic_problem, elastic_run_gaps, load_elastic_rounds)
+
+    fix = load_elastic_rounds()
+    dim, _, m, K, eta, T, seed = ELASTIC
+    out = {"schedules": {}, "rows": {}}
+    schedules = {}
+    for scenario in ELASTIC_SCENARIOS:
+        t0 = time.perf_counter()
+        sched = sim.make_population(scenario, m).schedule(seed, T, K, device=DEVICE)
+        dense_s = time.perf_counter() - t0
+        chunked = sim.make_population(scenario, m).chunked_schedule(
+            seed, T, K, chunk_rounds=64, device=DEVICE).materialize()
+        same = {"active": bool(np.array_equal(sched.active, fix[f"{scenario}_active"])),
+                "budgets": bool(np.array_equal(sched.budgets,
+                                               fix[f"{scenario}_budgets"])),
+                "chunked": bool(np.array_equal(chunked.active, sched.active)
+                                and np.array_equal(chunked.budgets, sched.budgets))}
+        check(all(same.values()), f"elastic_claims: {scenario} schedule differs "
+                                  f"from JAX's ({same})")
+        schedules[scenario] = sched
+        out["schedules"][scenario] = {"bitwise": same, "draw_s": dense_s,
+                                      "participation": sched.participation_rate()}
+    gaps = {}
+    for row in ELASTIC_ROWS_HELD:
+        zero_counts()
+        t0 = time.perf_counter()
+        gaps[row] = elastic_run_gaps(row, schedules["flaky"], DEVICE)
+        wall = time.perf_counter() - t0
+        want = fix[f"flaky_{row}_gap"]
+        part = parting_round(np, gaps[row], want, TOL_GAP_RTOL)
+        check(part is None, f"elastic_claims flaky {row}: gap parts from JAX's at "
+                            f"round {part}")
+        hit = np.nonzero(gaps[row] <= 1e-6)[0]
+        out["rows"][row] = {
+            "rounds": T, "final_gap": float(gaps[row][-1]),
+            "jax_final_gap": float(want[-1]),
+            "rounds_to_1e-6": int(hit[0]) if hit.size else None,
+            "max_rel_err_vs_jax": trajectory_error(np, gaps[row], want),
+            "max_rel_err_gap_1e-18_to_1e-14": gap_band_error(np, gaps[row], want,
+                                                             1e-18, 1e-14),
+            "ms_per_round": wall / T * 1e3, "launches": kernel_counts()}
+    gt = gaps["fedgda_gt"]
+    claims = {
+        "rebase_reaches_1e-6_at_jax_round_138":
+            out["rows"]["fedgda_gt"]["rounds_to_1e-6"] == 138,
+        "rebase_ends_below_1e-18": bool(gt[-1] < 1e-18),
+        "norebase_ends_above_1e+2": bool(gaps["fedgda_gt_norebase"][-1] > 1e2),
+        "local_sgda_never_reaches_1e-6": bool((gaps["local_sgda"] > 1e-6).all()),
+    }
+    for name, ok in claims.items():
+        check(ok, f"elastic_claims: headline {name} fails")
+    # a checkpointed CompressedGT run resumed from round 100 with its
+    # elastic_state and strategy_state equals the uninterrupted 200 rounds
+    prob, _, _ = elastic_problem(DEVICE)
+    flaky = sim.RoundSchedule(schedules["flaky"].active[:2 * ELASTIC_RESUME],
+                              schedules["flaky"].budgets[:2 * ELASTIC_RESUME], K)
+    base = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(base, ignore_errors=True)
+    name, kw, _ = ELASTIC_ROWS["compressed_gt_25"]
+    x0 = torch.zeros(dim, dtype=torch.float64, device=DEVICE)
+    zero_counts()
+    full = FederatedRunner.from_strategy(
+        prob.loss, resolve_strategy(name, **kw), prob.agent_data, K, eta,
+        checkpoint_dir=str(base), checkpoint_every=ELASTIC_RESUME)
+    xf, yf = full.run(x0, x0, 2 * ELASTIC_RESUME, schedule=flaky)
+    ck = restore_checkpoint(str(base / f"ckpt_{ELASTIC_RESUME:08d}.npz"), DEVICE)
+    resumed = FederatedRunner.from_strategy(
+        prob.loss, resolve_strategy(name, **kw), prob.agent_data, K, eta)
+    xr, yr = resumed.run(ck["x"], ck["y"], ELASTIC_RESUME, state=ck["strategy_state"],
+                         schedule=flaky.tail(ELASTIC_RESUME),
+                         elastic_state=ck["elastic_state"])
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    shutil.rmtree(base, ignore_errors=True)
+    same = {"x": torch.equal(xf, xr), "y": torch.equal(yf, yr),
+            **{k: torch.equal(full._state[k].cpu(), resumed._state[k].cpu())
+               for k in full._state},
+            **{f"tracker_{k}": torch.equal(full.elastic_state["tracker"][k],
+                                           resumed.elastic_state["tracker"][k])
+               for k in full.elastic_state["tracker"]}}
+    check(all(same.values()), f"elastic_claims: resumed CompressedGT != "
+                              f"uninterrupted ({same})")
+    check(launches["compress_correction"] == 2 * 3 * ELASTIC_RESUME,
+          f"elastic_claims: {launches['compress_correction']} compress_correction "
+          f"launches in the resume check, expected {6 * ELASTIC_RESUME}")
+    out["resume"] = {"rounds": f"{2 * ELASTIC_RESUME} uninterrupted; "
+                               f"checkpoint at {ELASTIC_RESUME}, restore, "
+                               f"{ELASTIC_RESUME} more",
+                     "bitwise": same, "launches": launches}
+    # the table's active-set bytes and participation against JAX's
+    cols = {c: i for i, c in enumerate(ELASTIC_TABLE_COLS)}
+    bad = []
+    for key, want in zip(fix["table_keys"], fix["table"]):
+        scenario, row = str(key).split("/")
+        name, kw, _ = ELASTIC_ROWS[row]
+        per_round = sim.schedule_bytes(resolve_strategy(name, **kw), x0, x0, K,
+                                       schedules[scenario])
+        r_eps = want[cols["rounds_to_eps"]]
+        total = math.inf if math.isinf(r_eps) else sum(per_round[: int(r_eps) + 1])
+        if (int(np.mean(per_round)) != want[cols["bytes_per_round"]]
+                or total != want[cols["total_bytes_to_eps"]]
+                or schedules[scenario].participation_rate()
+                != want[cols["participation"]]):
+            bad.append(str(key))
+    check(not bad, f"elastic_claims: table bytes differ from JAX's for {bad}")
+    out["table_rows_equal"] = len(fix["table_keys"])
+    return {"runs": out, "claims": claims, "tolerance": TOL_GAP_RTOL,
+            "gap_floor": 1e-14}
+
+
+def phase_elastic_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
+    """The main path's problem (d=4096, m=16, f64) under a flaky schedule
+    (seed 0, K=10) through `FederatedRunner`: FedGDA-GT with rebasing
+    through gt_update and CompressedGT top-k 0.1 over the wire through
+    pack / unpack, each bitwise equal to the plain path; a stable round
+    forced through `make_elastic_round` against `make_round` (rtol 1e-12);
+    ms and launches per round beside the static FedGDA-GT round's."""
+    from repro_torch import core, sim
+    from repro_torch.fed import CompressedGT, FederatedRunner, GradientTracking
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m = prob.agent_data, prob.num_agents
+    t0 = time.perf_counter()
+    sched = sim.make_population("flaky", m).schedule(0, rounds, K, device=DEVICE)
+    draw_s = time.perf_counter() - t0
+    check(not sched.is_static_full, "elastic_main_path: the flaky schedule is full")
+    runs = {
+        "gt_rebase": (GradientTracking(), None,
+                      {"gt_update": 2 * (K - 1) * rounds}),
+        "compressed_wire": (
+            CompressedGT(compression_ratio=0.1, mode="topk", wire_transport=True),
+            CompressedGT(compression_ratio=0.1, mode="topk", wire_transport=True,
+                         use_kernel=False),
+            {"gt_update": 2 * K * rounds, "pack_payload": 2 * rounds,
+             "unpack_payload": 2 * rounds}),
+    }
+    out = {"schedule": {"n_active": sched.active.sum(axis=1).tolist(),
+                        "draw_s": draw_s}}
+
+    def counted_run(strategy, schedule, **kw):
+        """A runner's rounds with each round's kernel launches (snapshots
+        taken by the metric, which also syncs the round)."""
+        per_round, last = [], {}
+
+        def metric(x, y):
+            nonlocal last
+            now = kernel_counts()
+            per_round.append({k: now[k] - last.get(k, 0) for k in now if now[k]})
+            last = now
+            return {"gap": core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)}
+
+        runner = FederatedRunner.from_strategy(prob.loss, strategy, data, K, eta,
+                                               metric_fn=metric, **kw)
+        torch.cuda.synchronize()
+        zero_counts()
+        x, y = runner.run(x0, x0, rounds, schedule=schedule)
+        torch.cuda.synchronize()
+        return runner, x, y, per_round
+
+    for tag, (strategy, plain, expected) in runs.items():
+        # one warm-up round each side
+        FederatedRunner.from_strategy(prob.loss, strategy, data, K, eta).run(
+            x0, x0, 1, schedule=sched)
+        kr, xk, yk, per_round = counted_run(strategy, sched)
+        launches = kernel_counts()
+        if plain is None:
+            pr, xp, yp, _ = counted_run(strategy, sched, update_fn=core.default_update)
+        else:
+            pr, xp, yp, _ = counted_run(plain, sched)
+        same = {"x": torch.equal(xk, xp), "y": torch.equal(yk, yp),
+                **{k: torch.equal(kr._state[k].cpu(), pr._state[k].cpu())
+                   for k in (kr._state or {})},
+                **{f"tracker_{k}": torch.equal(v, pr.elastic_state["tracker"][k])
+                   for k, v in kr.elastic_state["tracker"].items()}}
+        check(all(same.values()), f"elastic_main_path {tag}: kernel iterates "
+                                  f"differ from the plain path's ({same})")
+        for name, n in expected.items():
+            check(launches[name] == n, f"elastic_main_path {tag}: {launches[name]} "
+                                       f"{name} launches, expected {n}")
+        gap = kr.metric_series("gap")
+        check(bool(np.isfinite(gap).all()) and gap[-1] < gap[0],
+              f"elastic_main_path {tag}: gap {gap[0]:.3e} -> {gap[-1]:.3e}")
+        ms = [h.seconds * 1e3 for h in kr.history]
+        plain_ms = [h.seconds * 1e3 for h in pr.history]
+        out[tag] = {"strategy": repr(strategy), "rounds": rounds, "K": K,
+                    "ms_per_round": ms, "ms_per_round_plain": plain_ms,
+                    "launches_per_round": per_round, "launches": launches,
+                    "gap_first": float(gap[0]), "gap_last": float(gap[-1]),
+                    "bitwise_kernels_vs_plain": same, "card": card}
+    # the static FedGDA-GT round of the same run, and one round of each
+    # under the profiler (all launches, busy share)
+    sr, _, _, static_per_round = counted_run(GradientTracking(), None)
+    out["static_gt"] = {"ms_per_round": [h.seconds * 1e3 for h in sr.history],
+                        "launches_per_round": list(static_per_round)}
+    er = FederatedRunner.from_strategy(prob.loss, GradientTracking(), data, K, eta)
+    x1, y1 = er.run(x0, x0, 1, schedule=sched)
+    tail, el = sched.tail(1), er.elastic_state
+    out["profile_elastic_gt"] = profile_round(
+        torch, lambda: er.run(x1, y1, 1, schedule=tail, elastic_state=el),
+        {"gt_update": "gt_update_kernel", "where": "where"})
+    out["profile_static_gt"] = profile_round(
+        torch, lambda: sr.run(x1, y1, 1), {"gt_update": "gt_update_kernel"})
+    # a stable round forced through the elastic round against make_round
+    strat = GradientTracking()
+    ernd = sim.make_elastic_round(prob.loss, strat, K, eta)
+    active = torch.ones(m, dtype=torch.bool, device=DEVICE)
+    tracker = sim.init_tracker(prob.loss, strat, x0, x0, data)
+    xe, ye, _, _ = ernd(x0, x0, data, {}, tracker, sim.renormalized_weights(active),
+                        torch.full((m,), K, dtype=torch.int64, device=DEVICE),
+                        active, active)
+    xm, ym = core.make_round(prob.loss, strat, K, eta)(x0, x0, data)
+    rel = max(float((xe - xm).abs().max() / xm.abs().max()),
+              float((ye - ym).abs().max() / ym.abs().max()))
+    check(rel <= 1e-12, f"elastic_main_path: forced stable round off make_round's "
+                        f"by {rel:.3e}")
+    out["stable_forced_vs_make_round"] = {"max_rel_err": rel, "rtol": 1e-12}
+    return out
+
+
 # ----------------------------------------- the rest of the paper's claims
 def robust_rel_err(np, got, want) -> float:
     """Largest ||got - want|| / ||want|| over the rows (iterates); a zero
@@ -2075,11 +2351,20 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
                                        "z + s*(g + c)", "card": card,
     }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS] + [
         model_entry(name, shared, card) for name in MODEL_KERNELS]
-    # the stochastic main path's runs: each kernel's launches there
+    # the stochastic and elastic main paths' runs: each kernel's launches
     for entry in entries:
         entry["stochastic_main_path_launches"] = {
             tag: run["launches"][entry["name"]]
             for tag, run in shared.get("stochastic", {}).items()}
+        entry["elastic_main_path_launches"] = {
+            tag: shared["elastic"][tag]["launches"][entry["name"]]
+            for tag in ("gt_rebase", "compressed_wire") if tag in shared.get("elastic", {})}
+        claims = shared.get("elastic_claims", {})
+        entry["elastic_claims_launches"] = {
+            **{f"flaky_{row}": run["launches"][entry["name"]]
+               for row, run in claims.get("rows", {}).items()},
+            **({"compressed_resume": claims["resume"]["launches"][entry["name"]]}
+               if "resume" in claims else {})}
     return entries
 
 
@@ -2187,6 +2472,9 @@ def main() -> int:
     run("runner_resume", lambda: phase_runner_resume(torch, card))
     run("device_draws", lambda: phase_device_draws(torch, np, card))
     run("stochastic_claims", lambda: phase_stochastic_claims(torch, np))
+    claims = run("elastic_claims", lambda: phase_elastic_claims(torch, np))
+    if claims is not None:
+        shared["elastic_claims"] = claims["runs"]
     run("gt_update", lambda: phase_gt_update(torch, card, cases))
     run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
@@ -2207,6 +2495,10 @@ def main() -> int:
             torch, card, shared, rounds=10))
         if stochastic is not None:
             shared["stochastic"] = stochastic
+        elastic = run("elastic_main_path", lambda: phase_elastic_main_path(
+            torch, np, card, shared, rounds=10))
+        if elastic is not None:
+            shared["elastic"] = elastic
         for key in ("problem", "data", "round", "compressed_round"):  # G: 2.1 GB
             shared.pop(key, None)
     run("robust_main_path", lambda: phase_robust_main_path(

@@ -14,8 +14,10 @@ FedGDA-GT constructors, the Proposition 1 fixed-point tools, the Section
 PartialParticipation, the communication-efficient CompressedGT /
 QuantizedGT, SAGDA and Local SGDA+), `fed.noise` (seeded Gaussian and
 minibatch noise), `fed.comm` (the communication table), `fed.transport`
-(the packed wire format), `fed.runtime` (the synchronous runner and
-checkpoints), `optim` (schedules, heavy-ball momentum), `data` (Dirichlet
+(the packed wire format), `fed.runtime` (the synchronous runner, its
+elastic schedules and checkpoints), `sim` (the client population: churn
+and straggler schedules drawn as JAX draws them, the membership-aware
+round; the O(active) engine is not ported), `optim` (schedules, heavy-ball momentum), `data` (Dirichlet
 partitions), `prng` (JAX's threefry keys, uniforms, randint and
 permutation bit for bit, normals to a few ulp), `problems` (Sec 5.1
 quadratic and its Dirichlet variant, robust regression, agnostic FL,

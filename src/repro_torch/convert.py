@@ -129,6 +129,22 @@ def strategy_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
     return out
 
 
+def elastic_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
+    """An elastic run's continuation state of the JAX package (as numpy:
+    `{"tracker": {"gx", "gy"} or {}, "prev_active": [m] bool or None}`, the
+    runner's `elastic_state` or a checkpoint's) as the port's, on `device`
+    (default CUDA): a JAX run resumes in the port with it, its
+    `strategy_state` (`strategy_state_from_numpy`) and the schedule's
+    tail."""
+    device = resolve_device(device)
+    prev = state.get("prev_active")
+    return {
+        "tracker": tree_from_numpy(dict(state["tracker"]), device),
+        "prev_active": (None if prev is None
+                        else tensor_from_numpy(np.asarray(prev, bool), device)),
+    }
+
+
 def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
                             dtype: Optional[torch.dtype] = None):
     """The JAX package's model parameters (`jax.tree.map(np.asarray,

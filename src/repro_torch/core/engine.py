@@ -41,9 +41,15 @@ after it on the strategy's key chain, in one pass (`NoiseModel.draws`,
 heavy-ball steps (Local SGDA+; `optim.momentum.heavy_ball`).  With
 neither, the round is the deterministic trace, op for op.
 
+Elastic rounds (`sim.elastic.make_elastic_round`): `broadcast` takes an
+elastic schedule's per-agent local-step budgets and availability mask, and
+`local_steps` advances agent i at step k only while k < budget_i (the
+fused anchor step only where the budget is >= 1; momentum gates iterates
+and velocities alike), through `agent_where`.  Without budgets the round
+has no gating op at all.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue
-item): elastic step budgets and availability masks (`agent_where`), the
-sparse / pod layouts, and `constrain_agents` (SPMD sharding).
+item): the sparse / pod layouts, and `constrain_agents` (SPMD sharding).
 """
 from __future__ import annotations
 
@@ -137,7 +143,17 @@ def _not_ported_fn(name: str, item: str) -> Callable:
     return fn
 
 
-agent_where = _not_ported_fn("agent_where", "Queue 1 item 8")
+def agent_where(mask, a: Pytree, b: Pytree) -> Pytree:
+    """Per-agent select: leaves of `a` where the [m] mask holds, else
+    `b`'s (the membership / budget gate of the elastic schedules; the mask
+    broadcasts over every trailing leaf dimension)."""
+    return tree_map(
+        lambda u, v: torch.where(mask.reshape(mask.shape + (1,) * (u.dim() - 1)),
+                                 u, v),
+        a, b,
+    )
+
+
 pod_weighted_sums = _not_ported_fn("pod_weighted_sums", "Queue 1 item 9")
 pods_total = _not_ported_fn("pods_total", "Queue 1 item 9")
 
@@ -219,7 +235,8 @@ def make_noise_vgrad(vgrad: Callable, noise) -> Callable:
 class RoundState:
     """Explicit state threaded through the round phases.
 
-    Populated progressively: `broadcast` fills xs/ys/weights,
+    Populated progressively: `broadcast` fills xs/ys/weights (and an
+    elastic schedule's step_budgets / active when a runner passes them),
     `exchange_corrections` fills cx/cy/gbar_x/gbar_y/fused,
     `local_steps` advances xs/ys, `aggregate` consumes the lot."""
 
@@ -235,13 +252,16 @@ class RoundState:
     gbar_y: Pytree = None
     noise_keys: Optional[torch.Tensor] = None  # [m, 2] per-round noise keys
     noise_draws: Optional[list] = None  # the round's draws, by eval index
+    step_budgets: Optional[torch.Tensor] = None  # [m] local-step caps (None=K)
+    active: Optional[torch.Tensor] = None        # [m] availability mask
     fused: bool = False            # anchor shortcut applies
 
 
 class RoundPhases(NamedTuple):
     """The four phase functions for one strategy (see module docstring).
 
-    broadcast(x, y, agent_data, state, *, weights=...) -> RoundState
+    broadcast(x, y, agent_data, state, *, weights=..., step_budgets=None,
+              active=None, noise_keys=...) -> RoundState
     exchange_corrections(rs, agent_data) -> RoundState
     local_steps(rs, agent_data) -> RoundState
     aggregate(rs) -> (x1, y1, state)"""
@@ -256,11 +276,16 @@ def _num_agents(agent_data: Pytree) -> int:
     return tree_leaves(agent_data)[0].shape[0]
 
 
-def _reject_elastic(step_budgets, active, active_indices):
-    if step_budgets is not None or active is not None:
-        raise not_ported("elastic step budgets / availability", "Queue 1 item 8")
+def _reject_sparse(active_indices):
     if active_indices is not None:
         raise not_ported("the sparse O(active) layout", "Queue 1 item 9")
+
+
+def _step_gates(budgets, num_local_steps: int):
+    """[K, m] masks, row k: the agents whose budget still covers step k
+    (k < budget), in one op for the whole round."""
+    k = torch.arange(num_local_steps, dtype=budgets.dtype, device=budgets.device)
+    return k[:, None] < budgets[None, :]
 
 
 def make_phases(
@@ -311,12 +336,15 @@ def make_phases(
         def broadcast(x, y, agent_data, state, *, weights=_UNSET,
                       step_budgets=None, active=None, noise_keys=_UNSET,
                       active_indices=None):
-            # FullSync is a deterministic baseline: noise_keys accepted
-            # for signature uniformity, never consumed
-            del agent_data, noise_keys
-            _reject_elastic(step_budgets, active, active_indices)
+            # every "local" step is a global aggregate, so there is no
+            # per-agent divergence to budget: step_budgets is ignored and an
+            # elastic schedule's membership enters through `weights`.
+            # FullSync is a deterministic baseline: noise_keys accepted for
+            # signature uniformity, never consumed
+            del agent_data, step_budgets, noise_keys
+            _reject_sparse(active_indices)
             w = None if weights is _UNSET else weights
-            return RoundState(x=x, y=y, state=state, weights=w)
+            return RoundState(x=x, y=y, state=state, weights=w, active=active)
 
         def exchange_corrections(rs, agent_data):
             del agent_data
@@ -370,7 +398,7 @@ def make_phases(
     def broadcast(x, y, agent_data, state, *, weights=_UNSET,
                   step_budgets=None, active=None, noise_keys=_UNSET,
                   active_indices=None):
-        _reject_elastic(step_budgets, active, active_indices)
+        _reject_sparse(active_indices)
         m = _num_agents(agent_data)
         if weights is _UNSET:
             weights, state = strategy.sample_weights(state, m)
@@ -389,7 +417,8 @@ def make_phases(
         if noise is not None and noise_keys is not None:
             draws = round_draws(noise_keys, chain, xs, ys, agent_data)
         return RoundState(x=x, y=y, state=state, xs=xs, ys=ys, weights=weights,
-                          noise_keys=noise_keys, noise_draws=draws)
+                          noise_keys=noise_keys, noise_draws=draws,
+                          step_budgets=step_budgets, active=active)
 
     def exchange_corrections(rs, agent_data):
         if not use_corr:
@@ -428,6 +457,12 @@ def make_phases(
 
     def local_steps(rs, agent_data):
         xs, ys = rs.xs, rs.ys
+        # elastic budgets: gates[k] holds the agents still stepping at step
+        # k; a spent (or absent, budget 0) agent's iterate is frozen, so its
+        # weighted share of the aggregate (and an absent agent's zero
+        # weight) stays exact.  None is the round without any gating op
+        gates = (None if rs.step_budgets is None
+                 else _step_gates(rs.step_budgets, num_local_steps))
 
         def grads(xs, ys, k):
             # k is the in-round step index; the stochastic oracle draws at
@@ -438,12 +473,19 @@ def make_phases(
 
         start = 0
         if rs.fused:
-            xs = anchor_step(xs, rs.gbar_x, eta_x, -1.0)
-            ys = anchor_step(ys, rs.gbar_y, eta_y, +1.0)
+            xs1 = anchor_step(xs, rs.gbar_x, eta_x, -1.0)
+            ys1 = anchor_step(ys, rs.gbar_y, eta_y, +1.0)
+            if gates is None:
+                xs, ys = xs1, ys1
+            else:  # budget >= 1
+                xs = agent_where(gates[0], xs1, xs)
+                ys = agent_where(gates[0], ys1, ys)
             start = 1
         if momentum:
             # heavy-ball local steps (Local SGDA+): per-round velocities,
-            # zero-initialized, carrying the corrected step direction
+            # zero-initialized, carrying the corrected step direction;
+            # budget gating freezes iterate and velocity alike, so a spent
+            # agent's round contribution is exactly its last live step
             def eff(g, c):
                 if not use_corr:
                     return g
@@ -453,19 +495,30 @@ def make_phases(
             vy = tree_map(torch.zeros_like, ys)
             for k in range(start, num_local_steps):
                 g = grads(xs, ys, k)
-                vx = heavy_ball(vx, eff(g.gx, rs.cx), momentum)
-                vy = heavy_ball(vy, eff(g.gy, rs.cy), momentum)
-                xs = tree_map(lambda u, v: u - eta_x * v, xs, vx)
-                ys = tree_map(lambda u, v: u + eta_y * v, ys, vy)
+                vx1 = heavy_ball(vx, eff(g.gx, rs.cx), momentum)
+                vy1 = heavy_ball(vy, eff(g.gy, rs.cy), momentum)
+                xs1 = tree_map(lambda u, v: u - eta_x * v, xs, vx1)
+                ys1 = tree_map(lambda u, v: u + eta_y * v, ys, vy1)
+                if gates is None:
+                    xs, ys, vx, vy = xs1, ys1, vx1, vy1
+                else:
+                    live = gates[k]
+                    xs, ys = agent_where(live, xs1, xs), agent_where(live, ys1, ys)
+                    vx, vy = agent_where(live, vx1, vx), agent_where(live, vy1, vy)
             return dataclasses.replace(rs, xs=xs, ys=ys)
         for k in range(start, num_local_steps):
             g = grads(xs, ys, k)
             if use_corr:
-                xs = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
-                ys = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
+                xs1 = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
+                ys1 = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
             else:
-                xs = tree_map(lambda u, v: u - eta_x * v, xs, g.gx)
-                ys = tree_map(lambda u, v: u + eta_y * v, ys, g.gy)
+                xs1 = tree_map(lambda u, v: u - eta_x * v, xs, g.gx)
+                ys1 = tree_map(lambda u, v: u + eta_y * v, ys, g.gy)
+            if gates is None:
+                xs, ys = xs1, ys1
+            else:
+                xs = agent_where(gates[k], xs1, xs)
+                ys = agent_where(gates[k], ys1, ys)
         return dataclasses.replace(rs, xs=xs, ys=ys)
 
     def aggregate(rs):

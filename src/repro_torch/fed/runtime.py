@@ -10,16 +10,26 @@ threaded across rounds; build via `FederatedRunner.from_strategy` for
 that path, and resume with `run(..., state=...)` from a checkpoint's
 `strategy_state`.
 
+The runner also consumes a `sim.RoundSchedule` (`run(..., schedule=...)`):
+per-round active sets and local-step budgets of a seeded client
+population.  Its rounds run the membership-aware elastic round
+(`sim.make_elastic_round`: re-normalized weights, tracker-table
+corrections, budget-gated local steps, EF re-anchoring through the
+strategy's `rebase_state`; `rebase=False` is the naive-server ablation).  A
+static-full schedule takes the plain loop, so full participation equals
+running without a schedule bit for bit; a `SparseRoundSchedule` is
+densified up to `sim.sparse.DENSE_FALLBACK_MAX_M` agents.
+
 The reference jits each round into one XLA program; here the round runs
 eagerly, as every round of the port does, its local updates through the
 `gt_update` kernel on the card.  Each round's metrics are read as Python
 floats, so a run with a `metric_fn` syncs with the device once a round,
-as the reference does.
+as the reference does; an elastic round adds no other sync (its active
+set, budgets and weights reach the card as one non-blocking copy).
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP queue
-item): elastic schedules and their checkpoints (`schedule=`,
-`elastic_state=`, item 8), the telemetry sink and its phase spans
-(`telemetry=`, item 11), and the pods argument of `wire_report` (item 9).
+item): the telemetry sink and its phase spans (`telemetry=`, item 11),
+and the pods argument of `wire_report` (item 9).
 """
 from __future__ import annotations
 
@@ -51,6 +61,9 @@ class RunnerHistoryMixin:
 
     history: List[RoundStats]
     _strategy = None
+    #: remembered by `run(..., schedule=...)`, so `wire_report` defaults to
+    #: the schedule the run executed
+    _last_schedule = None
 
     def metric_series(self, name: str) -> np.ndarray:
         available = sorted({k for s in self.history for k in s.metrics})
@@ -74,16 +87,19 @@ class RunnerHistoryMixin:
         """Priced vs measured per-round communication for this runner's
         strategy: the analytic `bytes_per_round` next to the probe of the
         actual packed buffer lengths (`transport.measured_bytes_per_round`,
-        headers included).  Requires a strategy-built runner."""
+        headers included).  Requires a strategy-built runner.
+
+        With a schedule (passed, or remembered from the last `run(...,
+        schedule=...)`) that is not static-full, the report adds the
+        active-set account of `sim.schedule_bytes`: the per-active-agent
+        payload (`sim.per_agent_bytes`) and the scheduled totals."""
         if self._strategy is None:
             raise ValueError("wire_report needs a runner built from_strategy")
-        if schedule is not None:
-            raise not_ported("the scheduled wire report", "Queue 1 item 8")
         if pods is not None:
             raise not_ported("the pod wire report", "Queue 1 item 9")
         from .transport import measured_bytes_per_round
 
-        return {
+        report = {
             "bytes_per_round": int(
                 self._strategy.bytes_per_round(x, y, num_local_steps)
             ),
@@ -91,6 +107,66 @@ class RunnerHistoryMixin:
                 self._strategy, x, y, num_local_steps
             ),
         }
+        if schedule is None:
+            schedule = self._last_schedule
+        if schedule is not None and not getattr(schedule, "is_static_full", False):
+            from ..sim.elastic import per_agent_bytes, schedule_bytes
+
+            totals = schedule_bytes(self._strategy, x, y, num_local_steps, schedule)
+            report["scheduled_per_agent_bytes"] = per_agent_bytes(
+                self._strategy, x, y, num_local_steps)
+            report["scheduled_total_bytes"] = int(np.sum(totals))
+            report["scheduled_mean_bytes_per_round"] = float(np.mean(totals))
+        return report
+
+    def _drive_elastic(self, x, y, num_rounds: int, schedule, rebase: bool,
+                       log_every: int, elastic_state, init_tracker_fn: Callable,
+                       round_fn: Callable, checkpoint_fn: Callable,
+                       num_agents: int):
+        """The elastic run loop: schedule validation, the
+        `ElasticAggregator`, the tracker and prev_active continuation
+        (`elastic_state`: resuming without it re-anchors absent agents'
+        trackers at the resume iterate and forgets who took part last
+        round), per-round `n_active` metrics, history, logging and
+        checkpoints.  `round_fn(x, y, ev, agg, tracker, prev_active) -> (x,
+        y, tracker, active)` runs one round (`active`: its mask on the
+        device, next round's prev_active)."""
+        from ..sim.elastic import ElasticAggregator
+
+        if len(schedule) < num_rounds:
+            raise ValueError(
+                f"schedule covers {len(schedule)} rounds, need {num_rounds}")
+        if schedule.m != num_agents:
+            # a larger-m schedule would renormalize weights over agents that
+            # do not exist and then lose their mass: the naive failure
+            raise ValueError(
+                f"schedule is for m={schedule.m} agents, runner has {num_agents}")
+        agg = ElasticAggregator(self._strategy, rebase=rebase)
+        if elastic_state is not None:
+            tracker = elastic_state["tracker"]
+            prev_active = elastic_state.get("prev_active")
+        else:
+            tracker = init_tracker_fn(x, y)
+            prev_active = None
+        for t in range(num_rounds):
+            t0 = time.perf_counter()
+            ev = schedule[t]
+            x, y, tracker, prev_active = round_fn(x, y, ev, agg, tracker,
+                                                  prev_active)
+            metrics = {"n_active": float(ev.num_active)}
+            if self._metric_fn is not None:
+                metrics.update(
+                    {k: float(v) for k, v in self._metric_fn(x, y).items()})
+            dt = time.perf_counter() - t0
+            self.history.append(RoundStats(t, metrics, dt))
+            if log_every and (t % log_every == 0 or t == num_rounds - 1):
+                msg = " ".join(f"{k}={v:.3e}" for k, v in metrics.items())
+                print(f"[elastic round {t:5d}] {msg} ({dt*1e3:.1f} ms)")
+            checkpoint_fn(t, x, y, tracker, prev_active)
+        #: where the run left off, for continuation:
+        #: run(..., elastic_state=runner.elastic_state, schedule=tail)
+        self.elastic_state = {"tracker": tracker, "prev_active": prev_active}
+        return x, y
 
 
 class FederatedRunner(RunnerHistoryMixin):
@@ -106,8 +182,6 @@ class FederatedRunner(RunnerHistoryMixin):
         tracker_init_fn: Optional[Callable] = None,
         telemetry=None,
     ):
-        if elastic_round_fn is not None or tracker_init_fn is not None:
-            raise not_ported("the elastic round", "Queue 1 item 8")
         if telemetry is not None:
             raise not_ported("runner telemetry", "Queue 1 item 11")
         self._round = round_fn
@@ -119,6 +193,15 @@ class FederatedRunner(RunnerHistoryMixin):
         # explicit_state=True and is called as round(x, y, data, state)
         self._strategy = strategy
         self._state: Optional[Pytree] = None
+        # the membership-aware round round(x, y, data, state, tracker,
+        # weights, budgets, active, prev_active) and the tracker-table
+        # initializer (x, y, data) -> tracker, built by from_strategy; a
+        # raw-round runner cannot run a schedule
+        self._elastic = elastic_round_fn
+        self._tracker_init = tracker_init_fn
+        #: set by an elastic run: {"tracker", "prev_active"} where it left
+        #: off (also checkpointed as "elastic_state")
+        self.elastic_state: Optional[Dict] = None
         self.history: List[RoundStats] = []
 
     @classmethod
@@ -144,7 +227,10 @@ class FederatedRunner(RunnerHistoryMixin):
         `from_strategy(loss, "sagda", ..., noise_sigma=0.1)` builds the
         noisy strategy (the reference passes every extra keyword to the
         round)."""
+        import functools
+
         from ..core.engine import make_round
+        from ..sim.elastic import init_tracker, make_elastic_round
         from .strategies import resolve_strategy
 
         if telemetry is not None:
@@ -166,6 +252,8 @@ class FederatedRunner(RunnerHistoryMixin):
             explicit_state=strategy.stateful,
             **round_kwargs,
         )
+        elastic = make_elastic_round(
+            loss, strategy, num_local_steps, eta_x, eta_y, **round_kwargs)
         return cls(
             rnd,
             agent_data,
@@ -173,6 +261,8 @@ class FederatedRunner(RunnerHistoryMixin):
             checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every,
             strategy=strategy,
+            elastic_round_fn=elastic,
+            tracker_init_fn=functools.partial(init_tracker, loss, strategy),
         )
 
     @property
@@ -192,13 +282,31 @@ class FederatedRunner(RunnerHistoryMixin):
         rebase: bool = True,
         elastic_state: Optional[Dict] = None,
     ):
-        if schedule is not None or elastic_state is not None:
-            raise not_ported("elastic schedules", "Queue 1 item 8")
         if state is not None:  # resume from a checkpointed strategy_state
             self._state = state
         if self._stateful and self._state is None:
             m = tree_leaves(self._agent_data)[0].shape[0]
             self._state = self._strategy.init_state(x, y, m)
+        if schedule is not None and hasattr(schedule, "densify"):
+            # a SparseRoundSchedule: this runner's round is m-dense, so it
+            # densifies, up to the size where [T, m] masks defeat the
+            # sparse representation (the O(active) engine's regime)
+            from ..sim.sparse import DENSE_FALLBACK_MAX_M
+
+            if schedule.m > DENSE_FALLBACK_MAX_M:
+                raise ValueError(
+                    f"sparse schedule over m={schedule.m} agents is too large "
+                    f"to densify (> {DENSE_FALLBACK_MAX_M}); the O(active) "
+                    "engine is ROADMAP Queue 1 item 9")
+            schedule = schedule.densify()
+        if schedule is not None and schedule.is_static_full:
+            # all agents, full budgets, every round: the plain loop below
+            # is that run, bit for bit
+            schedule = None
+        self._last_schedule = schedule
+        if schedule is not None:
+            return self._run_elastic(x, y, num_rounds, schedule, rebase,
+                                     log_every, elastic_state)
         for t in range(num_rounds):
             t0 = time.perf_counter()
             if self._stateful:
@@ -229,3 +337,46 @@ class FederatedRunner(RunnerHistoryMixin):
                     payload["strategy_state"] = self._state
                 save_checkpoint(self._ckpt_dir, t + 1, payload)
         return x, y
+
+    def _run_elastic(self, x, y, num_rounds, schedule, rebase, log_every,
+                     elastic_state=None):
+        """Drive `num_rounds` through the membership-aware elastic round
+        (`sim.elastic`).  Checkpoints on this path carry an `elastic_state`
+        entry ({"tracker", "prev_active"}) beside the strategy state:
+        resume with `run(..., state=ckpt["strategy_state"],
+        elastic_state=ckpt["elastic_state"], schedule=schedule.tail(t))`."""
+        if self._elastic is None or self._strategy is None:
+            raise ValueError("elastic schedules need a runner built via "
+                             "from_strategy")
+        state = self._state if self._state is not None else {}
+        device = tree_leaves(x)[0].device
+
+        def round_fn(x, y, ev, agg, tracker, prev_active):
+            nonlocal state
+            weights, budgets, active = agg.round_inputs(ev.active, ev.budgets,
+                                                        device)
+            x, y, state, tracker = self._elastic(
+                x, y, self._agent_data, state, tracker, weights, budgets,
+                active, agg.round_prev_active(active, prev_active))
+            if self._stateful:
+                self._state = state
+            return x, y, tracker, active
+
+        def checkpoint_fn(t, x, y, tracker, prev_active):
+            if not (self._ckpt_dir and self._ckpt_every
+                    and (t + 1) % self._ckpt_every == 0):
+                return
+            # resuming without elastic_state re-anchors absent agents'
+            # trackers at the resume iterate and forgets the previous
+            # active set
+            payload = {"x": x, "y": y, "elastic_state": {
+                "tracker": tracker, "prev_active": prev_active}}
+            if self._stateful:
+                payload["strategy_state"] = state
+            save_checkpoint(self._ckpt_dir, t + 1, payload)
+
+        return self._drive_elastic(
+            x, y, num_rounds, schedule, rebase, log_every, elastic_state,
+            lambda xx, yy: self._tracker_init(xx, yy, self._agent_data),
+            round_fn, checkpoint_fn,
+            num_agents=tree_leaves(self._agent_data)[0].shape[0])

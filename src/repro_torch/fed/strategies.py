@@ -28,15 +28,17 @@ local drift is corrected; `core.engine.make_round` reads only these hooks:
                      cx / cy may come back as `transport.PackedTree` wire
                      payloads (objects with a `.decode()` hook) instead of
                      dense trees; the engine decodes before use
+  rebase_state(state, active, prev_active) -> state
+                     re-anchor membership-dependent state when an elastic
+                     schedule changes the active set (`sim.elastic`)
   sharded_state_keys state entries with a leading per-agent axis
   bytes_per_round(x, y, K)  analytic star-topology payload per agent
                      (`transport.measured_bytes_per_round` measures the
                      packed buffers)
 
 Not ported (each raises NotImplementedError naming its ROADMAP queue
-item): the elastic re-anchoring hooks `rebase_state` (item 8) and
-`realign_state_rows`, and `sample_noise_keys_ids` of the sparse layout
-(item 9).
+item): `realign_state_rows` and `sample_noise_keys_ids` of the sparse
+layout (item 9).
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from .. import prng
-from ..core.engine import fixed_size_mask, renormalized_weights
+from ..core.engine import agent_where, fixed_size_mask, renormalized_weights
 from ..core.types import Pytree, tree_flatten, tree_leaves, tree_map
 from ..device import not_ported
 from ..kernels.compress_correction import compress_leaf
@@ -138,6 +140,14 @@ class CommStrategy:
         self, cx: Pytree, cy: Pytree, state: State
     ) -> Tuple[Pytree, Pytree, State]:
         return cx, cy, state
+
+    def rebase_state(self, state: State, active, prev_active=None) -> State:
+        """Re-anchor membership-dependent state when an elastic schedule
+        changes the active set.  The base strategies carry no per-agent
+        state that can go stale (corrections are re-formed from the
+        current server iterate every round), so this is a no-op."""
+        del active, prev_active
+        return state
 
     def bytes_per_round(self, x: Pytree, y: Pytree, num_local_steps: int) -> int:
         raise NotImplementedError
@@ -254,8 +264,8 @@ class _CorrectionCompressor(CommStrategy):
     `wire_transport`, `transform_correction` returns `PackedTree`s, real
     packed payloads; wire on and off give the same iterates bit for bit.
 
-    Not ported: the elastic re-anchoring hooks `rebase_state` and
-    `realign_state_rows` (ROADMAP Queue 1 items 8 and 9)."""
+    Not ported: `realign_state_rows` of the sparse layout (ROADMAP Queue 1
+    item 9)."""
 
     use_kernel: bool = True       # the CUDA kernels (plain versions on CPU)
     wire_transport: bool = False  # emit packed payloads, not dense trees
@@ -397,7 +407,28 @@ class _CorrectionCompressor(CommStrategy):
         return cx, cy, state
 
     def rebase_state(self, state, active, prev_active=None):
-        raise not_ported("elastic re-anchoring (rebase_state)", "Queue 1 item 8")
+        """Elastic re-anchoring of the error-feedback buffers: an agent's
+        residual rows survive only if it took part both last round (so
+        the residual describes a correction it applied) and this round (so
+        it is about to re-inject it); departed and rejoining agents
+        restart from zero.
+
+        Here `prev_active=None` means a fresh start (keep = active alone,
+        as in a first round where every buffer is zero).  In
+        `sim.elastic.tracker_exchange` the same None means "no rebase" (the
+        naive ablation); `ElasticAggregator.round_prev_active` gives the
+        right value."""
+        if "ex" not in state:
+            return state
+        keep = active if prev_active is None else (active & prev_active)
+
+        def zero_stale(t):
+            return agent_where(keep, t, tree_map(torch.zeros_like, t))
+
+        state = dict(state)
+        state["ex"] = zero_stale(state["ex"])
+        state["ey"] = zero_stale(state["ey"])
+        return state
 
     def realign_state_rows(self, state, prev_ids, ids):
         raise not_ported("sparse-layout re-anchoring (realign_state_rows)",

@@ -53,7 +53,17 @@ simplex projection (`agnostic_*`) and with lambda frozen at uniform
     (`dirichlet<alpha>_rows`: per strategy x noise of `GEN_ROWS`, rounds to
     eps (inf if never), final distance and generalization gap).
 
-`tests/test_torch_fixtures.py` rebuilds the four files from the JAX
+`elastic_rounds.npz` holds the elastic population of
+`benchmarks/elastic.py` (`ELASTIC`: m=10, d=30, 200 samples from
+PRNGKey(0), K=10, eta=1e-4, T=1200, seed 0): the quadratic's data (`G`,
+`Ab`), each scenario's schedule (`<scenario>_active` [T, m] bool,
+`<scenario>_budgets` [T, m] int32, `ELASTIC_SCENARIOS`), JAX's per-round
+gaps of the five flaky rows (`flaky_<row>_gap`, the runner's metric after
+each of the T rounds; rows `ELASTIC_ROWS`) and JAX's whole table
+(`table` [rows, 5] f64 in the columns of `ELASTIC_TABLE_COLS`, inf where
+eps is never reached; `table_keys` "scenario/row").
+
+`tests/test_torch_fixtures.py` rebuilds the five files from the JAX
 package; run that file as a script to rewrite them.
 """
 from __future__ import annotations
@@ -67,6 +77,7 @@ PAPER_QUADRATIC = Path(__file__).resolve().parent / "paper_quadratic.npz"
 COMPRESSED_ROUNDS = Path(__file__).resolve().parent / "compressed_rounds.npz"
 ROBUST_AGNOSTIC = Path(__file__).resolve().parent / "robust_agnostic.npz"
 STOCHASTIC_ROUNDS = Path(__file__).resolve().parent / "stochastic_rounds.npz"
+ELASTIC_ROUNDS = Path(__file__).resolve().parent / "elastic_rounds.npz"
 
 #: run name -> (`resolve_strategy` name, kwargs); the same names and
 #: kwargs build the strategy in the JAX package and in the port
@@ -345,3 +356,83 @@ def noisy_run(run: str, device=None) -> np.ndarray:
         eta = float(load_robust_agnostic()[f"{which}_eta"])
     return _strategy_gaps(prob, xs, ys, resolve_strategy(name, **kw), K, eta, T,
                           record_x=xs is None)
+
+
+#: (dim, num_samples, num_agents, K, eta, rounds, seed) of the elastic
+#: benchmark (`benchmarks/elastic.py`)
+ELASTIC = (30, 200, 10, 10, 1e-4, 1200, 0)
+ELASTIC_EPS = 1e-6
+ELASTIC_SCENARIOS = ("stable", "flaky", "diurnal", "straggler_heavy")
+#: the benchmark's rows, in its order: (strategy name, kwargs, rebase), the
+#: same in the JAX package and in the port
+ELASTIC_ROWS = {
+    "local_sgda": ("local_sgda", {}, True),
+    "fedgda_gt": ("fedgda_gt", {}, True),
+    "fedgda_gt_norebase": ("fedgda_gt", {}, False),
+    "compressed_gt_25": ("compressed_gt", {"compression_ratio": 0.25}, True),
+    "quantized_gt_8bit": ("quantized_gt", {"quantization_bits": 8}, True),
+}
+#: the numeric columns of the table
+ELASTIC_TABLE_COLS = ("participation", "rounds_to_eps", "bytes_per_round",
+                      "total_bytes_to_eps", "final_gap")
+
+
+def elastic_table_keys() -> list:
+    """The table's rows in the benchmark's order ("scenario/row"; the
+    no-rebase ablation is skipped under the static-full stable schedule)."""
+    return [f"{sc}/{row}" for sc in ELASTIC_SCENARIOS for row in ELASTIC_ROWS
+            if not (sc == "stable" and not ELASTIC_ROWS[row][2])]
+
+
+def elastic_rounds_keys() -> list:
+    """The arrays `elastic_rounds.npz` holds, sorted."""
+    keys = ["G", "Ab", "table", "table_keys"]
+    keys += [f"{sc}_{what}" for sc in ELASTIC_SCENARIOS
+             for what in ("active", "budgets")]
+    keys += [f"flaky_{row}_gap" for row in ELASTIC_ROWS]
+    return sorted(keys)
+
+
+def load_elastic_rounds() -> Dict[str, np.ndarray]:
+    with np.load(ELASTIC_ROUNDS) as f:
+        return {k: f[k] for k in f.files}
+
+
+def elastic_problem(device=None):
+    """(problem, x*, y*) of the elastic benchmark's quadratic as JAX draws
+    it from PRNGKey(0), on `device` (default CUDA)."""
+    from ..convert import problem_from_numpy
+    from ..problems import quadratic_minimax_point
+
+    fix = load_elastic_rounds()
+    prob = problem_from_numpy("quadratic", {"G": fix["G"], "Ab": fix["Ab"]}, device)
+    xs, ys = quadratic_minimax_point(prob)
+    return prob, xs, ys
+
+
+def elastic_run_gaps(row: str, schedule, device=None,
+                     rounds: Optional[int] = None, **strategy_kwargs) -> np.ndarray:
+    """The port's per-round gaps of benchmark row `row` (`ELASTIC_ROWS`)
+    under `schedule` through `FederatedRunner` (x0 = y0 = 0; `rounds`
+    defaults to the schedule's length), the counterpart of the stored
+    `flaky_<row>_gap`.  `strategy_kwargs` go to `resolve_strategy` (e.g.
+    use_kernel=False)."""
+    import torch
+
+    from ..core import tree_sq_dist
+    from ..fed import FederatedRunner, resolve_strategy
+
+    prob, xs, ys = elastic_problem(device)
+    dim, _, _, K, eta, _, _ = ELASTIC
+    name, kw, rebase = ELASTIC_ROWS[row]
+
+    def gap(x, y):
+        return {"gap": tree_sq_dist(x, xs) + tree_sq_dist(y, ys)}
+
+    runner = FederatedRunner.from_strategy(
+        prob.loss, resolve_strategy(name, **kw, **strategy_kwargs),
+        prob.agent_data, K, eta, metric_fn=gap)
+    x0 = torch.zeros(dim, dtype=torch.float64, device=xs.device)
+    runner.run(x0, x0, len(schedule) if rounds is None else rounds,
+               schedule=schedule, rebase=rebase)
+    return runner.metric_series("gap")

@@ -341,25 +341,29 @@ def permutation(
     int n a shuffled arange(n) (int64, JAX's default integer under x64),
     for a tensor its rows in that order.  ceil(3 ln n / ln(2^32 - 1))
     rounds (two from n = 1,626), each a split, 32-bit sort keys and a
-    stable sort.  `device` defaults to a tensor x's device."""
+    stable sort.  `device` defaults to a tensor x's device.  For an int n a
+    key batch [B..., 2] gives [B..., n], equal to stacking the single-key
+    permutations (the vmapped permutation), in one pass."""
     _check_key(key)
-    if key.dim() != 1:
-        raise ValueError("permutation takes one key")
     if isinstance(x, torch.Tensor):
+        if key.dim() != 1:
+            raise ValueError("permutation of a tensor takes one key")
         device = x.device if device is None else device
         n = int(x.shape[0])
     else:
         n = int(x)
     device = resolve_device(device)
+    batch = tuple(key.shape[:-1])
     num_rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
-    order = torch.arange(n, dtype=torch.int64, device=device)
+    order = torch.arange(n, dtype=torch.int64, device=device).expand(batch + (n,))
     for _ in range(num_rounds):
-        key, sub = split(key)
+        keys = split(key)
+        key, sub = keys[..., 0, :], keys[..., 1, :]
         sort_keys = random_bits(sub, 32, (n,), device)
-        order = order[torch.sort(sort_keys, stable=True).indices]
+        order = torch.gather(order, -1, torch.sort(sort_keys, dim=-1, stable=True).indices)
     if isinstance(x, torch.Tensor):
         return x.to(device)[order]
-    return order
+    return order.contiguous()
 
 
 #: XLA's erf_inv polynomials (the CHLO decomposition; jax 0.9 keeps a copy

@@ -151,8 +151,10 @@ def test_knob_validation_and_aliases():
         assert noisy.noise == fed.GaussianNoise(0.1) and noisy.noise_seed == 2
         assert noisy.stateful and not noisy.exact_correction
     st = s.init_state(torch.zeros(3), torch.zeros(2), 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        s.rebase_state(st, torch.ones(4, dtype=torch.bool))
+    st["ex"] = torch.ones(4, 3)
+    # the elastic hook (sim): all agents continuing keeps every EF row
+    kept = s.rebase_state(st, torch.ones(4, dtype=torch.bool))
+    assert torch.equal(kept["ex"], st["ex"]) and torch.equal(kept["ey"], st["ey"])
     with pytest.raises(NotImplementedError, match="item 9"):
         s.realign_state_rows(st, None, [0, 1])
 

@@ -515,6 +515,100 @@ def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     assert out["plain"][3:] == (0, 0, 0)
 
 
+# ------------------------------------------------------ elastic population
+_PROCESSES = [("AlwaysOn", {}), ("BernoulliAvailability", {"p": 0.6}),
+              ("MarkovChurn", {"p_leave": 0.3, "p_join": 0.5}),
+              ("DiurnalAvailability", {"period": 10, "low": 0.2, "high": 0.9}),
+              ("FixedSizeSampling", {"participation": 0.4}),
+              ("UniformActiveSubset", {"size": 5})]
+_STRAGGLERS = [("NoStragglers", {}),
+               ("UniformStragglers", {"p_straggle": 0.7, "min_frac": 0.3}),
+               ("DeterministicLag", {"slow_every": 3, "budget_frac": 0.3})]
+
+
+@pytest.mark.parametrize("avail", _PROCESSES, ids=lambda p: p[0])
+def test_cuda_schedules_equal_cpu(cuda_device, avail):
+    """Schedules drawn on the card (dense, chunked, min_active forcing)
+    equal the CPU's bit for bit, for every straggler model."""
+    from repro_torch import sim
+
+    name, kw = avail
+    for sname, skw in _STRAGGLERS:
+        pop = sim.Population(12, getattr(sim, name)(**kw),
+                             getattr(sim, sname)(**skw), min_active=2)
+        a = pop.schedule(3, 70, 7, device=cuda_device)
+        b = pop.schedule(3, 70, 7, device="cpu")
+        assert (a.active == b.active).all() and (a.budgets == b.budgets).all()
+        c = pop.chunked_schedule(3, 70, 7, chunk_rounds=16, device=cuda_device)
+        m = c.materialize()
+        assert (m.active == b.active).all() and (m.budgets == b.budgets).all()
+
+
+def test_cuda_scenario_and_sparse_schedules_equal_cpu(cuda_device):
+    from repro_torch import sim
+
+    for name in ("flaky", "diurnal", "straggler_heavy"):
+        a = sim.make_population(name, 16).schedule(0, 1200, 10, device=cuda_device)
+        b = sim.make_population(name, 16).schedule(0, 1200, 10, device="cpu")
+        assert (a.active == b.active).all() and (a.budgets == b.budgets).all()
+    a = sim.make_population("mega", 0).sparse_schedule(0, 3, 10, device=cuda_device)
+    b = sim.make_population("mega", 0).sparse_schedule(0, 3, 10, device="cpu")
+    for t in range(3):
+        assert (a[t].active_ids == b[t].active_ids).all()
+        assert (a[t].budgets == b[t].budgets).all()
+
+
+@pytest.mark.parametrize("tag", ["gt_rebase", "gt_norebase", "cgt_wire",
+                                 "qgt_dense", "local_sgda"])
+def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
+    """Flaky elastic rounds through `FederatedRunner`: iterates, strategy
+    state and tracker through the kernels equal the plain path's bit for
+    bit; gt_update launches (K - 1) x 2 a round (K x 2 without the fused
+    anchor step), compress / pack / unpack 2 a round."""
+    import dataclasses
+
+    from repro_torch import sim
+    from repro_torch.fed import FederatedRunner, LocalOnly
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    rounds, K, m, d = 6, 4, 8, 256
+    prob = make_quadratic_problem(gen, dim=d, num_samples=512, num_agents=m,
+                                  device=cuda_device)
+    strategy, rebase, (gt, comp, packs) = {
+        "gt_rebase": (GradientTracking(), True, (2 * (K - 1), 0, 0)),
+        "gt_norebase": (GradientTracking(), False, (2 * (K - 1), 0, 0)),
+        "cgt_wire": (CompressedGT(compression_ratio=0.1, wire_transport=True), True,
+                     (2 * K, 0, 2)),
+        "qgt_dense": (QuantizedGT(bits=8, ratio=0.25), True, (2 * K, 2, 0)),
+        "local_sgda": (LocalOnly(), True, (0, 0, 0)),
+    }[tag]
+    sched = sim.make_population("flaky", m).schedule(0, rounds, K, device=cuda_device)
+    assert not sched.is_static_full
+    plain = (dataclasses.replace(strategy, use_kernel=False)
+             if hasattr(strategy, "use_kernel") else strategy)
+    out = {}
+    for name, s, kw in (("kernels", strategy, {}),
+                        ("plain", plain, {"update_fn": core.default_update})):
+        runner = FederatedRunner.from_strategy(prob.loss, s, prob.agent_data, K,
+                                               1e-4, **kw)
+        x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
+        gt_update.launches = compress_correction_2d.launches = 0
+        pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        x, y = runner.run(x0, x0, rounds, schedule=sched, rebase=rebase)
+        torch.cuda.synchronize()
+        out[name] = (x, y, runner._state or {}, runner.elastic_state,
+                     (gt_update.launches, compress_correction_2d.launches,
+                      pack_payload_2d.launches, unpack_payload_2d.launches))
+    k, p = out["kernels"], out["plain"]
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for key in k[2]:
+        assert torch.equal(k[2][key].cpu(), p[2][key].cpu())
+    for key in k[3]["tracker"]:
+        assert torch.equal(k[3]["tracker"][key], p[3]["tracker"][key])
+    assert k[4] == (gt * rounds, comp * rounds, packs * rounds, packs * rounds)
+    assert p[4] == (0, 0, 0, 0)
+
+
 # ------------------------------------------------------ model kernels
 #: flash attention's tolerance against its plain version: f32 sums in
 #: another order (rtol = atol); both compute a bf16 case in f32 and round

@@ -429,11 +429,12 @@ class TestPackageRules:
                             constrain_agents=lambda a, b: (a, b))
         ph = core.make_phases(tp.loss, GradientTracking(), 2, ETA)
         x = torch.zeros(20, dtype=torch.float64)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ph.broadcast(x, x, tp.agent_data, {}, step_budgets=torch.ones(8))
+        # elastic budgets and masks are ported (sim): broadcast carries them
+        rs = ph.broadcast(x, x, tp.agent_data, {}, step_budgets=torch.ones(8),
+                          active=torch.ones(8, dtype=torch.bool))
+        assert rs.step_budgets is not None and rs.active is not None
         for fn, item in [(engine.pod_weighted_sums, "item 9"),
-                         (engine.pods_total, "item 9"),
-                         (engine.agent_where, "item 8")]:
+                         (engine.pods_total, "item 9")]:
             with pytest.raises(NotImplementedError, match=item):
                 fn()
         with pytest.raises(NotImplementedError, match="item 9"):

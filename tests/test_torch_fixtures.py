@@ -14,10 +14,13 @@ JAX package builds:
   * `stochastic_rounds.npz`: the Section 4 separation's problem and JAX's
     four gap trajectories, PartialParticipation's masks and gaps, the
     noisy robust-regression and compressed runs, and the two Dirichlet
-    problems with JAX's rows of the stochastic generalization table.
+    problems with JAX's rows of the stochastic generalization table;
+  * `elastic_rounds.npz`: the elastic benchmark's problem, the four
+    scenarios' schedules, JAX's per-round gaps of the five flaky rows and
+    JAX's whole table.
 
 They are the one place where the port's card run (`chip_smoke.py`) meets
-JAX's numbers.  Run this file as a script to rewrite all four:
+JAX's numbers.  Run this file as a script to rewrite all five:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_fixtures.py
 """
 import jax
@@ -43,11 +46,18 @@ from repro.problems import (
     robust_loss,
     uniform_lambda,
 )
+import benchmarks.elastic as jel
 import benchmarks.generalization as jgen
+from repro.sim import make_population, schedule_bytes
 from repro_torch.fixtures import (
     AGNOSTIC,
     COMPRESSED_ROUNDS,
     DIRICHLET,
+    ELASTIC,
+    ELASTIC_ROUNDS,
+    ELASTIC_ROWS,
+    ELASTIC_SCENARIOS,
+    ELASTIC_TABLE_COLS,
     GEN_ROWS,
     NOISY_RUNS,
     PARTIAL,
@@ -68,7 +78,10 @@ from repro_torch.fixtures import (
     THM1_ROUNDS,
     THM1_RUNS,
     dirichlet_key,
+    elastic_rounds_keys,
+    elastic_table_keys,
     load_compressed_rounds,
+    load_elastic_rounds,
     load_paper_quadratic,
     load_robust_agnostic,
     load_stochastic_rounds,
@@ -445,6 +458,82 @@ def test_stochastic_fixture_equals_the_jax_package(rebuilt_stochastic, key):
         _assert_fixture_equal(key, got, want)
 
 
+def build_elastic_fixture() -> dict:
+    """`benchmarks/elastic.py` `run()` as numbers: its problem, the
+    scenarios' schedules, the flaky rows' per-round gaps and every row of
+    its table (participation, rounds to eps, mean and total bytes to eps,
+    final gap)."""
+    dim, n, m, K, eta, T, seed = ELASTIC
+    assert (dim, m, K, eta, T, seed) == (jel.DIM, jel.M, jel.K, jel.ETA, jel.T,
+                                         jel.SEED)
+    assert tuple(ELASTIC_ROWS) == tuple(r[0] for r in jel._strategies())
+    prob, metric = jel._problem()
+    assert prob.agent_data["G"].shape == (m, dim, dim)
+    x0 = jnp.zeros(dim)
+    out = {"G": np.asarray(prob.agent_data["G"]),
+           "Ab": np.asarray(prob.agent_data["Ab"])}
+    table = []
+    for scenario in ELASTIC_SCENARIOS:
+        schedule = make_population(scenario, m).schedule(seed, T, K)
+        out[f"{scenario}_active"] = schedule.active
+        out[f"{scenario}_budgets"] = schedule.budgets
+        for name, strategy, rebase in jel._strategies():
+            if scenario == "stable" and not rebase:
+                continue
+            gaps = jel._run_one(prob, metric, strategy, schedule, rebase)
+            if scenario == "flaky":
+                out[f"flaky_{name}_gap"] = gaps
+            r_eps = jel._rounds_to_eps(gaps)
+            per_round = schedule_bytes(strategy, x0, x0, K, schedule)
+            total = (np.inf if np.isinf(r_eps)
+                     else float(sum(per_round[: int(r_eps) + 1])))
+            table.append([schedule.participation_rate(), r_eps,
+                          float(int(np.mean(per_round))), total, float(gaps[-1])])
+    out["table"] = np.asarray(table, np.float64)
+    out["table_keys"] = np.asarray(elastic_table_keys())
+    assert out["table"].shape == (len(out["table_keys"]), len(ELASTIC_TABLE_COLS))
+    return out
+
+
+@pytest.fixture(scope="module")
+def rebuilt_elastic():
+    return build_elastic_fixture()
+
+
+def test_elastic_fixture_has_the_expected_arrays():
+    got = load_elastic_rounds()
+    assert sorted(got) == elastic_rounds_keys()
+    dim, n, m, K, eta, T, seed = ELASTIC
+    assert got["G"].shape == (m, dim, dim) and got["Ab"].shape == (m, dim)
+    for scenario in ELASTIC_SCENARIOS:
+        assert got[f"{scenario}_active"].shape == (T, m)
+        assert got[f"{scenario}_active"].dtype == bool
+        assert got[f"{scenario}_budgets"].dtype == np.int32
+    assert got["stable_active"].all()
+    for row in ELASTIC_ROWS:
+        assert got[f"flaky_{row}_gap"].shape == (T,)
+    assert list(got["table_keys"]) == elastic_table_keys()
+    assert ELASTIC_ROUNDS.stat().st_size < 5e5
+
+
+@pytest.mark.parametrize("key", elastic_rounds_keys())
+def test_elastic_fixture_equals_the_jax_package(rebuilt_elastic, key):
+    """Schedules, keys, rounds to eps and bytes exactly; gaps as the other
+    fixtures' (1e-5 relative above 1e-14); data, participation and final
+    gaps 1e-12 relative above 1e-14."""
+    got, want = load_elastic_rounds()[key], rebuilt_elastic[key]
+    assert got.shape == want.shape
+    if key.endswith(("_active", "_budgets", "table_keys")):
+        assert np.array_equal(got, want)
+    elif key == "table":
+        assert np.array_equal(got[:, 1:4], want[:, 1:4])
+        np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-15)
+        sel = want[:, 4] > 1e-14
+        np.testing.assert_allclose(got[sel, 4], want[sel, 4], rtol=1e-5)
+    else:
+        _assert_fixture_equal(key, got, want)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_enable_x64", True)
     PAPER_QUADRATIC.parent.mkdir(parents=True, exist_ok=True)
@@ -456,3 +545,5 @@ if __name__ == "__main__":
     print(f"wrote {ROBUST_AGNOSTIC}")
     np.savez(STOCHASTIC_ROUNDS, **build_stochastic_fixture())
     print(f"wrote {STOCHASTIC_ROUNDS}")
+    np.savez_compressed(ELASTIC_ROUNDS, **build_elastic_fixture())
+    print(f"wrote {ELASTIC_ROUNDS}")

@@ -11,8 +11,9 @@
   * the runner's final iterates equal `run_rounds'` bit for bit, and
     JAX's runner's to 1e-12;
   * `wire_report` equals JAX's runner's for the same strategies;
-  * the `telemetry=` and `schedule=` paths raise NotImplementedError
-    naming their ROADMAP Queue 1 items.
+  * the `telemetry=` path and the pod / O(active) parts of the elastic
+    path raise NotImplementedError naming their ROADMAP Queue 1 items
+    (the elastic runs themselves: tests/test_torch_elastic.py).
 """
 import jax
 import jax.numpy as jnp
@@ -273,17 +274,23 @@ def test_unported_paths_raise_naming_their_items(quad6):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data, K,
                                       ETA, telemetry=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        FederatedRunner(rnd, prob.agent_data, elastic_round_fn=rnd)
+    from repro_torch import sim
+
     runner = FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data,
                                            K, ETA)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        runner.run(_zeros(), _zeros(), 1, schedule=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        runner.run(_zeros(), _zeros(), 1, elastic_state={})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        runner.wire_report(_zeros(), _zeros(), K, schedule=object())
+    flaky = sim.make_population("flaky", 8).schedule(0, 2, K, device="cpu")
+    with pytest.raises(ValueError, match="from_strategy"):
+        FederatedRunner(rnd, prob.agent_data).run(_zeros(), _zeros(), 2,
+                                                  schedule=flaky)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         runner.wire_report(_zeros(), _zeros(), K, pods=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        runner.wire_report(_zeros(), _zeros(), K, schedule=flaky,
+                           pods=sim.PodMap(8, 2))
+    mega = sim.make_population("mega", 8).sparse_schedule(0, 1, K, device="cpu")
+    with pytest.raises(ValueError, match="Queue 1 item 9"):
+        runner.run(_zeros(), _zeros(), 1, schedule=mega)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        sim.SparseElasticEngine(prob.loss, "fedgda_gt")
     with pytest.raises(ValueError, match="from_strategy"):
         FederatedRunner(rnd, prob.agent_data).wire_report(_zeros(), _zeros(), K)
