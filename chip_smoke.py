@@ -16,7 +16,9 @@ seeded draws on the card, the rest of the paper's experiments (Fig 2's
 robust regression, agnostic FL) through the `FederatedRunner` with a
 checkpoint resume, the elastic client population (churn and straggler
 schedules drawn on the card, membership-aware FedGDA-GT) through the same
-runner and kernels, and the serving path of zamba2-7b at full width
+runner and kernels, the O(active) sparse engine and the two-level pod tree
+(`sim.SparseElasticEngine`, at the mega preset's 1e6-agent registry and at
+the main path's width), and the serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
 `ssm_scan` kernels.  Every phase prints one JSON line (fig2 also the
 reference's CSV table); any failed check
@@ -26,9 +28,9 @@ exits non-zero without the final line.  The last two lines are the card's
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Phases (in this order, but for the host-bound ones on JAX's numbers,
-theorem1 through runner_resume, device_draws, stochastic_claims and
-elastic_claims, which run right after setup, before any profiler session
-slows the host):
+theorem1 through runner_resume, device_draws, stochastic_claims,
+elastic_claims and sparse_claims, which run right after setup, before any
+profiler session slows the host):
   setup      card, power limit, torch / CUDA versions, kernel build time
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
              (every dtype pair, both signs) and a ragged 2^20+17; times
@@ -155,6 +157,21 @@ slows the host):
              checkpointed at round 100 and resumed with its elastic_state
              and strategy_state equals 200 uninterrupted rounds bit for
              bit; every table row's active-set bytes equal JAX's
+  sparse_claims
+             the O(active) engine on JAX's fixture (`sparse_rounds.npz`):
+             the m=8 runs of the six families (d=16, K=5, 4 active, T=6,
+             seed 0; schedules bitwise JAX's): the dense fallback bitwise
+             the dense elastic runner, forced sparse within rtol 1e-8 /
+             atol 1e-10 of it (QuantizedGT excepted: its rounding draws
+             follow the rows), each within 1e-10 of JAX's final iterates; a
+             sparse resume via tail(3) bitwise; the 4-pod engine's live
+             pods and pod wire bytes JAX's; the mega preset (m = 1e6, 256
+             active, 1024 pods, dim 8, K=10, T=4, per-id synthesized data,
+             the tracker's init over every agent on the card) beside its
+             1e4 reference: ids, budgets, live pods, pod wire bytes and
+             tracker counts JAX's, iterates within 1e-9, and the memory
+             gate (host peak + device peak of the 1e6 run within 1.5x the
+             1e4 run's + 24 MiB), both peaks printed
   elastic_main_path
              the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
              under a flaky schedule (seed 0) through `FederatedRunner`:
@@ -165,6 +182,18 @@ slows the host):
              static FedGDA-GT round's, one round of each under the
              profiler; a stable round forced through the elastic round
              within 1e-12 of `make_round`'s
+  sparse_main_path
+             the main path's problem (G as an `ArrayDataSource`) through
+             the O(active) engine, forced sparse: 8 of 16 active a round,
+             uniform stragglers (0.3, 0.5), 4 pods, seed 0, 10 rounds of
+             FedGDA-GT with the pod partials packed (gt_update 180,
+             pack_payload 20) and CompressedGT top-k 0.1 with EF rows
+             realigned (gt_update 200, compress_correction 20): bitwise
+             equal to the plain path (iterates, state, tracker), within
+             rtol 1e-8 / atol 1e-10 of the dense elastic runner on the
+             densified schedule; ms a round beside that runner's, launches
+             and host syncs a round, one profiled round, peak memory, and
+             the last pod payload decoded through unpack_payload bitwise
   robust_main_path
              robust regression from the port's generator at d=n=4096,
              m=16, alpha 5, f64 (a is 2.15 GB), FedGDA-GT K=10 for 10
@@ -193,7 +222,8 @@ slows the host):
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes; its launches on each stochastic_main_path,
-             elastic_main_path and elastic_claims run)
+             elastic_main_path, elastic_claims, sparse_main_path and
+             sparse_claims run)
 """
 from __future__ import annotations
 
@@ -2044,6 +2074,338 @@ def phase_elastic_main_path(torch, np, card: str, shared: dict, rounds: int) -> 
     return out
 
 
+# ------------------------------------------- the O(active) sparse engine
+#: the sparse runs on the card against JAX's final iterates (the CPU test
+#: holds them per round to 1e-12), relative to max |JAX iterate|
+SPARSE_JAX_RTOL = 1e-10
+#: forced sparse against the dense elastic runner: JAX's own tolerance
+SPARSE_DENSE_RTOL, SPARSE_DENSE_ATOL = 1e-8, 1e-10
+#: the mega's iterates against JAX's (synthesized from normals within a
+#: few ulp of JAX's)
+MEGA_RTOL = 1e-9
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max |want| (want as numpy)."""
+    want = torch.from_numpy(want)
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def dense_close(torch, a, b) -> bool:
+    return bool(torch.allclose(a, b, rtol=SPARSE_DENSE_RTOL, atol=SPARSE_DENSE_ATOL))
+
+
+def phase_sparse_claims(torch, np) -> dict:
+    """The O(active) engine on JAX's numbers (`sparse_rounds` fixture): the
+    m=8 runs of the six families (the schedule bitwise JAX's; the dense
+    fallback bitwise the dense elastic runner, forced sparse within rtol
+    1e-8 / atol 1e-10 of it, each within SPARSE_JAX_RTOL of JAX's final
+    iterates), a sparse resume via tail(3) bitwise, the pod engine's live
+    pods and wire bytes equal JAX's, and the mega preset at 1e6 agents
+    beside its 1e4 reference (`benchmarks.elastic.pods_peaks`): ids,
+    budgets, live pods, pod wire bytes and tracker counts equal JAX's, the
+    iterates within MEGA_RTOL, the memory gate held."""
+    from repro_torch import sim
+    from repro_torch.benchmarks import elastic as bench
+    from repro_torch.fed import FederatedRunner, GradientTracking, resolve_strategy
+    from repro_torch.fixtures import (
+        MEGA, MEGA_COUNTS, SPARSE, SPARSE_FAMILIES, SPARSE_PODS, load_sparse_rounds,
+        sparse_population, sparse_problem)
+
+    fix = load_sparse_rounds()
+    dim, _, m, _, K, eta, T, seed = SPARSE
+    prob = sparse_problem(DEVICE)
+    src = sim.ArrayDataSource(prob.agent_data)
+    x0 = torch.zeros(dim, dtype=torch.float64, device=DEVICE)
+    scheds = {}
+    for k in (1, K):
+        scheds[k] = sparse_population().sparse_schedule(seed, T, k, device=DEVICE)
+        same = (np.array_equal(np.stack([ev.active_ids for ev in scheds[k]]),
+                               fix["m8_ids"])
+                and np.array_equal(np.stack([ev.budgets for ev in scheds[k]]),
+                                   fix[f"m8_budgets_k{k}"]))
+        check(same, f"sparse_claims: the m=8 schedule (K={k}) differs from JAX's")
+    out = {"families": {}}
+    launches = {}
+    for fam, (name, kw, Kf) in SPARSE_FAMILIES.items():
+        sched = scheds[Kf]
+        ref = FederatedRunner.from_strategy(prob.loss, resolve_strategy(name, **kw),
+                                            prob.agent_data, Kf, eta)
+        xr, yr = ref.run(x0, x0, T, schedule=sched.densify())
+        res = {}
+        for path, fallback in (("dense", 4096), ("sparse", 0)):
+            eng = sim.SparseElasticEngine(prob.loss, resolve_strategy(name, **kw),
+                                          src, Kf, eta, dense_fallback_max_m=fallback)
+            zero_counts()
+            x, y = eng.run(x0, x0, sched)
+            torch.cuda.synchronize()
+            launches[f"{path}_{fam}"] = kernel_counts()
+            err = max(rel_err(torch, x, fix[f"{path}_{fam}_x"]),
+                      rel_err(torch, y, fix[f"{path}_{fam}_y"]))
+            check(err <= SPARSE_JAX_RTOL, f"sparse_claims {fam} {path}: "
+                                          f"{err:.3e} off JAX's iterates")
+            res[path] = {"max_rel_err_vs_jax": err,
+                         "ms_per_round": [h["seconds"] * 1e3 for h in eng.history]
+                         if path == "sparse" else None}
+            if path == "dense":
+                res[path]["bitwise_vs_dense_runner"] = bool(
+                    torch.equal(x, xr) and torch.equal(y, yr))
+                check(res[path]["bitwise_vs_dense_runner"],
+                      f"sparse_claims {fam}: the dense fallback != the dense runner")
+            elif fam != "quantized_gt":  # its rounding draws [n rows], not [m]
+                res[path]["close_to_dense_runner"] = dense_close(torch, x, xr) \
+                    and dense_close(torch, y, yr)
+                check(res[path]["close_to_dense_runner"],
+                      f"sparse_claims {fam}: forced sparse off the dense runner")
+        out["families"][fam] = res
+    # a sparse resume via tail(3) equals the uninterrupted run bit for bit
+    mk = lambda: sim.SparseElasticEngine(prob.loss, GradientTracking(), src, K, eta,
+                                         dense_fallback_max_m=0)
+    xf, yf = mk().run(x0, x0, scheds[K])
+    split = mk()
+    xm, ym = split.run(x0, x0, scheds[K], num_rounds=3)
+    xs, ys = split.run(xm, ym, scheds[K].tail(3), resume=True)
+    out["resume_tail_bitwise"] = bool(torch.equal(xf, xs) and torch.equal(yf, ys))
+    check(out["resume_tail_bitwise"], "sparse_claims: sparse resume != uninterrupted")
+    # the pod engine: live pods and packed partial bytes a round, JAX's
+    pop = sparse_population(SPARSE_PODS)
+    eng = sim.SparseElasticEngine(prob.loss, GradientTracking(), src, K, eta,
+                                  pod_map=pop.pod_map(), wire_pods=True,
+                                  dense_fallback_max_m=0)
+    zero_counts()
+    x, y = eng.run(x0, x0, pop.sparse_schedule(seed, T, K, device=DEVICE))
+    torch.cuda.synchronize()
+    launches["pods"] = kernel_counts()
+    counts = {w: [h[w] for h in eng.history] for w in ("live_pods", "pod_wire_bytes")}
+    same = all(counts[w] == fix[f"pods_{w}"].tolist() for w in counts)
+    err = max(rel_err(torch, x, fix["pods_x"]), rel_err(torch, y, fix["pods_y"]))
+    check(same, f"sparse_claims: pod counts {counts} differ from JAX's")
+    check(err <= SPARSE_JAX_RTOL, f"sparse_claims pods: {err:.3e} off JAX's")
+    out["pods"] = {**counts, "max_rel_err_vs_jax": err}
+    # the mega preset at 1e6 agents beside its 1e4 reference, under the
+    # memory gate's measurement (host trace, device max_memory_allocated)
+    t0 = time.perf_counter()
+    zero_counts()
+    peaks = bench.pods_peaks(DEVICE)
+    torch.cuda.synchronize()
+    launches["mega_pair"] = kernel_counts()
+    out["mega_pair_s"] = time.perf_counter() - t0
+    for label, run in peaks.pop("runs").items():
+        key = label.split("_")[0]
+        mm, active, n_pods, rounds = MEGA[key]
+        pop = sim.Population(mm, sim.UniformActiveSubset(size=active),
+                             sim.UniformStragglers(0.3, 0.5), pods=n_pods)
+        sched = pop.sparse_schedule(bench.SEED, rounds, bench.K, device=DEVICE)
+        same_sched = (np.array_equal(np.stack([ev.active_ids for ev in sched]),
+                                     fix[f"{key}_ids"])
+                      and np.array_equal(np.stack([ev.budgets for ev in sched]),
+                                         fix[f"{key}_budgets"]))
+        got = {"live_pods": [h["live_pods"] for h in run["engine"].history],
+               "pod_wire_bytes": [h["pod_wire_bytes"] for h in run["engine"].history],
+               "tracker_touched": run["tracker_touched"]}
+        same = all(got[w] == fix[f"{key}_{w}"].tolist() for w in MEGA_COUNTS)
+        err = max(rel_err(torch, run["x"], fix[f"{key}_x"]),
+                  rel_err(torch, run["y"], fix[f"{key}_y"]))
+        check(same_sched, f"sparse_claims {label}: schedule differs from JAX's")
+        check(same, f"sparse_claims {label}: counts {got} differ from JAX's")
+        check(err <= MEGA_RTOL, f"sparse_claims {label}: {err:.3e} off JAX's")
+        out[label] = {**got, **peaks[label], "max_rel_err_vs_jax": err,
+                      "schedule_bitwise": same_sched,
+                      "ms_per_round": [h["seconds"] * 1e3
+                                       for h in run["engine"].history]}
+    out["gate"] = {"budget_bytes": peaks["budget_bytes"], "ok": peaks["ok"],
+                   "rule": "mega total <= 1.5 x ref total + 24 MiB (host + device)"}
+    check(peaks["ok"], f"sparse_claims: the memory gate fails ({out['gate']})")
+    print(f"sparse_claims peaks: ref host {out['ref_1e4']['host_peak_bytes']} B "
+          f"device {out['ref_1e4']['device_peak_bytes']} B; mega host "
+          f"{out['mega_1e6']['host_peak_bytes']} B device "
+          f"{out['mega_1e6']['device_peak_bytes']} B; budget "
+          f"{peaks['budget_bytes']} B", flush=True)
+    return {"runs": out, "launches": launches,
+            "tolerance": {"vs_jax": SPARSE_JAX_RTOL, "mega_vs_jax": MEGA_RTOL,
+                          "vs_dense": [SPARSE_DENSE_RTOL, SPARSE_DENSE_ATOL]}}
+
+
+def count_syncs(torch, fn) -> int:
+    """fn() under CUDA's sync debug mode: the number of host-device
+    synchronizations torch reports."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.set_sync_debug_mode(0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+class DrawnSchedule:
+    """A sparse schedule's events drawn up front (what the engine reads:
+    len, [t], m, tail), so a timed run measures the engine, not the
+    schedule's per-round draws on the card (measured apart)."""
+
+    def __init__(self, m: int, events: list):
+        self.m, self.events = m, events
+
+    def __len__(self) -> int:
+        return len(self.events)
+
+    def __getitem__(self, t: int):
+        return self.events[t]
+
+    def tail(self, start: int) -> "DrawnSchedule":
+        return DrawnSchedule(self.m, self.events[start:])
+
+
+def phase_sparse_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
+    """The main path's problem (d=4096, m=16, f64, G 2.1 GB as an
+    `ArrayDataSource`, K=10) through the O(active) engine, forced sparse:
+    8 of 16 active a round (`UniformActiveSubset`, `UniformStragglers(0.3,
+    0.5)`, 4 pods, seed 0), 10 rounds of (i) FedGDA-GT with the pod
+    partials over the wire (gt_update, pack_payload) and (ii) CompressedGT
+    top-k 0.1 with its EF rows realigned each round (gt_update,
+    compress_correction): each bitwise equal to the plain path (iterates,
+    state, tracker) and within rtol 1e-8 / atol 1e-10 of the dense
+    elastic runner on `schedule.densify()`; ms a round beside that
+    runner's, launches and host syncs a round, one profiled round, peak
+    memory."""
+    from repro_torch import core, sim
+    from repro_torch.fed import CompressedGT, FederatedRunner, GradientTracking
+    from repro_torch.fed import pods as fpods
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m = prob.agent_data, prob.num_agents
+    pop = sim.Population(m, sim.UniformActiveSubset(size=m // 2),
+                         sim.UniformStragglers(p_straggle=0.3, min_frac=0.5), pods=4)
+    # the schedule's own cost: each event drawn on the card as the engine
+    # reads it (ids, then budgets), timed and profiled apart
+    lazy = pop.sparse_schedule(0, rounds, K, device=DEVICE)
+    lazy[0]  # first-call setup
+    lazy = pop.sparse_schedule(0, rounds, K, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events = [lazy[t] for t in range(rounds)]
+    draw_ms = (time.perf_counter() - t0) / rounds * 1e3
+    draw_syncs = count_syncs(torch, lambda: pop.sparse_schedule(
+        0, rounds, K, device=DEVICE)[rounds - 1])
+    draw_prof = profile_round(torch, lambda: pop.sparse_schedule(
+        0, rounds, K, device=DEVICE)[rounds - 1], {})
+    sched = DrawnSchedule(m, events)
+    dense_sched = lazy.densify()
+    src = sim.ArrayDataSource(data)
+    runs = {
+        "gt_wire_pods": (GradientTracking(), GradientTracking(), True,
+                         {"gt_update": 2 * (K - 1) * rounds, "pack_payload": 2 * rounds}),
+        "compressed_topk": (
+            CompressedGT(compression_ratio=0.1, mode="topk"),
+            CompressedGT(compression_ratio=0.1, mode="topk", use_kernel=False), False,
+            {"gt_update": 2 * K * rounds, "compress_correction": 2 * rounds}),
+    }
+    out = {"schedule": {"ids": [ev.active_ids.tolist() for ev in events],
+                        "live_pods": [len(pop.pod_map().live_pods(ev.active_ids))
+                                      for ev in events],
+                        "draw_ms_per_round": draw_ms,
+                        "draw_host_syncs_per_round": draw_syncs,
+                        "draw_profile": {k: draw_prof.get(k) for k in (
+                            "round_wall_ms", "device_busy_ms", "kernel_launches")}}}
+    gap = lambda x, y: float(core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys))
+
+    def engine(strategy, wire, plain=False):
+        kw = {"update_fn": core.default_update, "use_kernel": False} if plain else {}
+        return sim.SparseElasticEngine(prob.loss, strategy, src, K, eta,
+                                       pod_map=pop.pod_map(), wire_pods=wire,
+                                       dense_fallback_max_m=0, **kw)
+
+    for tag, (strategy, plain, wire, expected) in runs.items():
+        # one warm-up round each side
+        engine(strategy, wire).run(x0, x0, sched, num_rounds=1)
+        engine(plain, wire, plain=True).run(x0, x0, sched, num_rounds=1)
+        ke = engine(strategy, wire)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        xk, yk = ke.run(x0, x0, sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        pe = engine(plain, wire, plain=True)
+        xp, yp = pe.run(x0, x0, sched)
+        torch.cuda.synchronize()
+        tk, tp = ke._tracker, pe._tracker
+        same = {"x": torch.equal(xk, xp), "y": torch.equal(yk, yp),
+                "sum_gx": torch.equal(tk.sum_gx, tp.sum_gx),
+                "sum_gy": torch.equal(tk.sum_gy, tp.sum_gy),
+                "rows": all(np.array_equal(a[:tk.num_touched], b[:tp.num_touched])
+                            for a, b in zip(tk._gx_leaves + tk._gy_leaves,
+                                            tp._gx_leaves + tp._gy_leaves)),
+                **{k: torch.equal(ke._state[k].cpu(), pe._state[k].cpu())
+                   for k in ke._state}}
+        check(all(same.values()), f"sparse_main_path {tag}: kernel path differs "
+                                  f"from the plain path ({same})")
+        for name, n in expected.items():
+            check(launches[name] == n, f"sparse_main_path {tag}: {launches[name]} "
+                                       f"{name} launches, expected {n}")
+        # the dense elastic runner on the densified schedule, same run
+        dr = FederatedRunner.from_strategy(prob.loss, strategy, data, K, eta)
+        dr.run(x0, x0, 1, schedule=dense_sched)  # warm-up
+        dr = FederatedRunner.from_strategy(prob.loss, strategy, data, K, eta)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xd, yd = dr.run(x0, x0, rounds, schedule=dense_sched)
+        torch.cuda.synchronize()
+        dense_wall = time.perf_counter() - t0
+        close = dense_close(torch, xk, xd) and dense_close(torch, yk, yd)
+        rel = max(float((xk - xd).abs().max() / xd.abs().max()),
+                  float((yk - yd).abs().max() / yd.abs().max()))
+        check(close, f"sparse_main_path {tag}: {rel:.3e} off the dense elastic runner")
+        g0, g1 = gap(x0, x0), gap(xk, yk)
+        check(np.isfinite(g1) and g1 < g0, f"sparse_main_path {tag}: gap {g0:.3e} -> "
+                                           f"{g1:.3e}")
+        # host syncs of a round (sync debug mode), and one profiled round
+        syncs = count_syncs(torch, lambda: engine(strategy, wire).run(
+            x0, x0, sched, num_rounds=2))
+        init = engine(strategy, wire)
+        init_syncs = count_syncs(torch, lambda: init.run(x0, x0, sched, num_rounds=1))
+        x1, y1 = init.run(x0, x0, sched, num_rounds=1)
+        prof = profile_round(torch, lambda: init.run(
+            x1, y1, sched.tail(1), num_rounds=1, resume=True),
+            {"gt_update": "gt_update_kernel", "pack_payload": "pack_kernel",
+             "compress_correction": "compress_kernel"})
+        info = {"strategy": repr(strategy), "rounds": rounds, "K": K,
+                "ms_per_round": [h["seconds"] * 1e3 for h in ke.history],
+                "ms_per_round_wall": wall / rounds * 1e3,
+                "dense_elastic_ms_per_round": [h.seconds * 1e3 for h in dr.history],
+                "dense_elastic_ms_per_round_wall": dense_wall / rounds * 1e3,
+                "launches": launches,
+                "launches_per_round": {k: v / rounds for k, v in launches.items() if v},
+                "host_syncs_per_round": syncs - init_syncs,
+                "host_syncs_first_round_with_init": init_syncs,
+                "bitwise_kernels_vs_plain": same, "max_rel_err_vs_dense": rel,
+                "gap_first": g0, "gap_last": g1, "peak_bytes": peak,
+                "live_pods": [h["live_pods"] for h in ke.history],
+                "profile": prof, "card": card}
+        if wire:
+            info["pod_wire_bytes"] = [h["pod_wire_bytes"] for h in ke.history]
+            partials, packed = ke.last_pod_wire
+            unpacks = kernel_counts()["unpack_payload"]
+            back = fpods.decode_pod_partials(packed)
+            torch.cuda.synchronize()
+            info["pod_roundtrip"] = {
+                "bitwise": all(torch.equal(a, b) for a, b in zip(partials, back)),
+                "unpack_payload_launches": kernel_counts()["unpack_payload"] - unpacks}
+            check(info["pod_roundtrip"]["bitwise"],
+                  f"sparse_main_path {tag}: pod partials do not round-trip")
+        out[tag] = info
+    return out
+
+
 # ----------------------------------------- the rest of the paper's claims
 def robust_rel_err(np, got, want) -> float:
     """Largest ||got - want|| / ||want|| over the rows (iterates); a zero
@@ -2359,6 +2721,13 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
         entry["elastic_main_path_launches"] = {
             tag: shared["elastic"][tag]["launches"][entry["name"]]
             for tag in ("gt_rebase", "compressed_wire") if tag in shared.get("elastic", {})}
+        entry["sparse_main_path_launches"] = {
+            tag: shared["sparse"][tag]["launches"][entry["name"]]
+            for tag in ("gt_wire_pods", "compressed_topk")
+            if tag in shared.get("sparse", {})}
+        entry["sparse_claims_launches"] = {
+            run: counts[entry["name"]]
+            for run, counts in shared.get("sparse_claims", {}).items()}
         claims = shared.get("elastic_claims", {})
         entry["elastic_claims_launches"] = {
             **{f"flaky_{row}": run["launches"][entry["name"]]
@@ -2475,6 +2844,9 @@ def main() -> int:
     claims = run("elastic_claims", lambda: phase_elastic_claims(torch, np))
     if claims is not None:
         shared["elastic_claims"] = claims["runs"]
+    sparse = run("sparse_claims", lambda: phase_sparse_claims(torch, np))
+    if sparse is not None:
+        shared["sparse_claims"] = sparse["launches"]
     run("gt_update", lambda: phase_gt_update(torch, card, cases))
     run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
@@ -2499,6 +2871,10 @@ def main() -> int:
             torch, np, card, shared, rounds=10))
         if elastic is not None:
             shared["elastic"] = elastic
+        sparse = run("sparse_main_path", lambda: phase_sparse_main_path(
+            torch, np, card, shared, rounds=10))
+        if sparse is not None:
+            shared["sparse"] = sparse
         for key in ("problem", "data", "round", "compressed_round"):  # G: 2.1 GB
             shared.pop(key, None)
     run("robust_main_path", lambda: phase_robust_main_path(

@@ -145,6 +145,28 @@ def elastic_state_from_numpy(state: dict, device: DeviceLike = None) -> dict:
     }
 
 
+def sparse_tracker_from_numpy(tracker: dict, device: DeviceLike = None):
+    """A sparse run's tracker of the JAX package (`sim.sparse.SparseTracker`
+    as numpy: `{"m", "sum_gx", "sum_gy", "x0", "y0", "ids", "rows_gx",
+    "rows_gy"}`, the touched ids in slot order and their rows as trees of
+    [touched, ...] arrays) as the port's `sim.SparseTracker`, its sums and
+    anchor on `device` (default CUDA), its rows on the host.  With the
+    strategy state (`strategy_state_from_numpy`) and the last round's ids,
+    `SparseElasticEngine.resume_from` then continues a JAX run on
+    `schedule.tail(t)`."""
+    from .sim.sparse import SparseTracker
+
+    device = resolve_device(device)
+    out = SparseTracker(int(tracker["m"]),
+                        *(tree_from_numpy(tracker[k], device)
+                          for k in ("sum_gx", "sum_gy", "x0", "y0")))
+    ids = np.asarray(tracker["ids"], np.int64)
+    if len(ids):
+        rows = [tree_from_numpy(tracker[k], "cpu") for k in ("rows_gx", "rows_gy")]
+        out.commit(ids, *rows, out.sum_gx, out.sum_gy)
+    return out
+
+
 def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
                             dtype: Optional[torch.dtype] = None):
     """The JAX package's model parameters (`jax.tree.map(np.asarray,

@@ -48,8 +48,15 @@ fused anchor step only where the budget is >= 1; momentum gates iterates
 and velocities alike), through `agent_where`.  Without budgets the round
 has no gating op at all.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP queue
-item): the sparse / pod layouts, and `constrain_agents` (SPMD sharding).
+Sparse rounds (`sim.sparse.SparseElasticEngine`): the rows are an active
+subset of the registry, `broadcast(..., active_indices=ids)` carries their
+global ids, and a noisy strategy folds those ids into the round's noise
+keys (`sample_noise_keys_ids`), so an agent draws the same stream in either
+layout.  The two-level aggregate (`pod_weighted_sums` -> `pods_total`)
+sums agents into their pods, then pods at the server.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP queue item):
+`constrain_agents` (SPMD sharding).
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, not_ported
+from ..device import DeviceLike, host_to_device, not_ported
 from .types import (
     LossFn,
     ProjFn,
@@ -134,15 +141,6 @@ def tracking_corrections(
     return tree_map(corr, gbar_x, gx), tree_map(corr, gbar_y, gy)
 
 
-def _not_ported_fn(name: str, item: str) -> Callable:
-    def fn(*args, **kwargs):
-        raise not_ported(f"engine.{name}", item)
-
-    fn.__name__ = name
-    fn.__doc__ = f"Not ported yet (ROADMAP {item})."
-    return fn
-
-
 def agent_where(mask, a: Pytree, b: Pytree) -> Pytree:
     """Per-agent select: leaves of `a` where the [m] mask holds, else
     `b`'s (the membership / budget gate of the elastic schedules; the mask
@@ -154,8 +152,48 @@ def agent_where(mask, a: Pytree, b: Pytree) -> Pytree:
     )
 
 
-pod_weighted_sums = _not_ported_fn("pod_weighted_sums", "Queue 1 item 9")
-pods_total = _not_ported_fn("pods_total", "Queue 1 item 9")
+def pod_weighted_sums(tree: Pytree, weights, pod_ids, num_pods: int) -> Pytree:
+    """Level one of the agent -> pod -> server aggregation tree: each pod's
+    partial weighted sum of its agents' rows (`pod_ids`: [n] pod of each
+    row, any order, e.g. `sim.PodMap.pod_of` of the active ids).  Leaves
+    gain a leading [num_pods] axis; quiet pods are exact zero rows.
+
+    The segment sum is deterministic on every device: rows are placed, in
+    their order, into a zero-padded [num_pods, most rows in a pod, ...]
+    buffer (one index_put with distinct targets, no atomics) and summed
+    over the padding axis, so the same round gives the same bits and a
+    NaN row stays in its own pod (the reference's `segment_sum`; a one-hot
+    matmul would carry 0 * NaN into every pod)."""
+    # the layout on the host: row i goes to (pod_ids[i], its rank in pod)
+    ids = (pod_ids if torch.is_tensor(pod_ids)
+           else torch.as_tensor(np.asarray(pod_ids))).to("cpu", torch.int64)
+    n = ids.shape[0]
+    if n and not (0 <= int(ids.min()) and int(ids.max()) < num_pods):
+        raise ValueError(f"pod ids must lie in [0, {num_pods})")
+    order = torch.argsort(ids, stable=True)
+    counts = torch.bincount(ids, minlength=num_pods)
+    slot = torch.empty_like(ids)
+    slot[order] = torch.arange(n) - (torch.cumsum(counts, 0) - counts)[ids[order]]
+    width = max(1, int(counts.max()) if n else 0)
+    places = {}
+
+    def seg(u):
+        dev = u.device
+        if dev not in places:
+            places[dev] = (host_to_device(ids, dev), host_to_device(slot, dev))
+        uw = u * weights.to(u.dtype).reshape((-1,) + (1,) * (u.dim() - 1))
+        buf = torch.zeros((num_pods, width) + tuple(u.shape[1:]), dtype=u.dtype,
+                          device=dev)
+        buf[places[dev]] = uw
+        return torch.sum(buf, dim=1)
+
+    return tree_map(seg, tree)
+
+
+def pods_total(pod_tree: Pytree) -> Pytree:
+    """Level two: the server's sum over the pod axis of the partial
+    aggregates (quiet pods add exact zeros)."""
+    return tree_map(lambda u: torch.sum(u, dim=0), pod_tree)
 
 
 def fixed_size_mask(key: torch.Tensor, m: int, size: int,
@@ -255,13 +293,14 @@ class RoundState:
     step_budgets: Optional[torch.Tensor] = None  # [m] local-step caps (None=K)
     active: Optional[torch.Tensor] = None        # [m] availability mask
     fused: bool = False            # anchor shortcut applies
+    active_indices: Optional[np.ndarray] = None  # global ids of sparse rows
 
 
 class RoundPhases(NamedTuple):
     """The four phase functions for one strategy (see module docstring).
 
     broadcast(x, y, agent_data, state, *, weights=..., step_budgets=None,
-              active=None, noise_keys=...) -> RoundState
+              active=None, noise_keys=..., active_indices=None) -> RoundState
     exchange_corrections(rs, agent_data) -> RoundState
     local_steps(rs, agent_data) -> RoundState
     aggregate(rs) -> (x1, y1, state)"""
@@ -274,11 +313,6 @@ class RoundPhases(NamedTuple):
 
 def _num_agents(agent_data: Pytree) -> int:
     return tree_leaves(agent_data)[0].shape[0]
-
-
-def _reject_sparse(active_indices):
-    if active_indices is not None:
-        raise not_ported("the sparse O(active) layout", "Queue 1 item 9")
 
 
 def _step_gates(budgets, num_local_steps: int):
@@ -342,9 +376,9 @@ def make_phases(
             # FullSync is a deterministic baseline: noise_keys accepted for
             # signature uniformity, never consumed
             del agent_data, step_budgets, noise_keys
-            _reject_sparse(active_indices)
             w = None if weights is _UNSET else weights
-            return RoundState(x=x, y=y, state=state, weights=w, active=active)
+            return RoundState(x=x, y=y, state=state, weights=w, active=active,
+                              active_indices=active_indices)
 
         def exchange_corrections(rs, agent_data):
             del agent_data
@@ -398,14 +432,19 @@ def make_phases(
     def broadcast(x, y, agent_data, state, *, weights=_UNSET,
                   step_budgets=None, active=None, noise_keys=_UNSET,
                   active_indices=None):
-        _reject_sparse(active_indices)
         m = _num_agents(agent_data)
         if weights is _UNSET:
             weights, state = strategy.sample_weights(state, m)
         chain = None
         if noise_keys is _UNSET:
             noise_keys = None
-            if noise is not None:
+            if noise is not None and active_indices is not None:
+                # sparse rows: fold the global ids, so each agent draws
+                # the stream it would draw in the dense [m] layout (the
+                # next rounds' ids are unknown here: no draw ahead)
+                noise_keys, state = strategy.sample_noise_keys_ids(
+                    state, active_indices)
+            elif noise is not None:
                 noise_keys, state = strategy.sample_noise_keys(state, m)
                 chain = state
         if weights is not None:
@@ -418,7 +457,8 @@ def make_phases(
             draws = round_draws(noise_keys, chain, xs, ys, agent_data)
         return RoundState(x=x, y=y, state=state, xs=xs, ys=ys, weights=weights,
                           noise_keys=noise_keys, noise_draws=draws,
-                          step_budgets=step_budgets, active=active)
+                          step_budgets=step_budgets, active=active,
+                          active_indices=active_indices)
 
     def exchange_corrections(rs, agent_data):
         if not use_corr:

@@ -29,3 +29,14 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP {item})"
     )
+
+
+def host_to_device(t, device: DeviceLike) -> torch.Tensor:
+    """A host array or CPU tensor on `device`: to a card through pinned
+    memory and a non-blocking copy, so the host does not wait for the
+    device's queue (a pageable copy synchronizes the stream)."""
+    t = torch.as_tensor(t)
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -1,7 +1,8 @@
 """Federated layer of the port: the synchronous runner, communication
 strategies (deterministic, client sampling, compressed, stochastic), noise
-models, communication accounting and the packed wire transport (the
-asynchronous runtime is ROADMAP Queue 1 item 10)."""
+models, communication accounting, the packed wire transport and the pod
+tier's payloads (`fed.pods`; the asynchronous runtime is ROADMAP Queue 1
+item 10)."""
 from .comm import comm_table
 from .noise import (
     GaussianNoise,

@@ -18,7 +18,8 @@ corrections, budget-gated local steps, EF re-anchoring through the
 strategy's `rebase_state`; `rebase=False` is the naive-server ablation).  A
 static-full schedule takes the plain loop, so full participation equals
 running without a schedule bit for bit; a `SparseRoundSchedule` is
-densified up to `sim.sparse.DENSE_FALLBACK_MAX_M` agents.
+densified up to `sim.sparse.DENSE_FALLBACK_MAX_M` agents (beyond, its
+O(active) runs belong to `sim.SparseElasticEngine`).
 
 The reference jits each round into one XLA program; here the round runs
 eagerly, as every round of the port does, its local updates through the
@@ -27,9 +28,8 @@ floats, so a run with a `metric_fn` syncs with the device once a round,
 as the reference does; an elastic round adds no other sync (its active
 set, budgets and weights reach the card as one non-blocking copy).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP queue
-item): the telemetry sink and its phase spans (`telemetry=`, item 11),
-and the pods argument of `wire_report` (item 9).
+Not ported yet (raises NotImplementedError naming its ROADMAP queue
+item): the telemetry sink and its phase spans (`telemetry=`, item 11).
 """
 from __future__ import annotations
 
@@ -92,11 +92,10 @@ class RunnerHistoryMixin:
         With a schedule (passed, or remembered from the last `run(...,
         schedule=...)`) that is not static-full, the report adds the
         active-set account of `sim.schedule_bytes`: the per-active-agent
-        payload (`sim.per_agent_bytes`) and the scheduled totals."""
+        payload (`sim.per_agent_bytes`) and the scheduled totals; with a
+        `pods` `sim.PodMap` those totals add the live pods' edge."""
         if self._strategy is None:
             raise ValueError("wire_report needs a runner built from_strategy")
-        if pods is not None:
-            raise not_ported("the pod wire report", "Queue 1 item 9")
         from .transport import measured_bytes_per_round
 
         report = {
@@ -112,7 +111,8 @@ class RunnerHistoryMixin:
         if schedule is not None and not getattr(schedule, "is_static_full", False):
             from ..sim.elastic import per_agent_bytes, schedule_bytes
 
-            totals = schedule_bytes(self._strategy, x, y, num_local_steps, schedule)
+            totals = schedule_bytes(self._strategy, x, y, num_local_steps,
+                                    schedule, pods=pods)
             report["scheduled_per_agent_bytes"] = per_agent_bytes(
                 self._strategy, x, y, num_local_steps)
             report["scheduled_total_bytes"] = int(np.sum(totals))
@@ -296,8 +296,8 @@ class FederatedRunner(RunnerHistoryMixin):
             if schedule.m > DENSE_FALLBACK_MAX_M:
                 raise ValueError(
                     f"sparse schedule over m={schedule.m} agents is too large "
-                    f"to densify (> {DENSE_FALLBACK_MAX_M}); the O(active) "
-                    "engine is ROADMAP Queue 1 item 9")
+                    f"to densify (> {DENSE_FALLBACK_MAX_M}); use "
+                    "sim.SparseElasticEngine for O(active) runs")
             schedule = schedule.densify()
         if schedule is not None and schedule.is_static_full:
             # all agents, full budgets, every round: the plain loop below

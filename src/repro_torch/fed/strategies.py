@@ -28,29 +28,32 @@ local drift is corrected; `core.engine.make_round` reads only these hooks:
                      cx / cy may come back as `transport.PackedTree` wire
                      payloads (objects with a `.decode()` hook) instead of
                      dense trees; the engine decodes before use
+  sample_noise_keys_ids(state, ids) -> (keys | None, state)
+                     the same, folding the given global agent ids (the
+                     sparse layout's rows)
   rebase_state(state, active, prev_active) -> state
                      re-anchor membership-dependent state when an elastic
                      schedule changes the active set (`sim.elastic`)
+  realign_state_rows(state, prev_ids, ids) -> state
+                     the sparse layout's rebase: re-gather the per-agent
+                     rows from the previous round's ids to this round's
   sharded_state_keys state entries with a leading per-agent axis
   bytes_per_round(x, y, K)  analytic star-topology payload per agent
                      (`transport.measured_bytes_per_round` measures the
                      packed buffers)
-
-Not ported (each raises NotImplementedError naming its ROADMAP queue
-item): `realign_state_rows` and `sample_noise_keys_ids` of the sparse
-layout (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import prng
 from ..core.engine import agent_where, fixed_size_mask, renormalized_weights
 from ..core.types import Pytree, tree_flatten, tree_leaves, tree_map
-from ..device import not_ported
+from ..device import host_to_device
 from ..kernels.compress_correction import compress_leaf
 from .noise import noise_key as _noise_stream_key
 from .noise import resolve_noise
@@ -123,8 +126,17 @@ class CommStrategy:
         return prng.fold_in(sub, list(range(m))), state
 
     def sample_noise_keys_ids(self, state: State, ids):
-        raise not_ported("noise keys of the sparse O(active) layout",
-                         "Queue 1 item 9")
+        """`sample_noise_keys` for the sparse layout: the same one split of
+        the stream a round, folding the given global agent ids (uint32
+        words, as JAX folds them) instead of 0 .. m-1, so an agent draws
+        the same keys whether its row sits at position `id` of an [m]
+        stack or anywhere in an active subset."""
+        if self.noise is None:
+            return None, state
+        state = dict(state)
+        key, sub = prng.split(state["noise_key"])
+        state["noise_key"] = key
+        return prng.fold_in(sub, np.asarray(ids, np.int64)), state
 
     @property
     def sharded_state_keys(self) -> Tuple[str, ...]:
@@ -147,6 +159,42 @@ class CommStrategy:
         state that can go stale (corrections are re-formed from the
         current server iterate every round), so this is a no-op."""
         del active, prev_active
+        return state
+
+    def realign_state_rows(self, state: State, prev_ids, ids) -> State:
+        """`rebase_state` for the sparse layout, where the per-agent state
+        entries (`sharded_state_keys`) carry one row per ACTIVE agent: rows
+        are re-gathered from last round's id layout into this round's.  A
+        continuing agent (in both sorted id lists) keeps its row, every
+        other row restarts at zero (the dense rule keep = active &
+        prev_active over id lists); `prev_ids` None zeroes everything, as
+        `init_state`'s buffers are."""
+        keys = [k for k in self.sharded_state_keys if k in state]
+        if not keys:
+            return state
+        ids = np.asarray(ids)
+        state = dict(state)
+        if prev_ids is None or len(np.asarray(prev_ids)) == 0:
+            pos = np.full(len(ids), -1, np.int64)
+        else:
+            prev_ids = np.asarray(prev_ids)
+            # each current id's position in the previous (sorted) layout;
+            # -1 where it did not take part last round
+            idx = np.clip(np.searchsorted(prev_ids, ids), 0, len(prev_ids) - 1)
+            pos = np.where(prev_ids[idx] == ids, idx, -1)
+        places = {}
+
+        def leaf(u):
+            if u.device not in places:
+                places[u.device] = (host_to_device(np.maximum(pos, 0), u.device),
+                                    host_to_device(pos >= 0, u.device))
+            take, keep = places[u.device]
+            rows = u[take]
+            mask = keep.reshape((-1,) + (1,) * (rows.dim() - 1))
+            return torch.where(mask, rows, torch.zeros_like(rows))
+
+        for k in keys:
+            state[k] = tree_map(leaf, state[k])
         return state
 
     def bytes_per_round(self, x: Pytree, y: Pytree, num_local_steps: int) -> int:
@@ -262,10 +310,7 @@ class _CorrectionCompressor(CommStrategy):
     any device (the card's kernel-against-plain check).  The reference's
     `kernel_interpret` (TPU interpret mode) has no counterpart.  With
     `wire_transport`, `transform_correction` returns `PackedTree`s, real
-    packed payloads; wire on and off give the same iterates bit for bit.
-
-    Not ported: `realign_state_rows` of the sparse layout (ROADMAP Queue 1
-    item 9)."""
+    packed payloads; wire on and off give the same iterates bit for bit."""
 
     use_kernel: bool = True       # the CUDA kernels (plain versions on CPU)
     wire_transport: bool = False  # emit packed payloads, not dense trees
@@ -429,10 +474,6 @@ class _CorrectionCompressor(CommStrategy):
         state["ex"] = zero_stale(state["ex"])
         state["ey"] = zero_stale(state["ey"])
         return state
-
-    def realign_state_rows(self, state, prev_ids, ids):
-        raise not_ported("sparse-layout re-anchoring (realign_state_rows)",
-                         "Queue 1 item 9")
 
 
 @dataclasses.dataclass(frozen=True)

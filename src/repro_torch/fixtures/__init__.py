@@ -65,6 +65,23 @@ eps is never reached; `table_keys` "scenario/row").
 
 `tests/test_torch_fixtures.py` rebuilds the five files from the JAX
 package; run that file as a script to rewrite them.
+
+`sparse_rounds.npz` holds the O(active) engine's runs
+(`tests/test_sparse_elastic.py`'s sizes, `SPARSE`: the quadratic d=16, 40
+samples, m=8 from PRNGKey(0) (`G`, `Ab`), 4 active a round, uniform
+stragglers (0.5, 0.4), K=5 (K=1 for FullSync), eta=1e-4, T=6, seed 0,
+x0 = y0 = 0): the schedule's ids (`m8_ids` [T, 4]) and budgets
+(`m8_budgets_k1`, `m8_budgets_k5`), JAX's final x and y of each family of
+`SPARSE_FAMILIES` forced sparse (`sparse_<family>_x` / `_y`) and through
+the dense fallback (`dense_<family>_x` / `_y`), and of FedGDA-GT over 4
+pods with `wire_pods` (`pods_x` / `_y`, per round `pods_live_pods` and
+`pods_pod_wire_bytes`).  It also holds the mega preset's engine run of
+`benchmarks/elastic.py` (`MEGA`: m = 1e6, 256 active, 1024 pods, dim 8,
+8 samples synthesized per id from PRNGKey(7), K=10, eta=1e-4, T=4, seed
+0) and of its 1e4 reference registry (prefixes `mega_` and `ref_`): each
+round's ids and budgets, live pods, pod wire bytes and tracker touched
+count, and the final x and y.  `tests/test_torch_sparse_fixture.py`
+rebuilds it (run as a script to rewrite it).
 """
 from __future__ import annotations
 
@@ -78,6 +95,7 @@ COMPRESSED_ROUNDS = Path(__file__).resolve().parent / "compressed_rounds.npz"
 ROBUST_AGNOSTIC = Path(__file__).resolve().parent / "robust_agnostic.npz"
 STOCHASTIC_ROUNDS = Path(__file__).resolve().parent / "stochastic_rounds.npz"
 ELASTIC_ROUNDS = Path(__file__).resolve().parent / "elastic_rounds.npz"
+SPARSE_ROUNDS = Path(__file__).resolve().parent / "sparse_rounds.npz"
 
 #: run name -> (`resolve_strategy` name, kwargs); the same names and
 #: kwargs build the strategy in the JAX package and in the port
@@ -436,3 +454,58 @@ def elastic_run_gaps(row: str, schedule, device=None,
     runner.run(x0, x0, len(schedule) if rounds is None else rounds,
                schedule=schedule, rebase=rebase)
     return runner.metric_series("gap")
+
+
+#: (dim, num_samples, num_agents, active, K, eta, rounds, seed) of the
+#: sparse engine's m=8 runs (tests/test_sparse_elastic.py)
+SPARSE = (16, 40, 8, 4, 5, 1e-4, 6, 0)
+#: the six families: name -> (strategy name, kwargs, K), the same on both
+#: sides
+SPARSE_FAMILIES = {
+    "full_sync": ("full_sync", {}, 1),
+    "local_only": ("local_sgda", {}, 5),
+    "gradient_tracking": ("fedgda_gt", {}, 5),
+    "partial_participation": ("partial_gt", {"participation": 0.5, "seed": 0}, 5),
+    "compressed_gt": ("compressed_gt", {"compression_ratio": 0.25, "seed": 0}, 5),
+    "quantized_gt": ("quantized_gt", {"quantization_bits": 8, "seed": 0}, 5),
+}
+SPARSE_PODS = 4
+#: (m, active, pods, T) of the mega preset's engine run and its reference
+MEGA = {"mega": (1_000_000, 256, 1024, 4), "ref": (10_000, 256, 1024, 4)}
+MEGA_COUNTS = ("live_pods", "pod_wire_bytes", "tracker_touched")
+
+
+def sparse_rounds_keys() -> list:
+    """The arrays `sparse_rounds.npz` holds, sorted."""
+    keys = ["G", "Ab", "m8_ids", "m8_budgets_k1", "m8_budgets_k5", "pods_x",
+            "pods_y", "pods_live_pods", "pods_pod_wire_bytes"]
+    keys += [f"{path}_{f}_{v}" for path in ("sparse", "dense")
+             for f in SPARSE_FAMILIES for v in ("x", "y")]
+    keys += [f"{run}_{what}" for run in MEGA
+             for what in ("ids", "budgets", "x", "y") + MEGA_COUNTS]
+    return sorted(keys)
+
+
+def load_sparse_rounds() -> Dict[str, np.ndarray]:
+    with np.load(SPARSE_ROUNDS) as f:
+        return {k: f[k] for k in f.files}
+
+
+def sparse_problem(device=None):
+    """The m=8 quadratic of the sparse runs as JAX draws it from
+    PRNGKey(0), as the port's `MinimaxProblem` on `device` (default
+    CUDA)."""
+    from ..convert import problem_from_numpy
+
+    fix = load_sparse_rounds()
+    return problem_from_numpy("quadratic", {"G": fix["G"], "Ab": fix["Ab"]}, device)
+
+
+def sparse_population(pods: int = 0):
+    """The m=8 population of the sparse runs (4 active a round, uniform
+    stragglers 0.5 / 0.4), flat or over `pods` pods."""
+    from ..sim import Population, UniformActiveSubset, UniformStragglers
+
+    _, _, m, active, _, _, _, _ = SPARSE
+    return Population(m, UniformActiveSubset(size=active),
+                      UniformStragglers(p_straggle=0.5, min_frac=0.4), pods=pods)

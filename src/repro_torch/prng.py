@@ -50,7 +50,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .device import DeviceLike, not_ported, resolve_device
+from .device import DeviceLike, host_to_device, not_ported, resolve_device
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -153,11 +153,7 @@ def _device_words(key: torch.Tensor, device: torch.device):
     """The words of a [B..., 2] key batch as [B, 1] int64 tensors on
     `device`: one host-to-device copy, from pinned memory so it does not
     wait for the device's queue."""
-    w = key.reshape(-1, 2) & MASK32
-    if device.type == "cuda":
-        w = w.pin_memory().to(device, non_blocking=True)
-    else:
-        w = w.to(device)
+    w = host_to_device(key.reshape(-1, 2) & MASK32, device)
     return w[:, 0:1], w[:, 1:2]
 
 

@@ -11,8 +11,10 @@ of `repro.sim`, the same exported names).
   elastic     `ElasticAggregator` (re-normalized weights, tracker / EF
               rebase) and `make_elastic_round` (the membership-aware round
               over the engine's phases and the port's kernels)
-  sparse      `DENSE_FALLBACK_MAX_M`; the O(active) engine is ROADMAP
-              Queue 1 item 9
+  sparse      `SparseElasticEngine`: the O(active) driver (running-sum
+              `SparseTracker`, per-id data sources, EF row realignment,
+              the two-level pod tree), densifying up to
+              `DENSE_FALLBACK_MAX_M` agents
   scenarios   named presets: stable / flaky / diurnal / straggler_heavy /
               mega
 """

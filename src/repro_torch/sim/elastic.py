@@ -59,7 +59,7 @@ from ..core.types import (
     tree_leaves,
     vmap_grad_xy,
 )
-from ..device import DeviceLike, not_ported, resolve_device
+from ..device import DeviceLike, host_to_device, resolve_device
 
 
 def init_tracker(loss: LossFn, strategy, x: Pytree, y: Pytree,
@@ -138,11 +138,7 @@ class ElasticAggregator:
         buf[:8 * m].view(np.float64)[:] = w
         buf[8 * m:16 * m].view(np.int64)[:] = budgets
         buf[16 * m:] = active
-        t = torch.from_numpy(buf)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
+        t = host_to_device(buf, device)
         return (t[:8 * m].view(torch.float64), t[8 * m:16 * m].view(torch.int64),
                 t[16 * m:].view(torch.bool))
 
@@ -253,11 +249,23 @@ def schedule_bytes(strategy, x: Pytree, y: Pytree, num_local_steps: int,
     """Per-round total wire bytes of a run under `schedule`: the per-agent
     payload (`per_agent_bytes`) times the round's active count (departed
     agents move nothing), streamed over the events, so dense, chunked and
-    sparse schedules price alike.  The pod tree's edge (`pods=`) is ROADMAP
-    Queue 1 item 9."""
-    if pods is not None:
-        raise not_ported("schedule_bytes over the pod tree (pods=)",
-                         "Queue 1 item 9")
+    sparse schedules price alike.
+
+    With a `pods` `sim.PodMap` the two-level tree adds the pod edge: each
+    LIVE pod (>= 1 active agent) moves one partial payload up and one
+    broadcast down a round (`fed.pods.pod_payload_bytes`), and the
+    per-agent payloads become agent <-> pod traffic."""
     per_agent = per_agent_bytes(strategy, x, y, num_local_steps,
                                 measured=measured)
-    return [per_agent * ev.num_active for ev in schedule]
+    per_pod = 0
+    if pods is not None:
+        from ..fed.pods import pod_payload_bytes
+
+        per_pod = pod_payload_bytes(x, y, measured=measured)
+    totals = []
+    for ev in schedule:
+        total = per_agent * ev.num_active
+        if pods is not None:
+            total += per_pod * len(pods.live_pods(ev.active_ids))
+        totals.append(total)
+    return totals

@@ -328,8 +328,8 @@ class DeterministicLag(StragglerModel):
 class PodMap:
     """Contiguous partition of the m agents into `num_pods` pods: agent i
     belongs to pod i // pod_size, the last pod may be short.  Pure
-    arithmetic, no [m] table.  (The pod aggregation tree that reads it is
-    ROADMAP Queue 1 item 9.)"""
+    arithmetic, no [m] table; the sparse engine's two-level aggregate
+    (`core.engine.pod_weighted_sums`) reads it."""
 
     m: int
     num_pods: int

@@ -12,8 +12,8 @@
   mega             m = 1e6 registered agents, a uniform 256-agent active
                    subset a round (`UniformActiveSubset`: only
                    `sparse_schedule` applies), light stragglers, 1024 pods.
-                   The m argument is ignored.  Its schedule works; the
-                   O(active) engine that runs it is ROADMAP Queue 1 item 9
+                   The m argument is ignored; `SparseElasticEngine`
+                   runs it (`benchmarks.elastic --population mega`)
 """
 from __future__ import annotations
 

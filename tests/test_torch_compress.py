@@ -155,8 +155,14 @@ def test_knob_validation_and_aliases():
     # the elastic hook (sim): all agents continuing keeps every EF row
     kept = s.rebase_state(st, torch.ones(4, dtype=torch.bool))
     assert torch.equal(kept["ex"], st["ex"]) and torch.equal(kept["ey"], st["ey"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        s.realign_state_rows(st, None, [0, 1])
+    # the sparse layout's hook: no previous ids zeroes every row; rows of
+    # continuing ids are carried across layouts
+    fresh = s.realign_state_rows(st, None, [0, 1])
+    assert torch.equal(fresh["ex"], torch.zeros(2, 3))
+    st["ex"] = torch.arange(12.0).reshape(4, 3)
+    moved = s.realign_state_rows(st, [1, 4, 6, 9], [4, 5, 9])
+    assert torch.equal(moved["ex"], torch.stack([st["ex"][1], torch.zeros(3),
+                                                 st["ex"][3]]))
 
 
 def test_topk_keeps_largest_and_feedback_stores_rest():

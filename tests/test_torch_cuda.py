@@ -609,6 +609,148 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     assert p[4] == (0, 0, 0, 0)
 
 
+# ------------------------------------------- sparse engine and pod tree
+def test_cuda_pod_segment_sum_is_deterministic_and_confines_nan(cuda_device):
+    """The pod tree's segment sum on the card: the same call twice gives
+    the same bits, pods in any order and quiet pods (exact zeros), a NaN
+    row reaches its own pod only, and the finite pods agree with the
+    CPU's within 1e-12."""
+    from repro_torch.core import engine
+
+    gen = torch.Generator().manual_seed(11)
+    n, P = 64, 9
+    u = torch.randn(n, 4096, dtype=torch.float64, generator=gen)
+    w = torch.rand(n, dtype=torch.float64, generator=gen)
+    pod_ids = torch.randint(0, P - 2, (n,), generator=gen)  # pods 7, 8 quiet
+    u[5, 17] = float("nan")
+    nan_pod = int(pod_ids[5])
+    ud, wd = u.to(cuda_device), w.to(cuda_device)
+    a = engine.pod_weighted_sums(ud, wd, pod_ids, P)
+    b = engine.pod_weighted_sums(ud, wd, pod_ids.numpy(), P)
+    torch.cuda.synchronize()
+    assert torch.equal(a.isnan(), b.isnan())
+    assert torch.equal(torch.nan_to_num(a).view(torch.int64),
+                       torch.nan_to_num(b).view(torch.int64))
+    assert a.isnan().any(dim=1).cpu().tolist() == [p == nan_pod for p in range(P)]
+    assert torch.equal(a[P - 2:], torch.zeros_like(a[P - 2:]))
+    cpu = engine.pod_weighted_sums(u, w, pod_ids, P)
+    keep = [p for p in range(P) if p != nan_pod]
+    torch.testing.assert_close(a[keep].cpu(), cpu[keep], rtol=1e-12, atol=1e-12)
+
+
+def _sparse_setup(cuda_device, m=16, d=256, pods=4, rounds=5, K=4):
+    from repro_torch import sim
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    prob = make_quadratic_problem(gen, dim=d, num_samples=512, num_agents=m,
+                                  device=cuda_device)
+    pop = sim.Population(m, sim.UniformActiveSubset(size=m // 2),
+                         sim.UniformStragglers(0.3, 0.5), pods=pods)
+    return prob, pop, pop.sparse_schedule(0, rounds, K, device=cuda_device)
+
+
+@pytest.mark.parametrize("tag", ["gt_wire_pods", "cgt_wire", "qgt_dense"])
+def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
+    """The O(active) engine (forced sparse, 8 of 16 active, 4 pods): x, y,
+    strategy state and the tracker's sums and rows through the kernels
+    equal the plain path's bit for bit; gt_update launches (K - 1) x 2 a
+    round with the fused anchor step (K x 2 without), the compressors' and
+    the pod partials' kernels 2 a round."""
+    import dataclasses
+
+    from repro_torch import sim
+
+    rounds, K = 5, 4
+    prob, pop, sched = _sparse_setup(cuda_device, rounds=rounds, K=K)
+    strategy, wire_pods, launches = {
+        "gt_wire_pods": (GradientTracking(), True, (2 * (K - 1), 0, 2, 0)),
+        "cgt_wire": (CompressedGT(compression_ratio=0.1, wire_transport=True), False,
+                     (2 * K, 0, 2, 2)),
+        "qgt_dense": (QuantizedGT(bits=8, ratio=0.25), False, (2 * K, 2, 0, 0)),
+    }[tag]
+    plain = (dataclasses.replace(strategy, use_kernel=False)
+             if hasattr(strategy, "use_kernel") else strategy)
+    out = {}
+    for name, s, kw in (("kernels", strategy, {}),
+                        ("plain", plain, {"update_fn": core.default_update,
+                                          "use_kernel": False})):
+        eng = sim.SparseElasticEngine(
+            prob.loss, s, sim.ArrayDataSource(prob.agent_data), K, 1e-4,
+            pod_map=pop.pod_map(), wire_pods=wire_pods, dense_fallback_max_m=0, **kw)
+        x0 = torch.zeros(prob.agent_data["Ab"].shape[1], dtype=torch.float64,
+                         device=cuda_device)
+        gt_update.launches = compress_correction_2d.launches = 0
+        pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        x, y = eng.run(x0, x0, sched)
+        torch.cuda.synchronize()
+        out[name] = (x, y, eng._state, eng._tracker,
+                     (gt_update.launches, compress_correction_2d.launches,
+                      pack_payload_2d.launches, unpack_payload_2d.launches))
+    k, p = out["kernels"], out["plain"]
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    for key in k[2]:
+        assert torch.equal(k[2][key].cpu(), p[2][key].cpu())
+    assert torch.equal(k[3].sum_gx, p[3].sum_gx) and torch.equal(k[3].sum_gy, p[3].sum_gy)
+    for a, b in zip(k[3]._gx_leaves, p[3]._gx_leaves):
+        assert (a[:k[3].num_touched] == b[:p[3].num_touched]).all()
+    assert k[4] == tuple(n * rounds for n in launches)
+    assert p[4] == (0, 0, 0, 0)
+
+
+def test_cuda_pod_partials_roundtrip_through_pack_and_unpack(cuda_device):
+    """Dense pod payloads: encode through `pack_payload` and decode through
+    `unpack_payload` give the partials back bit for bit, the packed
+    buffers equal the plain encoder's, one launch per leaf each way."""
+    from repro_torch.fed import pods
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    partials = (torch.randn(37, 4096, dtype=torch.float64, generator=gen,
+                            device=cuda_device),
+                {"a": torch.randn(37, 3, 5, generator=gen, device=cuda_device)})
+    pack_payload_2d.launches = unpack_payload_2d.launches = 0
+    packed = pods.encode_pod_partials(partials)
+    back = pods.decode_pod_partials(packed)
+    torch.cuda.synchronize()
+    assert (pack_payload_2d.launches, unpack_payload_2d.launches) == (2, 2)
+    assert torch.equal(back[0], partials[0]) and torch.equal(back[1]["a"],
+                                                             partials[1]["a"])
+    plain = pods.encode_pod_partials(partials, use_kernel=False)
+    for a, b in zip(packed.payloads, plain.payloads):
+        assert torch.equal(a.data, b.data)
+    assert packed.total_bytes() == plain.total_bytes() == (
+        37 * 4096 * 8 + 37 * 15 * 4 + 2 * 16)
+
+
+def test_cuda_mega_schedule_and_rounds_equal_the_fixture(cuda_device):
+    """The mega preset on the card (1e6 agents, 256 active, 1024 pods, the
+    tracker's init over every agent): its 4 rounds' ids and budgets equal
+    JAX's, and the engine's live pods, pod wire bytes and tracker counts;
+    x and y within 1e-9 of JAX's (synthesized normals within a few ulp)."""
+    from repro_torch.benchmarks import elastic as bench
+    from repro_torch.fixtures import MEGA, load_sparse_rounds
+
+    fix = load_sparse_rounds()
+    m, active, pods, rounds = MEGA["mega"]
+    run = bench._mega_engine_run(m, active, pods, rounds, device=cuda_device)
+    sched = run["engine"]  # the history carries the counts
+    assert [h["live_pods"] for h in sched.history] == fix["mega_live_pods"].tolist()
+    assert [h["pod_wire_bytes"] for h in sched.history] == \
+        fix["mega_pod_wire_bytes"].tolist()
+    assert run["tracker_touched"] == fix["mega_tracker_touched"].tolist()
+    from repro_torch import sim
+
+    pop = sim.Population(m, sim.UniformActiveSubset(size=active),
+                         sim.UniformStragglers(0.3, 0.5), pods=pods)
+    s = pop.sparse_schedule(bench.SEED, rounds, bench.K, device=cuda_device)
+    for t in range(rounds):
+        assert (s[t].active_ids == fix["mega_ids"][t]).all()
+        assert (s[t].budgets == fix["mega_budgets"][t]).all()
+    for v in ("x", "y"):
+        want = torch.from_numpy(fix[f"mega_{v}"])
+        err = float((run[v].cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-9, (v, err)
+
+
 # ------------------------------------------------------ model kernels
 #: flash attention's tolerance against its plain version: f32 sums in
 #: another order (rtol = atol); both compute a bf16 case in f32 and round

@@ -363,9 +363,15 @@ def test_partial_participation_bytes_not_double_discounted():
                             _zeros(), _zeros(), 3, sched)
     gt = sim.schedule_bytes(fed.GradientTracking(), _zeros(), _zeros(), 3, sched)
     assert pp == gt
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sim.schedule_bytes(fed.GradientTracking(), _zeros(), _zeros(), 3, sched,
-                           pods=sim.PodMap(4, 2))
+    # the pod edge (two live pods a round, each a partial up and a
+    # broadcast down) prices as JAX's
+    pods = sim.schedule_bytes(fed.GradientTracking(), _zeros(), _zeros(), 3, sched,
+                              pods=sim.PodMap(4, 2))
+    jx = jnp.zeros(16)
+    assert pods == jsim.schedule_bytes(
+        jfed.GradientTracking(), jx, jx, 3, jsim.make_population("stable", 4)
+        .schedule(0, 2, 3), pods=jsim.PodMap(4, 2))
+    assert pods == [g + 2 * 2 * (2 * (16 * 8 + 16)) for g in gt]
 
 
 def test_gradient_tracking_rebase_state_is_noop():

@@ -100,12 +100,16 @@ def test_table_bytes_and_participation_equal_jax(fix):
 
 def test_benchmark_check_gate_holds(monkeypatch, capsys):
     """`python -m repro_torch.benchmarks.elastic --check --device cpu`, at
-    150 rounds (the stable rows reach eps by round 142)."""
+    150 rounds (the stable rows reach eps by round 142); `--population
+    mega` and `--check-pods` at a registry of 2e4 (the 1e6 run is the
+    card's and the driver's own)."""
     monkeypatch.setattr(bench, "CHECK_ROUNDS", 150)
     assert bench.main(["--check", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("[ok]") == 4 and "(+0.00%)" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        bench.main(["--population", "mega", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        bench.main(["--check-pods", "--device", "cpu"])
+    monkeypatch.setattr(bench, "MEGA_AGENTS", 20_000)
+    assert bench.main(["--population", "mega", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "mega_1e6,20000,256,1024,4," in out and "ref_1e4,200,256,3,4," in out
+    assert bench.main(["--check-pods", "--device", "cpu"]) == 0
+    assert "[ok] elastic_pods" in capsys.readouterr().out

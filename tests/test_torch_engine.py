@@ -342,12 +342,17 @@ class TestStrategies:
     @pytest.mark.parametrize("name", ["partial_gt", "compressed_gt", "quantized_gt",
                                       "sagda", "local_sgda_plus"])
     def test_unported_names_raise_not_implemented(self, name):
-        # every name resolves now, noisy too; what stays unported of them
-        # is the sparse O(active) layout's noise keys (item 9)
+        # every name resolves, noisy too, and draws the sparse layout's
+        # noise keys as JAX's strategy does, bit for bit
         s = resolve_strategy(name, noise="gaussian")
+        js = jfed.resolve_strategy(name, noise="gaussian")
         st = s.init_state(torch.zeros(3), torch.zeros(3), 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-            s.sample_noise_keys_ids(st, [0, 2])
+        jst = js.init_state(jnp.zeros(3), jnp.zeros(3), 4)
+        keys, st = s.sample_noise_keys_ids(st, [0, 2])
+        jkeys, jst = js.sample_noise_keys_ids(jst, np.array([0, 2]))
+        assert np.array_equal(np.asarray(jkeys).astype(np.int64), keys.numpy())
+        assert np.array_equal(np.asarray(jst["noise_key"]).astype(np.int64),
+                              st["noise_key"].numpy())
 
     def test_unknown_name_and_noise(self):
         with pytest.raises(ValueError, match="unknown algorithm"):
@@ -433,9 +438,14 @@ class TestPackageRules:
         rs = ph.broadcast(x, x, tp.agent_data, {}, step_budgets=torch.ones(8),
                           active=torch.ones(8, dtype=torch.bool))
         assert rs.step_budgets is not None and rs.active is not None
-        for fn, item in [(engine.pod_weighted_sums, "item 9"),
-                         (engine.pods_total, "item 9")]:
-            with pytest.raises(NotImplementedError, match=item):
-                fn()
-        with pytest.raises(NotImplementedError, match="item 9"):
-            ph.broadcast(x, x, tp.agent_data, {}, active_indices=torch.arange(8))
+        # the pod tree and the sparse broadcast are ported (sim.sparse):
+        # two pods' partial sums add up to the flat weighted sum, and the
+        # broadcast carries the rows' global ids
+        u = torch.arange(24.0, dtype=torch.float64).reshape(8, 3)
+        w = torch.full((8,), 0.125, dtype=torch.float64)
+        parts = engine.pod_weighted_sums(u, w, np.arange(8) // 4, 2)
+        assert torch.equal(parts, torch.stack([w[:4] @ u[:4], w[4:] @ u[4:]]))
+        assert torch.equal(engine.pods_total(parts), parts[0] + parts[1])
+        ids = np.array([3, 5, 9, 11, 20, 21, 30, 40])
+        rs = ph.broadcast(x, x, tp.agent_data, {}, active_indices=ids)
+        assert rs.active_indices is ids and rs.noise_keys is None

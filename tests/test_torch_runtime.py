@@ -282,15 +282,29 @@ def test_unported_paths_raise_naming_their_items(quad6):
     with pytest.raises(ValueError, match="from_strategy"):
         FederatedRunner(rnd, prob.agent_data).run(_zeros(), _zeros(), 2,
                                                   schedule=flaky)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        runner.wire_report(_zeros(), _zeros(), K, pods=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        runner.wire_report(_zeros(), _zeros(), K, schedule=flaky,
-                           pods=sim.PodMap(8, 2))
+    # pods price the pod edge of a schedule's rounds, as JAX's report
+    # does; without a schedule there is no pod edge to price
+    plain = runner.wire_report(_zeros(), _zeros(), K, pods=object())
+    assert "scheduled_total_bytes" not in plain
+    rep = runner.wire_report(_zeros(), _zeros(), K, schedule=flaky,
+                             pods=sim.PodMap(8, 2))
+    jrunner = jfed.FederatedRunner.from_strategy(
+        jax_quadratic_loss, "fedgda_gt", {"G": jnp.zeros((8, 6, 6)),
+                                          "Ab": jnp.zeros((8, 6))}, K, ETA)
+    from repro import sim as jsim
+
+    jrep = jrunner.wire_report(jnp.zeros(6), jnp.zeros(6), K,
+                               schedule=jsim.make_population("flaky", 8)
+                               .schedule(0, 2, K), pods=jsim.PodMap(8, 2))
+    assert rep == jrep
+    # the runner densifies small sparse schedules only; the O(active)
+    # engine runs the mega preset (and refuses a registry it has no data for)
     mega = sim.make_population("mega", 8).sparse_schedule(0, 1, K, device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="sim.SparseElasticEngine"):
         runner.run(_zeros(), _zeros(), 1, schedule=mega)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sim.SparseElasticEngine(prob.loss, "fedgda_gt")
+    eng = sim.SparseElasticEngine(prob.loss, "fedgda_gt",
+                                  sim.ArrayDataSource(prob.agent_data), K, ETA)
+    with pytest.raises(ValueError, match="m=1000000"):
+        eng.run(_zeros(), _zeros(), mega)
     with pytest.raises(ValueError, match="from_strategy"):
         FederatedRunner(rnd, prob.agent_data).wire_report(_zeros(), _zeros(), K)

@@ -189,8 +189,11 @@ class TestNoiseFoldContract:
                 want = np.asarray(jengine.noise_eval_keys(jk, e)).astype(np.int64)
                 assert np.array_equal(want, engine.noise_eval_keys(tk, e).numpy())
                 assert np.array_equal(want, grid[e].numpy())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            ts.sample_noise_keys_ids(tst, [0, 3])
+        # the sparse layout folds global ids into the same round subkeys
+        ids = np.array([0, 3, 999_999])
+        jk, jst = js.sample_noise_keys_ids(jst, ids)
+        tk, tst = ts.sample_noise_keys_ids(tst, ids)
+        assert np.array_equal(np.asarray(jk).astype(np.int64), tk.numpy())
 
     def test_noise_models_against_jax_per_agent(self, probs):
         """A model's draw for m agents, against JAX's one-agent `grad`
