@@ -18,7 +18,9 @@ checkpoint resume, the elastic client population (churn and straggler
 schedules drawn on the card, membership-aware FedGDA-GT) through the same
 runner and kernels, the O(active) sparse engine and the two-level pod tree
 (`sim.SparseElasticEngine`, at the mega preset's 1e6-agent registry and at
-the main path's width), and the serving path of zamba2-7b at full width
+the main path's width), the asynchronous runtime (agent shards on CUDA
+streams of the card) and the telemetry sink on the main path, and the
+serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
 `ssm_scan` kernels.  Every phase prints one JSON line (fig2 also the
 reference's CSV table); any failed check
@@ -194,6 +196,28 @@ profiler session slows the host):
              densified schedule; ms a round beside that runner's, launches
              and host syncs a round, one profiled round, peak memory, and
              the last pod payload decoded through unpack_payload bitwise
+  async_main_path
+             the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
+             through `AsyncFederatedRunner(devices=[cuda] * 4)`: 4 shards,
+             one CUDA stream each, for FedGDA-GT (gt_update 720: 4 shards x
+             9 x 2 x 10), CompressedGT top-k 0.1 over the wire (800, pack /
+             unpack 20), FullSync, and FedGDA-GT under a flaky schedule
+             (MarkovChurn 0.6 / 0.4, stragglers 0.3 / 0.5, seed 0) that
+             skips whole shards (the shard_skipped events as the host mask
+             says); each within rtol 1e-9 / atol 1e-12 of the sync runner
+             in the same run, a full telemetry sink bitwise-free; ms a
+             round (sync, async, async, sync), host syncs and CUDA launches
+             a round, and the streams of the gt_update launches (4
+             distinct, the runner's, at the launch site and in the
+             profiler's trace)
+  telemetry_main_path
+             the sync main path with telemetry=None and with a full sink
+             (probes, gap oracle, `RunLedger`, a `profile_rounds` Chrome
+             trace): iterates bitwise equal, the ledger read back with
+             wire_bytes = measured_bytes_per_round x m each round, the
+             trace written; the sink's overhead (interleaved runs); and
+             `phase_spans=True`: each phase's device ms a round, their sum
+             against the fused round, iterates bitwise the fused round's
   robust_main_path
              robust regression from the port's generator at d=n=4096,
              m=16, alpha 5, f64 (a is 2.15 GB), FedGDA-GT K=10 for 10
@@ -222,14 +246,16 @@ profiler session slows the host):
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes; its launches on each stochastic_main_path,
-             elastic_main_path, elastic_claims, sparse_main_path and
-             sparse_claims run)
+             elastic_main_path, elastic_claims, sparse_main_path,
+             sparse_claims, async_main_path and telemetry_main_path run)
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2228,7 +2254,8 @@ def phase_sparse_claims(torch, np) -> dict:
 
 def count_syncs(torch, fn) -> int:
     """fn() under CUDA's sync debug mode: the number of host-device
-    synchronizations torch reports."""
+    synchronizations torch reports (its one-time notice that the mode is a
+    prototype is not one)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as seen:
@@ -2236,10 +2263,10 @@ def count_syncs(torch, fn) -> int:
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
-            torch.cuda.set_sync_debug_mode(0)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+               for w in seen)
 
 
 class DrawnSchedule:
@@ -2404,6 +2431,320 @@ def phase_sparse_main_path(torch, np, card: str, shared: dict, rounds: int) -> d
                   f"sparse_main_path {tag}: pod partials do not round-trip")
         out[tag] = info
     return out
+
+
+# -------------------------------- the async runtime and the telemetry sink
+#: the async runtime's shards on the one card: one CUDA stream each
+ASYNC_SHARDS = 4
+#: async against sync iterates (tests/test_async_runtime.py's tolerance)
+ASYNC_RTOL, ASYNC_ATOL = 1e-9, 1e-12
+#: where the telemetry phase writes its ledger and profile trace
+#: (inside the checkout's ignored build directory)
+SMOKE_OUT = ROOT / "build" / "chip_smoke"
+
+
+def allclose_err(torch, got, want, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 is numpy's
+    allclose."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def kernel_streams(torch, run, substr: str) -> dict:
+    """The streams (profiler ids) that the CUDA kernels whose name holds
+    `substr` ran on over one run(), with their counts, from the Chrome
+    trace of a profiler session; {} when the trace names no stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    SMOKE_OUT.mkdir(parents=True, exist_ok=True)
+    path = SMOKE_OUT / "streams.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    counts = {}
+    for ev in trace.get("traceEvents", []):
+        stream = ev.get("args", {}).get("stream")
+        if ev.get("cat") == "kernel" and substr in ev.get("name", "") \
+                and stream is not None:
+            counts[str(stream)] = counts.get(str(stream), 0) + 1
+    return counts
+
+
+def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
+    """The main path's problem (d=4096, m=16, f64, K=10) through
+    `AsyncFederatedRunner(devices=[cuda] * 4)`: 4 shards of 4 agents, one
+    CUDA stream each, for FedGDA-GT, CompressedGT top-k 0.1 over the wire,
+    FullSync and FedGDA-GT under a flaky schedule (MarkovChurn 0.6 / 0.4,
+    uniform stragglers 0.3 / 0.5, seed 0) that leaves whole shards out.
+    Each against `FederatedRunner` in the same run: iterates within rtol
+    1e-9 / atol 1e-12, ms a round (sync, async, async, sync), the kernels'
+    launches, host syncs and all CUDA launches a round, and the streams the
+    gt_update launches ran on (4 distinct, the runner's own, read at the
+    launch site and in the profiler's trace; either missing fails).  A
+    second async run with a full telemetry sink equals the first bit for
+    bit (the disabled-equals-enabled pin)."""
+    from repro_torch import core, sim
+    from repro_torch.fed import (
+        AsyncFederatedRunner,
+        CompressedGT,
+        FederatedRunner,
+        FullSync,
+        GradientTracking,
+    )
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.obs import Telemetry
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m = prob.agent_data, prob.num_agents
+    devices = [torch.device(DEVICE, 0)] * ASYNC_SHARDS
+    per = m // ASYNC_SHARDS
+    pop = sim.Population(m, sim.MarkovChurn(p_leave=0.6, p_join=0.4),
+                         sim.UniformStragglers(p_straggle=0.3, min_frac=0.5))
+    sched = pop.schedule(0, rounds, K, device=DEVICE)
+    live = [[bool(sched.active[t, i * per:(i + 1) * per].any())
+             for i in range(ASYNC_SHARDS)] for t in range(rounds)]
+    n_live = sum(map(sum, live))
+    check(n_live < ASYNC_SHARDS * rounds,
+          "async_main_path: the flaky schedule skips no shard")
+    S = ASYNC_SHARDS
+    runs = {
+        "gt": (GradientTracking, None, {"gt_update": S * (K - 1) * 2 * rounds}),
+        "compressed_wire": (
+            lambda: CompressedGT(compression_ratio=0.1, mode="topk",
+                                 wire_transport=True), None,
+            {"gt_update": S * K * 2 * rounds, "pack_payload": 2 * rounds,
+             "unpack_payload": 2 * rounds}),
+        "full_sync": (FullSync, None, {"gt_update": 0}),
+        "gt_flaky": (GradientTracking, sched, {"gt_update": n_live * (K - 1) * 2}),
+    }
+    gap = lambda x, y: core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)
+    out = {"shards": S, "devices": [str(d) for d in devices],
+           "flaky_schedule": {"n_active": sched.active.sum(axis=1).tolist(),
+                              "live_shards": live}}
+
+    def timed(runner, kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = runner.run(x0, x0, rounds, **kw)
+        torch.cuda.synchronize()
+        return x, y, (time.perf_counter() - t0) / rounds * 1e3
+
+    def make_async(make, tm=None):
+        return AsyncFederatedRunner(prob.loss, make(), data, K, eta, devices=devices,
+                                    telemetry=tm)
+
+    for tag, (make, schedule, expected) in runs.items():
+        kw = {} if schedule is None else {"schedule": schedule}
+        # one warm-up round each side
+        make_async(make).run(x0, x0, 1, **kw)
+        FederatedRunner.from_strategy(prob.loss, make(), data, K, eta).run(
+            x0, x0, 1, **kw)
+        xs1, ys1, sync_ms = timed(
+            FederatedRunner.from_strategy(prob.loss, make(), data, K, eta), kw)
+        # the main path: counts at 0 just before, read just after
+        tm = Telemetry()
+        ar = make_async(make, tm)
+        handles = [s.cuda_stream for s in ar._streams if s is not None]
+        check(len(set(handles)) == S and ar._n_shards == S,
+              f"async_main_path {tag}: not {S} streams")
+        torch.cuda.synchronize()
+        zero_counts()
+        xa, ya, async_ms = timed(ar, kw)
+        launches = kernel_counts()
+        # the disabled-equals-enabled pin: a full sink (every probe, a gap
+        # oracle) on a second runner
+        full = Telemetry(probes=("gt_residual", "ef_residual", "priced_vs_measured",
+                                 "duality_gap"), gap_fn=gap)
+        xb, yb, async2_ms = timed(make_async(make, full), kw)
+        _, _, sync2_ms = timed(
+            FederatedRunner.from_strategy(prob.loss, make(), data, K, eta), kw)
+        pin = torch.equal(xa, xb) and torch.equal(ya, yb)
+        check(pin, f"async_main_path {tag}: a telemetry sink moved the iterates "
+                   f"(max |diff| {float((xa - xb).abs().max()):.3e})")
+        err = max(allclose_err(torch, xa, xs1, ASYNC_RTOL, ASYNC_ATOL),
+                  allclose_err(torch, ya, ys1, ASYNC_RTOL, ASYNC_ATOL))
+        rel = max(float((xa - xs1).abs().max() / xs1.abs().max()),
+                  float((ya - ys1).abs().max() / ys1.abs().max()))
+        check(err <= 1.0, f"async_main_path {tag}: {rel:.3e} off the sync runner "
+                          f"(allclose ratio {err:.3e})")
+        for name, n in expected.items():
+            check(launches[name] == n, f"async_main_path {tag}: {launches[name]} "
+                                       f"{name} launches, expected {n}")
+        g0, g1 = float(gap(x0, x0)), float(gap(xa, ya))
+        check(np.isfinite(g1) and g1 < g0, f"async_main_path {tag}: gap {g0:.3e} -> "
+                                           f"{g1:.3e}")
+        skipped = [(e["round"], e["shard"]) for e in tm.series("event", "shard_skipped")]
+        if schedule is not None:
+            check(skipped == [(t, i) for t in range(rounds) for i in range(S)
+                              if not live[t][i]],
+                  f"async_main_path {tag}: skipped shards {skipped}")
+        # host syncs a round (two rounds less one), one profiled round of
+        # each runtime, and the streams of the gt_update launches
+        r1, r2 = make_async(make), make_async(make)
+        syncs = count_syncs(torch, lambda: r2.run(x0, x0, 2, **kw)) - count_syncs(
+            torch, lambda: r1.run(x0, x0, 1, **kw))
+        s1 = FederatedRunner.from_strategy(prob.loss, make(), data, K, eta)
+        s2 = FederatedRunner.from_strategy(prob.loss, make(), data, K, eta)
+        sync_syncs = count_syncs(torch, lambda: s2.run(x0, x0, 2, **kw)) - \
+            count_syncs(torch, lambda: s1.run(x0, x0, 1, **kw))
+        names = {"gt_update": "gt_update_kernel", "pack_payload": "pack_kernel",
+                 "gemv": "gemv"}
+        prof = profile_round(torch, lambda: make_async(make).run(x0, x0, 1, **kw),
+                             names)
+        sync_prof = profile_round(torch, lambda: FederatedRunner.from_strategy(
+            prob.loss, make(), data, K, eta).run(x0, x0, 1, **kw), names)
+        # the launch site's current stream (a spy on the wrapper the round
+        # engine calls) and the profiler's stream ids, over one round
+        sr = make_async(make)
+        spied, real = [], kernel_ops.gt_update
+
+        def spy(z, g, c, **kw2):
+            spied.append(torch.cuda.current_stream(z.device).cuda_stream)
+            return real(z, g, c, **kw2)
+
+        kernel_ops.gt_update = spy
+        try:
+            streams = kernel_streams(torch, lambda: sr.run(x0, x0, 1, **kw),
+                                     "gt_update_kernel")
+        finally:
+            kernel_ops.gt_update = real
+        launch_streams = collections.Counter(spied)
+        sync_streams = kernel_streams(torch, lambda: FederatedRunner.from_strategy(
+            prob.loss, make(), data, K, eta).run(x0, x0, 1, **kw), "gt_update_kernel")
+        if expected["gt_update"]:
+            want = S if schedule is None else sum(live[0])
+            per_shard = expected["gt_update"] // (rounds * S if schedule is None
+                                                  else n_live)
+            own = {s.cuda_stream for s in sr._streams}
+            check(set(launch_streams) <= own and len(launch_streams) == want
+                  and set(launch_streams.values()) == {per_shard},
+                  f"async_main_path {tag}: gt_update launched on streams "
+                  f"{dict(launch_streams)}, expected {want} of the runner's "
+                  f"{sorted(own)} with {per_shard} each")
+            check(len(streams) == want, f"async_main_path {tag}: the trace puts "
+                                        f"gt_update on {len(streams)} streams "
+                                        f"({streams}), expected {want}")
+        out[tag] = {
+            "strategy": repr(make()), "rounds": rounds, "K": K,
+            "ms_per_round_sync_async_async_sync": [sync_ms, async_ms, async2_ms,
+                                                   sync2_ms],
+            "launches": launches,
+            "launches_per_round": {k: v / rounds for k, v in launches.items() if v},
+            "cuda_launches_per_round": {"async": prof.get("kernel_launches"),
+                                        "sync": sync_prof.get("kernel_launches")},
+            "host_syncs_per_round": {"async": syncs, "sync": sync_syncs},
+            "gt_update_streams": streams or "none (no gt_update launch)",
+            "gt_update_launch_streams": {str(k): v for k, v in launch_streams.items()},
+            "gt_update_streams_sync": sync_streams or "not measured",
+            "runner_streams": handles,
+            "max_rel_diff_vs_sync": rel, "allclose_ratio": err,
+            "rtol": ASYNC_RTOL, "atol": ASYNC_ATOL, "sink_pin_bitwise": pin,
+            "shard_skipped": skipped, "gap_first": g0, "gap_last": g1,
+            "profile_async": prof, "profile_sync": sync_prof, "card": card}
+    return out
+
+
+def phase_telemetry_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
+    """The sync main path (FedGDA-GT, d=4096, m=16, f64, K=10) with
+    telemetry=None and with a full sink (every probe, a gap oracle, a
+    `RunLedger`, a `profile_rounds` trace of the last round): iterates
+    bitwise equal; the ledger read back, its wire_bytes measured_bytes_per_round
+    x m each round; the trace written.  Then the sink's overhead (enabled
+    without probes against disabled, interleaved runs) and
+    `Telemetry(phase_spans=True)`: each phase's device ms a round and their
+    sum against the fused round, iterates bitwise the fused round's."""
+    import shutil
+
+    from repro_torch import core
+    from repro_torch.fed import FederatedRunner, GradientTracking
+    from repro_torch.fed.transport import measured_bytes_per_round
+    from repro_torch.obs import RunLedger, Telemetry
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m = prob.agent_data, prob.num_agents
+    out_dir = SMOKE_OUT / "telemetry"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    strategy = GradientTracking()
+    runner = FederatedRunner.from_strategy(prob.loss, strategy, data, K, eta)
+    runner.run(x0, x0, 1)  # warm-up
+
+    def timed(tm):
+        runner.telemetry = tm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = runner.run(x0, x0, rounds)
+        torch.cuda.synchronize()
+        return x, y, (time.perf_counter() - t0) / rounds * 1e3
+
+    xa, ya, off_ms = timed(None)
+    ledger = RunLedger(str(out_dir / "ledger"))
+    gap = lambda x, y: core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)
+    full = Telemetry(ledger=ledger, probes=("gt_residual", "ef_residual",
+                                            "priced_vs_measured", "duality_gap"),
+                     gap_fn=gap, profile_dir=str(out_dir / "profile"),
+                     profile_rounds=(rounds - 1,))
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    xb, yb, full_ms = timed(full)
+    launches = kernel_counts()
+    ledger.close()
+    pin = torch.equal(xa, xb) and torch.equal(ya, yb)
+    check(pin, "telemetry_main_path: the sink moved the iterates")
+    check(launches["gt_update"] == rounds * (K - 1) * 2,
+          f"telemetry_main_path: {launches['gt_update']} gt_update launches")
+    events = RunLedger.events(str(out_dir / "ledger"))
+    check(events == json.loads(json.dumps(full.events, default=str)),
+          "telemetry_main_path: the ledger does not read back the sink's events")
+    measured = int(measured_bytes_per_round(strategy, x0, x0, K))
+    wire = [e["value"] for e in events
+            if e["kind"] == "counter" and e["name"] == "wire_bytes"]
+    check(wire == [measured * m] * rounds,
+          f"telemetry_main_path: ledger wire_bytes {wire}, expected "
+          f"{measured} x {m} a round")
+    traces = full.series("event", "profile_trace")
+    check(len(traces) == 1 and os.path.getsize(traces[0]["path"]) > 0,
+          f"telemetry_main_path: profile traces {traces}")
+    residuals = full.probe_series("gt_residual")
+    check(len(residuals) == rounds and max(residuals) < 1e-6,
+          f"telemetry_main_path: GT residuals {residuals}")
+    # the sink's overhead: disabled / enabled-without-probes chunks in turns
+    chunks = {"disabled": [], "enabled": []}
+    for _ in range(4):
+        for mode, tm in (("disabled", None), ("enabled", Telemetry())):
+            chunks[mode].append(timed(tm)[2])
+    low = {k: float(np.mean(sorted(v)[:2])) for k, v in chunks.items()}
+    # per-phase device time: each phase span ends in a synchronize
+    tm = Telemetry(phase_spans=True)
+    xc, yc, phase_ms = timed(tm)
+    runner.telemetry = None
+    check(torch.equal(xa, xc) and torch.equal(ya, yc),
+          "telemetry_main_path: the phase-by-phase round differs from the fused one")
+    phases = {p: [e["seconds"] * 1e3 for e in tm.series("span", p)]
+              for p in ("broadcast", "exchange_corrections", "local_steps",
+                        "aggregate")}
+    per_round_sum = [sum(v) for v in zip(*phases.values())]
+    return {
+        "strategy": repr(strategy), "rounds": rounds, "K": K,
+        "bitwise_disabled_vs_full_sink": pin, "launches": launches,
+        "ms_per_round": {"disabled": off_ms, "full_sink": full_ms,
+                         "phase_spans": phase_ms},
+        "overhead": {"chunks_ms_per_round": chunks, "low2_mean": low,
+                     "enabled_over_disabled": low["enabled"] / low["disabled"] - 1},
+        "phase_ms_per_round": phases,
+        "phase_sum_ms_per_round": per_round_sum,
+        "phase_sum_over_fused_round": float(np.median(per_round_sum)) / low["disabled"],
+        "ledger": {"events": len(events), "wire_bytes_per_round": wire[0],
+                   "measured_bytes_per_round": measured, "agents": m},
+        "profile_trace": {"path": str(Path(traces[0]["path"]).relative_to(ROOT)),
+                          "bytes": os.path.getsize(traces[0]["path"])},
+        "gt_residual_max": max(residuals),
+        "duality_gap_last": full.probe_series("duality_gap")[-1], "card": card}
 
 
 # ----------------------------------------- the rest of the paper's claims
@@ -2725,6 +3066,13 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
             tag: shared["sparse"][tag]["launches"][entry["name"]]
             for tag in ("gt_wire_pods", "compressed_topk")
             if tag in shared.get("sparse", {})}
+        entry["async_main_path_launches"] = {
+            tag: run["launches"][entry["name"]]
+            for tag, run in shared.get("async", {}).items()
+            if isinstance(run, dict) and "launches" in run}
+        entry["telemetry_main_path_launches"] = (
+            shared["telemetry"]["launches"][entry["name"]]
+            if "telemetry" in shared else None)
         entry["sparse_claims_launches"] = {
             run: counts[entry["name"]]
             for run, counts in shared.get("sparse_claims", {}).items()}
@@ -2875,6 +3223,14 @@ def main() -> int:
             torch, np, card, shared, rounds=10))
         if sparse is not None:
             shared["sparse"] = sparse
+        asynced = run("async_main_path", lambda: phase_async_main_path(
+            torch, np, card, shared, rounds=10))
+        if asynced is not None:
+            shared["async"] = asynced
+        telemetry = run("telemetry_main_path", lambda: phase_telemetry_main_path(
+            torch, np, card, shared, rounds=10))
+        if telemetry is not None:
+            shared["telemetry"] = telemetry
         for key in ("problem", "data", "round", "compressed_round"):  # G: 2.1 GB
             shared.pop(key, None)
     run("robust_main_path", lambda: phase_robust_main_path(

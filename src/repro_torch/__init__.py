@@ -15,9 +15,11 @@ PartialParticipation, the communication-efficient CompressedGT /
 QuantizedGT, SAGDA and Local SGDA+), `fed.noise` (seeded Gaussian and
 minibatch noise), `fed.comm` (the communication table), `fed.transport`
 (the packed wire format), `fed.runtime` (the synchronous runner, its
-elastic schedules and checkpoints), `sim` (the client population: churn
-and straggler schedules drawn as JAX draws them, the membership-aware
-round; the O(active) engine is not ported), `optim` (schedules, heavy-ball momentum), `data` (Dirichlet
+elastic schedules and checkpoints), `fed.async_runtime` (the asynchronous
+runner: agent shards on their own devices and CUDA streams), `obs`
+(telemetry, invariant probes, the run ledger, `peak_memory`), `sim` (the
+client population: churn and straggler schedules drawn as JAX draws them,
+the membership-aware round, the O(active) engine and the pod tree), `optim` (schedules, heavy-ball momentum), `data` (Dirichlet
 partitions), `prng` (JAX's threefry keys, uniforms, randint and
 permutation bit for bit, normals to a few ulp), `problems` (Sec 5.1
 quadratic and its Dirichlet variant, robust regression, agnostic FL,
@@ -31,5 +33,6 @@ CUDA `gt_update`, `compress_correction_2d`, `pack_payload_2d`,
 else raises NotImplementedError naming its ROADMAP queue item.
 """
 from .device import resolve_device
+from .fed import AsyncFederatedRunner
 
-__all__ = ["resolve_device"]
+__all__ = ["AsyncFederatedRunner", "resolve_device"]

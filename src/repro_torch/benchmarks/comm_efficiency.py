@@ -17,23 +17,29 @@ differ from the priced bytes by more than 5%, for every row.  It also
 encodes one round's corrections of each wire row on the device and holds
 the `PackedTree`'s bytes to the price.
 
-`--overlap` (the asynchronous runtime's round time) is ROADMAP Queue 1
-item 10.
+`--overlap` times a round of each row's strategy through the sync runner
+and through the asynchronous runtime (`fed.AsyncFederatedRunner`) at dim
+200 with 8 agents in 8 shards: the reference's 8 emulated host devices
+are here the one device given 8 times, one CUDA stream a shard on a card.
 
-    python -m repro_torch.benchmarks.comm_efficiency [--check] [--device cpu]
+    python -m repro_torch.benchmarks.comm_efficiency [--check | --overlap]
+        [--device cpu]
 """
 from __future__ import annotations
 
 import math
 import sys
+import time
 
 import numpy as np
 import torch
 
 from ..core import make_round, run_strategy_rounds, tree_sq_dist
-from ..device import not_ported, resolve_device
+from ..device import resolve_device
 from ..fed import (
+    AsyncFederatedRunner,
     CompressedGT,
+    FederatedRunner,
     FullSync,
     GradientTracking,
     LocalOnly,
@@ -50,6 +56,8 @@ EPS = 1e-8
 DIM = 50
 AGENTS = 20
 CHECK_TOL = 0.05  # measured may differ from priced by at most 5%
+#: --overlap's problem: the reference's dim, agents and shards
+OVERLAP_DIM, OVERLAP_AGENTS, OVERLAP_SHARDS = 200, 8, 8
 
 
 def _runs():
@@ -97,6 +105,54 @@ def check(tol: float = CHECK_TOL, device=None) -> int:
     return bad
 
 
+def overlap(rows=None, device=None, rounds: int = 20):
+    """Wall-clock ms per round, sync against async runtime, per strategy
+    (each after 2 warm-up rounds, ending in a synchronize on a card).
+
+    The async column buys its overlap from per-shard dispatch: while one
+    shard runs its trailing local steps, the others' partial aggregates
+    and the next round's broadcast are already enqueued.  FullSync is the
+    anti-case: K communicated steps leave nothing to overlap.  With every
+    shard on one device the shards share its bandwidth and its host
+    thread, so the async column is the dispatch cost the overlap must beat
+    (the reference's emulated host devices share one host alike)."""
+    from ..problems import make_quadratic_problem
+
+    device = resolve_device(device)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    prob = make_quadratic_problem(gen, dim=OVERLAP_DIM, num_samples=500,
+                                  num_agents=OVERLAP_AGENTS, device=device)
+    x0 = torch.zeros(OVERLAP_DIM, dtype=torch.float64, device=device)
+
+    def per_round_ms(runner) -> float:
+        runner.run(x0, x0, 2)  # first-call setup
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        runner.run(x0, x0, rounds)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) / rounds * 1e3
+
+    rows = [] if rows is None else rows
+    for name, (strategy, k) in _runs().items():
+        sync_ms = per_round_ms(FederatedRunner.from_strategy(
+            prob.loss, strategy, prob.agent_data, k, ETA))
+        ar = AsyncFederatedRunner(prob.loss, strategy, prob.agent_data, k, ETA,
+                                  devices=[device] * OVERLAP_SHARDS)
+        async_ms = per_round_ms(ar)
+        rows.append({"algorithm": name, "sync_round_ms": f"{sync_ms:.3f}",
+                     "async_round_ms": f"{async_ms:.3f}",
+                     "async_vs_sync": f"{sync_ms / async_ms:.2f}x",
+                     "shards": ar._n_shards})
+    card = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    emit(rows, ["algorithm", "sync_round_ms", "async_round_ms", "async_vs_sync",
+                "shards"],
+         f"round latency, sync vs async runtime ({OVERLAP_SHARDS} shards on one "
+         f"{device.type} device, {card}; dim={OVERLAP_DIM}, K={K})")
+    return rows
+
+
 def run(rows=None, device=None, rounds: int = T):
     """The table: each row's rounds to gap <= EPS in `rounds` rounds (GDA:
     rounds * K single-step rounds, the same gradient-step budget)."""
@@ -142,11 +198,12 @@ def main(argv=None) -> int:
                     f"price (> {CHECK_TOL:.0%} drift exits non-zero); skips "
                     "training")
     ap.add_argument("--overlap", action="store_true",
-                    help="sync vs async round latency (not ported)")
+                    help="sync vs async runtime round latency, "
+                    f"{OVERLAP_SHARDS} shards on the device")
     args = ap.parse_args(argv)
     if args.overlap:
-        raise not_ported("comm_efficiency --overlap (the async runtime)",
-                         "Queue 1 item 10")
+        overlap(device=args.device)
+        return 0
     if args.check:
         return 1 if check(device=args.device) else 0
     run(device=args.device)

@@ -607,6 +607,12 @@ def make_round(
         update_fn=update_fn,
         constrain_agents=constrain_agents,
     )
+    return round_from_phases(phases, explicit_state)
+
+
+def round_from_phases(phases: RoundPhases, explicit_state: bool) -> Callable:
+    """`make_round`'s round over phases already built: broadcast,
+    exchange_corrections, local_steps, aggregate in order."""
 
     def core(x, y, agent_data, state):
         rs = phases.broadcast(x, y, agent_data, state)

@@ -1,8 +1,10 @@
-"""Federated layer of the port: the synchronous runner, communication
+"""Federated layer of the port: the synchronous runner and the asynchronous
+one (agent shards on their own devices and CUDA streams), communication
 strategies (deterministic, client sampling, compressed, stochastic), noise
 models, communication accounting, the packed wire transport and the pod
-tier's payloads (`fed.pods`; the asynchronous runtime is ROADMAP Queue 1
+tier's payloads (`fed.pods`; the multi-host runtime is ROADMAP Queue 1
 item 10)."""
+from .async_runtime import AsyncFederatedRunner
 from .comm import comm_table
 from .noise import (
     GaussianNoise,
@@ -36,6 +38,7 @@ from .transport import (
 )
 
 __all__ = [
+    "AsyncFederatedRunner",
     "FederatedRunner",
     "RoundStats",
     "CommStrategy",

@@ -28,8 +28,16 @@ floats, so a run with a `metric_fn` syncs with the device once a round,
 as the reference does; an elastic round adds no other sync (its active
 set, budgets and weights reach the card as one non-blocking copy).
 
-Not ported yet (raises NotImplementedError naming its ROADMAP queue
-item): the telemetry sink and its phase spans (`telemetry=`, item 11).
+The runner emits into an optional `obs.Telemetry` sink (`telemetry=...`):
+per-round spans, wire-byte counters (the active-set account `wire_report`
+prices) and sampled invariant probes (`obs.probes`).  `telemetry=None`
+(the default) runs the code without the sink, and a sink changes no
+iterate, bit for bit (tests/test_torch_obs.py): it lives on the host and
+adds no sync.  `Telemetry(phase_spans=True)` runs a strategy-built
+runner's round as the four engine phases one after another, each in its
+span and each ended by a `torch.cuda.synchronize` on a card, so the spans
+are device time; they are the phases the fused round composes, so the
+iterates equal its bit for bit.
 """
 from __future__ import annotations
 
@@ -38,10 +46,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..checkpoint import save_checkpoint
 from ..core.types import tree_leaves
-from ..device import not_ported
 
 Pytree = Any
 
@@ -57,13 +65,19 @@ class RoundStats:
 
 
 class RunnerHistoryMixin:
-    """Per-round history and the wire report."""
+    """Per-round history, the wire report, telemetry emission and the
+    elastic run loop shared by the sync and async runners."""
 
     history: List[RoundStats]
     _strategy = None
+    #: optional `obs.Telemetry` sink, public so a test can switch it on for
+    #: a built runner; None runs the code without the sink
+    telemetry = None
     #: remembered by `run(..., schedule=...)`, so `wire_report` defaults to
     #: the schedule the run executed
     _last_schedule = None
+    _num_local_steps: Optional[int] = None
+    _loss: Optional[Callable] = None
 
     def metric_series(self, name: str) -> np.ndarray:
         available = sorted({k for s in self.history for k in s.metrics})
@@ -119,17 +133,67 @@ class RunnerHistoryMixin:
             report["scheduled_mean_bytes_per_round"] = float(np.mean(totals))
         return report
 
+    # ------------------------------------------------------- telemetry
+    def _telemetry_state(self) -> Optional[Dict]:
+        """The strategy-state dict probes read (EF residual buffers);
+        overridden by runners that hold it elsewhere (sharded)."""
+        return getattr(self, "_state", None)
+
+    def _wire_counter_args(self, x, y, scheduled: bool = True) -> Optional[int]:
+        """Per-agent payload of the "wire_bytes" counter; None without the
+        strategy / K context (raw-round runners).  On a scheduled run the
+        schedule sets membership, so the payload is `sim.per_agent_bytes`
+        (participation 1), the account `wire_report` and
+        `sim.schedule_bytes` price; unscheduled, the strategy's own client
+        sampling governs and the payload is `measured_bytes_per_round`."""
+        if self._strategy is None or self._num_local_steps is None:
+            return None
+        if scheduled:
+            from ..sim.elastic import per_agent_bytes
+
+            return per_agent_bytes(self._strategy, x, y, self._num_local_steps)
+        from .transport import measured_bytes_per_round
+
+        return int(measured_bytes_per_round(self._strategy, x, y,
+                                            self._num_local_steps))
+
+    def _emit_wire_probe(self, tm, x, y) -> None:
+        """The one priced-vs-measured probe, at run start."""
+        if (self._strategy is None or self._num_local_steps is None
+                or not tm.probe_due("priced_vs_measured", 0)):
+            return
+        from ..obs import probes as _p
+
+        tm.probe_value("priced_vs_measured", 0, _p.priced_vs_measured(
+            self._strategy, x, y, self._num_local_steps))
+
+    def _emit_probes(self, tm, t, x, y, tracker=None) -> None:
+        """Sampled invariant probes of both runners (`obs.probes.emit_probes`).
+        `tracker` is the elastic tracker table on an elastic round; without
+        one the GT residual recomputes the anchor corrections from the loss
+        (full participation)."""
+        from ..core.types import grad_xy
+        from ..obs.probes import anchor_corrections, emit_probes
+
+        anchor_fn = None
+        if (tracker is None and self._loss is not None
+                and getattr(self._strategy, "use_correction", False)
+                and getattr(self, "_agent_data", None) is not None):
+            anchor_fn = lambda: anchor_corrections(grad_xy(self._loss), x, y,
+                                                   self._agent_data)
+        emit_probes(tm, t, x, y, self._telemetry_state, tracker, anchor_fn)
+
     def _drive_elastic(self, x, y, num_rounds: int, schedule, rebase: bool,
                        log_every: int, elastic_state, init_tracker_fn: Callable,
-                       round_fn: Callable, checkpoint_fn: Callable,
-                       num_agents: int):
-        """The elastic run loop: schedule validation, the
+                       round_fn: Callable, checkpoint_fn: Optional[Callable],
+                       num_agents: int, label: str = "elastic round"):
+        """The elastic run loop of both runners: schedule validation, the
         `ElasticAggregator`, the tracker and prev_active continuation
         (`elastic_state`: resuming without it re-anchors absent agents'
         trackers at the resume iterate and forgets who took part last
-        round), per-round `n_active` metrics, history, logging and
-        checkpoints.  `round_fn(x, y, ev, agg, tracker, prev_active) -> (x,
-        y, tracker, active)` runs one round (`active`: its mask on the
+        round), per-round `n_active` metrics, history, telemetry, logging
+        and checkpoints.  `round_fn(x, y, ev, agg, tracker, prev_active) ->
+        (x, y, tracker, active)` runs one round (`active`: its mask on the
         device, next round's prev_active)."""
         from ..sim.elastic import ElasticAggregator
 
@@ -148,9 +212,16 @@ class RunnerHistoryMixin:
         else:
             tracker = init_tracker_fn(x, y)
             prev_active = None
+        tm = self.telemetry
+        per_agent = None
+        if tm is not None:
+            self._emit_wire_probe(tm, x, y)
+            per_agent = self._wire_counter_args(x, y)
         for t in range(num_rounds):
             t0 = time.perf_counter()
             ev = schedule[t]
+            if tm is not None:
+                tm.begin_round(t)
             x, y, tracker, prev_active = round_fn(x, y, ev, agg, tracker,
                                                   prev_active)
             metrics = {"n_active": float(ev.num_active)}
@@ -159,10 +230,19 @@ class RunnerHistoryMixin:
                     {k: float(v) for k, v in self._metric_fn(x, y).items()})
             dt = time.perf_counter() - t0
             self.history.append(RoundStats(t, metrics, dt))
+            if tm is not None:
+                n = int(ev.num_active)
+                tm.round_event(t, runtime=label, seconds=dt, n_active=n)
+                if per_agent is not None:
+                    tm.counter("wire_bytes", per_agent * n, per_agent=per_agent,
+                               n_active=n)
+                self._emit_probes(tm, t, x, y, tracker=tracker)
+                tm.end_round(t)
             if log_every and (t % log_every == 0 or t == num_rounds - 1):
                 msg = " ".join(f"{k}={v:.3e}" for k, v in metrics.items())
-                print(f"[elastic round {t:5d}] {msg} ({dt*1e3:.1f} ms)")
-            checkpoint_fn(t, x, y, tracker, prev_active)
+                print(f"[{label} {t:5d}] {msg} ({dt*1e3:.1f} ms)")
+            if checkpoint_fn is not None:
+                checkpoint_fn(t, x, y, tracker, prev_active)
         #: where the run left off, for continuation:
         #: run(..., elastic_state=runner.elastic_state, schedule=tail)
         self.elastic_state = {"tracker": tracker, "prev_active": prev_active}
@@ -182,8 +262,6 @@ class FederatedRunner(RunnerHistoryMixin):
         tracker_init_fn: Optional[Callable] = None,
         telemetry=None,
     ):
-        if telemetry is not None:
-            raise not_ported("runner telemetry", "Queue 1 item 11")
         self._round = round_fn
         self._agent_data = agent_data
         self._metric_fn = metric_fn
@@ -193,6 +271,15 @@ class FederatedRunner(RunnerHistoryMixin):
         # explicit_state=True and is called as round(x, y, data, state)
         self._strategy = strategy
         self._state: Optional[Pytree] = None
+        #: obs.Telemetry sink or None (None: the code without the sink);
+        #: public, so a test can switch it on for a built runner
+        self.telemetry = telemetry
+        # set by from_strategy: they feed the wire counters and probes, and
+        # the phases that Telemetry(phase_spans=True) runs one by one (the
+        # same phases the fused round composes)
+        self._loss: Optional[Callable] = None
+        self._num_local_steps: Optional[int] = None
+        self._phases = None
         # the membership-aware round round(x, y, data, state, tracker,
         # weights, budgets, active, prev_active) and the tracker-table
         # initializer (x, y, data) -> tracker, built by from_strategy; a
@@ -229,13 +316,10 @@ class FederatedRunner(RunnerHistoryMixin):
         round)."""
         import functools
 
-        from ..core.engine import make_round
+        from ..core.engine import make_phases, round_from_phases
         from ..sim.elastic import init_tracker, make_elastic_round
         from .strategies import resolve_strategy
 
-        if telemetry is not None:
-            raise not_ported("runner telemetry and phase spans",
-                             "Queue 1 item 11")
         round_kwargs = {k: v for k, v in kwargs.items() if k in _ROUND_KWARGS}
         strategy_kwargs = {k: v for k, v in kwargs.items()
                            if k not in _ROUND_KWARGS}
@@ -243,18 +327,12 @@ class FederatedRunner(RunnerHistoryMixin):
             raise TypeError(f"strategy knobs {sorted(strategy_kwargs)} need a "
                             "strategy name, not a built strategy")
         strategy = resolve_strategy(strategy, **strategy_kwargs)
-        rnd = make_round(
-            loss,
-            strategy,
-            num_local_steps,
-            eta_x,
-            eta_y,
-            explicit_state=strategy.stateful,
-            **round_kwargs,
-        )
+        phases = make_phases(loss, strategy, num_local_steps, eta_x, eta_y,
+                             **round_kwargs)
+        rnd = round_from_phases(phases, explicit_state=strategy.stateful)
         elastic = make_elastic_round(
             loss, strategy, num_local_steps, eta_x, eta_y, **round_kwargs)
-        return cls(
+        runner = cls(
             rnd,
             agent_data,
             metric_fn=metric_fn,
@@ -263,7 +341,12 @@ class FederatedRunner(RunnerHistoryMixin):
             strategy=strategy,
             elastic_round_fn=elastic,
             tracker_init_fn=functools.partial(init_tracker, loss, strategy),
+            telemetry=telemetry,
         )
+        runner._loss = loss
+        runner._num_local_steps = num_local_steps
+        runner._phases = phases
+        return runner
 
     @property
     def _stateful(self) -> bool:
@@ -307,9 +390,25 @@ class FederatedRunner(RunnerHistoryMixin):
         if schedule is not None:
             return self._run_elastic(x, y, num_rounds, schedule, rebase,
                                      log_every, elastic_state)
+        tm = self.telemetry
+        per_agent = None
+        round_dispatch = None
+        if tm is not None:
+            self._emit_wire_probe(tm, x, y)
+            per_agent = self._wire_counter_args(x, y, scheduled=False)
+            if tm.phase_spans and self._phases is not None:
+                round_dispatch = self._phase_round(tm)
         for t in range(num_rounds):
             t0 = time.perf_counter()
-            if self._stateful:
+            if tm is not None:
+                tm.begin_round(t)
+            if round_dispatch is not None:
+                x, y, new_state = round_dispatch(
+                    x, y, self._agent_data,
+                    self._state if self._stateful else {})
+                if self._stateful:
+                    self._state = new_state
+            elif self._stateful:
                 x, y, self._state = self._round(
                     x, y, self._agent_data, self._state
                 )
@@ -322,6 +421,14 @@ class FederatedRunner(RunnerHistoryMixin):
                 }
             dt = time.perf_counter() - t0
             self.history.append(RoundStats(t, metrics, dt))
+            if tm is not None:
+                tm.round_event(t, runtime="sync", seconds=dt)
+                if per_agent is not None:
+                    m = tree_leaves(self._agent_data)[0].shape[0]
+                    tm.counter("wire_bytes", per_agent * m, per_agent=per_agent,
+                               n_active=m)
+                self._emit_probes(tm, t, x, y)
+                tm.end_round(t)
             if log_every and (t % log_every == 0 or t == num_rounds - 1):
                 msg = " ".join(f"{k}={v:.3e}" for k, v in metrics.items())
                 print(f"[round {t:5d}] {msg} ({dt*1e3:.1f} ms)")
@@ -380,3 +487,31 @@ class FederatedRunner(RunnerHistoryMixin):
             lambda xx, yy: self._tracker_init(xx, yy, self._agent_data),
             round_fn, checkpoint_fn,
             num_agents=tree_leaves(self._agent_data)[0].shape[0])
+
+    def _phase_round(self, tm):
+        """The `Telemetry(phase_spans=True)` round: the four engine phases
+        one after another, each in its span and, on a card, ended by a
+        `torch.cuda.synchronize` of the iterates' device, so each span is
+        the phase's device time.  The phases are the fused round's own, so
+        the iterates equal its bit for bit."""
+        if self._phases is None:
+            raise ValueError("phase_spans needs a runner built via from_strategy")
+        ph = self._phases
+        device = tree_leaves(self._agent_data)[0].device
+
+        def done(out):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return out
+
+        def dispatch(x, y, data, state):
+            with tm.span("broadcast"):
+                rs = done(ph.broadcast(x, y, data, state))
+            with tm.span("exchange_corrections"):
+                rs = done(ph.exchange_corrections(rs, data))
+            with tm.span("local_steps"):
+                rs = done(ph.local_steps(rs, data))
+            with tm.span("aggregate"):
+                return done(ph.aggregate(rs))
+
+        return dispatch

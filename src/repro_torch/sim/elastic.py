@@ -123,6 +123,11 @@ class ElasticAggregator:
             return renormalized_weights(active)
         return active.to(torch.float64) / active.shape[0]
 
+    def host_weights(self, active: np.ndarray) -> np.ndarray:
+        """`weights` of a [m] host mask, formed on the host in numpy f64."""
+        a = np.asarray(active, bool).astype(np.float64)
+        return a / a.sum() if self.rebase else a / a.shape[0]
+
     def round_inputs(self, active: np.ndarray, budgets: np.ndarray,
                      device: DeviceLike = None):
         """(weights, budgets, active) of one round on `device` (default
@@ -132,8 +137,7 @@ class ElasticAggregator:
         device = resolve_device(device)
         active = np.asarray(active, bool)
         m = active.shape[0]
-        a = active.astype(np.float64)
-        w = a / a.sum() if self.rebase else a / m
+        w = self.host_weights(active)
         buf = np.empty(17 * m, np.uint8)
         buf[:8 * m].view(np.float64)[:] = w
         buf[8 * m:16 * m].view(np.int64)[:] = budgets

@@ -38,8 +38,13 @@ Each round of the sparse path syncs the host with the device where the
 reference does: the touched rows come back to the host store (`commit`),
 and a metric is read as floats.
 
-Not ported (raises NotImplementedError naming its ROADMAP queue item):
-`telemetry=` and with it the sampled probes of the sparse path (item 11).
+With an `obs.Telemetry` sink (`telemetry=`) the engine emits the
+`dense_fallback` event of each run, per sparse round a "sparse" round span
+(active count, live pods, pod wire bytes), the `realign` event of the EF
+rows and the wire-bytes counter, and the sampled probes; the GT and
+tracker-drift probes materialize the dense table the tracker stands for
+(`obs.probes.sparse_tracker_table`, O(m): a probe cost only).  The dense
+fallback hands the sink to its runner.  A sink changes no iterate.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from ..core.engine import (
 from ..core.types import (
     LossFn,
     Pytree,
+    grad_xy,
     identity_proj,
     tree_broadcast_agents,
     tree_flatten,
@@ -69,7 +75,7 @@ from ..core.types import (
     tree_map,
     vmap_grad_xy,
 )
-from ..device import host_to_device, not_ported
+from ..device import host_to_device
 
 #: populations at or below this size run densified through the dense
 #: elastic machinery; above it the O(active) path applies
@@ -280,10 +286,9 @@ class SparseElasticEngine:
     ):
         from ..fed.strategies import resolve_strategy
 
-        if telemetry is not None:
-            raise not_ported("the sparse engine's telemetry and probes",
-                             "Queue 1 item 11")
         self._loss = loss
+        #: obs.Telemetry sink or None (None: the code without the sink)
+        self.telemetry = telemetry
         self._strategy = resolve_strategy(strategy)
         self._source = source
         self._K = int(num_local_steps)
@@ -406,6 +411,10 @@ class SparseElasticEngine:
         dense = bool(self._fallback_m and self._source.m <= self._fallback_m
                      and hasattr(schedule, "densify")
                      and hasattr(self._source, "materialize"))
+        if self.telemetry is not None:
+            self.telemetry.emit("event", "dense_fallback", round=None,
+                                value=dense, m=self._source.m,
+                                max_m=self._fallback_m)
         if dense:
             return self._run_dense(x, y, schedule, T, log_every, resume)
         return self._run_sparse(x, y, schedule, T, log_every, resume)
@@ -424,6 +433,9 @@ class SparseElasticEngine:
                 update_fn=self._update_fn,
             )
         runner = self._dense_runner
+        # every call, so a sink switched on for the engine reaches a runner
+        # built before
+        runner.telemetry = self.telemetry
         prev_n = len(runner.history)
         x, y = runner.run(
             x, y, T, log_every=log_every, schedule=schedule.densify(),
@@ -439,6 +451,18 @@ class SparseElasticEngine:
 
         strategy = self._strategy
         dev = _device_of(x)
+        tm = self.telemetry
+        per_agent = None
+        if tm is not None:
+            from ..obs import probes as _p
+            from .elastic import per_agent_bytes
+
+            if tm.probe_due("priced_vs_measured", 0):
+                tm.probe_value("priced_vs_measured", 0,
+                               _p.priced_vs_measured(strategy, x, y, self._K))
+            # the per-active-agent payload, as schedule_bytes and the
+            # runners' wire_report price it
+            per_agent = per_agent_bytes(strategy, x, y, self._K)
         if resume and self._tracker is None:
             raise ValueError("resume=True but no previous sparse run")
         if not resume:
@@ -456,6 +480,8 @@ class SparseElasticEngine:
             ev = schedule[t]
             ids = ev.active_ids
             n = len(ids)
+            if tm is not None:
+                tm.begin_round(t)
             data = self._source.gather(ids)
             if self._state is None:
                 self._state = (strategy.init_state(x, y, n)
@@ -466,6 +492,11 @@ class SparseElasticEngine:
                 # rebase rule over id lists
                 self._state = strategy.realign_state_rows(self._state,
                                                           self._prev_ids, ids)
+                if tm is not None:
+                    tm.emit("event", "realign",
+                            n_continuing=int(len(np.intersect1d(self._prev_ids,
+                                                                ids))),
+                            n_active=n)
             touched, st_gx, st_gy = tracker.lookup(ids)
             pod_ids = (self._pods.pod_of(ids) if self._pods is not None
                        else np.zeros(n, np.int64))
@@ -492,6 +523,16 @@ class SparseElasticEngine:
                 rec.update({k: float(v) for k, v in self._metric_fn(x, y).items()})
             rec["seconds"] = time.perf_counter() - t0
             self.history.append(rec)
+            if tm is not None:
+                tm.round_event(t, runtime="sparse", seconds=rec["seconds"],
+                               n_active=n, **{k: rec[k] for k in (
+                                   "live_pods", "pod_wire_bytes") if k in rec})
+                if per_agent is not None:
+                    tm.counter("wire_bytes",
+                               per_agent * n + rec.get("pod_wire_bytes", 0),
+                               per_agent=per_agent, n_active=n)
+                self._emit_sparse_probes(tm, t, x, y)
+                tm.end_round(t)
             if log_every and (t % log_every == 0 or t == T - 1):
                 msg = " ".join(
                     f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}"
@@ -499,3 +540,21 @@ class SparseElasticEngine:
                 print(f"[sparse round {t:5d}] {msg}")
             self._prev_ids = ids
         return x, y
+
+    def _emit_sparse_probes(self, tm, t, x, y) -> None:
+        """Sampled invariant probes of the O(active) path.  The GT and drift
+        probes materialize the dense table (`obs.probes.sparse_tracker_table`,
+        O(m), a probe cost), so the probe evaluated is the one the dense
+        runtimes feed their tables to (`obs.probes.emit_probes`)."""
+        from ..obs import probes as _p
+
+        table = None
+        if self._use_corr and (tm.probe_due("gt_residual", t)
+                               or tm.probe_due("tracker_drift", t)):
+            tab_x, tab_y = _p.sparse_tracker_table(self._tracker, self._source,
+                                                   grad_xy(self._loss))
+            table = {"gx": tab_x, "gy": tab_y}
+        _p.emit_probes(tm, t, x, y, lambda: self._state, table)
+        if table is not None and tm.probe_due("tracker_drift", t):
+            tm.probe_value("tracker_drift", t, _p.tracker_drift(
+                tab_x, tab_y, self._tracker.sum_gx, self._tracker.sum_gy))

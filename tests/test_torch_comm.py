@@ -138,8 +138,19 @@ def test_driver_runs_equal_the_references():
         assert fed.measured_bytes_per_round(ts, x0, x0, jce.K, include_headers=False) \
             == jfed.measured_bytes_per_round(js, jx, jx, jce.K, include_headers=False)
     assert comm_efficiency.main(["--check", "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        comm_efficiency.main(["--overlap", "--device", "cpu"])
+
+
+def test_driver_overlap_times_every_row_in_8_shards(capsys):
+    """`--overlap` (the async runtime, Queue 1 item 10) times every row of
+    the reference's table through both runtimes, 8 shards on the device."""
+    rows = comm_efficiency.overlap(device="cpu", rounds=1)
+    assert [r["algorithm"] for r in rows] == list(comm_efficiency._runs())
+    assert all(r["shards"] == 8 and float(r["sync_round_ms"]) > 0
+               and float(r["async_round_ms"]) > 0 for r in rows)
+    out = capsys.readouterr().out.splitlines()
+    i = out.index("algorithm,sync_round_ms,async_round_ms,async_vs_sync,shards")
+    assert "8 shards on one cpu device" in out[i - 1]
+    assert len([line for line in out[i + 1:] if line]) == len(rows)
 
 
 def test_driver_table_rows_and_bytes(capsys):

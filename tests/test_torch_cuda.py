@@ -1035,3 +1035,131 @@ def test_cuda_reduced_model_through_kernels_equals_plain(cuda_device, arch,
     zero = {"flash_attention": 0, "ssm_scan": 0}
     assert runs[True]["launches"]["decode"] == zero
     assert runs[False]["launches"] == {"prefill": zero, "decode": zero}
+
+
+# ------------------------------------ the async runtime and the telemetry sink
+ASYNC_SHARDS = 4
+
+
+def _async_setup(cuda_device, m=16, d=128):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    prob = make_quadratic_problem(gen, dim=d, num_samples=2 * d, num_agents=m,
+                                  device=cuda_device)
+    return prob, torch.zeros(d, dtype=torch.float64, device=cuda_device)
+
+
+def _full_sink():
+    from repro_torch.obs import Telemetry
+
+    return Telemetry(probes=("gt_residual", "ef_residual", "priced_vs_measured"))
+
+
+@pytest.mark.parametrize("name,kw,flaky", [
+    ("fedgda_gt", {}, False), ("compressed_gt", {"compression_ratio": 0.25}, False),
+    ("quantized_gt", {"quantization_bits": 8, "wire_transport": True}, False),
+    ("gda", {}, False), ("partial_gt", {"participation": 0.5}, False),
+    ("fedgda_gt", {}, True), ("compressed_gt", {"compression_ratio": 0.25}, True),
+], ids=["gt", "cgt", "qgt_wire", "gda", "partial", "gt_flaky", "cgt_flaky"])
+def test_cuda_async_on_4_streams_matches_sync(cuda_device, name, kw, flaky):
+    """`AsyncFederatedRunner(devices=[card] * 4)`: 4 shards on 4 distinct
+    streams of one card, iterates within rtol 1e-9 / atol 1e-12 of the sync
+    runner's on the card (the reference's tolerance), plain and under a
+    flaky schedule."""
+    from repro_torch import fed, sim
+
+    prob, x0 = _async_setup(cuda_device)
+    K, rounds = 4, 5
+    run = {}
+    if flaky:
+        pop = sim.Population(16, sim.MarkovChurn(p_leave=0.6, p_join=0.4),
+                             sim.UniformStragglers(0.3, 0.5))
+        run["schedule"] = pop.schedule(0, rounds, K, device=cuda_device)
+    xs, ys = fed.FederatedRunner.from_strategy(prob.loss, name, prob.agent_data, K,
+                                               1e-4, **kw).run(x0, x0, rounds, **run)
+    ar = fed.AsyncFederatedRunner(prob.loss, name, prob.agent_data, K, 1e-4,
+                                  devices=[cuda_device] * ASYNC_SHARDS, **kw)
+    xa, ya = ar.run(x0, x0, rounds, **run)
+    torch.cuda.synchronize()
+    assert ar._n_shards == ASYNC_SHARDS
+    assert len({s.cuda_stream for s in ar._streams}) == ASYNC_SHARDS
+    torch.testing.assert_close(xa, xs, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(ya, ys, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("fedgda_gt", {}), ("compressed_gt", {"compression_ratio": 0.25}),
+    ("quantized_gt", {"quantization_bits": 8, "wire_transport": True}),
+    ("partial_gt", {"participation": 0.5})], ids=["gt", "cgt", "qgt_wire", "partial"])
+def test_cuda_telemetry_is_bitwise_free(cuda_device, name, kw):
+    """telemetry=None against a full sink (probes included) on the card:
+    bitwise-equal iterates on the sync runner (one runner, the sink
+    switched on) and on the async runner (two runners, 4 streams)."""
+    from repro_torch import fed
+
+    prob, x0 = _async_setup(cuda_device)
+    K, rounds = 4, 5
+    runner = fed.FederatedRunner.from_strategy(prob.loss, name, prob.agent_data, K,
+                                               1e-4, **kw)
+    fresh = lambda: runner._strategy.init_state(x0, x0, 16) or None
+    xa, ya = runner.run(x0, x0, rounds, state=fresh())
+    runner.telemetry = _full_sink()
+    xb, yb = runner.run(x0, x0, rounds, state=fresh())
+    assert torch.equal(xa, xb) and torch.equal(ya, yb)
+    runs = []
+    for tm in (None, _full_sink()):
+        ar = fed.AsyncFederatedRunner(prob.loss, name, prob.agent_data, K, 1e-4,
+                                      devices=[cuda_device] * ASYNC_SHARDS,
+                                      telemetry=tm, **kw)
+        runs.append(ar.run(x0, x0, rounds))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_cuda_phase_spans_equal_the_fused_round(cuda_device):
+    """Telemetry(phase_spans=True) runs the four phases one by one, each
+    ended by a synchronize: the same iterates as the fused round, bit for
+    bit, and one positive span per phase a round."""
+    from repro_torch import fed
+    from repro_torch.obs import Telemetry
+
+    prob, x0 = _async_setup(cuda_device)
+    runner = fed.FederatedRunner.from_strategy(prob.loss, "fedgda_gt",
+                                               prob.agent_data, 4, 1e-4)
+    xa, ya = runner.run(x0, x0, 3)
+    tm = Telemetry(phase_spans=True)
+    runner.telemetry = tm
+    xb, yb = runner.run(x0, x0, 3)
+    assert torch.equal(xa, xb) and torch.equal(ya, yb)
+    for phase in ("broadcast", "exchange_corrections", "local_steps", "aggregate"):
+        spans = tm.series("span", phase)
+        assert len(spans) == 3 and all(s["seconds"] > 0 for s in spans)
+
+
+def test_cuda_async_gt_update_launches_on_the_shard_streams(cuda_device, monkeypatch):
+    """Every gt_update launch of an async run goes to its shard's stream:
+    (K - 1) x 2 a round on each of the 4 shard streams, none on the
+    server's."""
+    import collections
+
+    from repro_torch import fed
+    from repro_torch.kernels import ops
+
+    seen = []
+    real = ops.gt_update
+
+    def spy(z, g, c, **kw):
+        seen.append(torch.cuda.current_stream(z.device).cuda_stream)
+        return real(z, g, c, **kw)
+
+    monkeypatch.setattr(ops, "gt_update", spy)
+    prob, x0 = _async_setup(cuda_device)
+    K, rounds = 4, 3
+    ar = fed.AsyncFederatedRunner(prob.loss, "fedgda_gt", prob.agent_data, K, 1e-4,
+                                  devices=[cuda_device] * ASYNC_SHARDS)
+    gt_update.launches = 0
+    ar.run(x0, x0, rounds)
+    torch.cuda.synchronize()
+    handles = [s.cuda_stream for s in ar._streams]
+    assert collections.Counter(seen) == {h: (K - 1) * 2 * rounds for h in handles}
+    assert gt_update.launches == len(seen)
+    assert torch.cuda.current_stream(cuda_device).cuda_stream not in handles

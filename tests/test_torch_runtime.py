@@ -11,9 +11,10 @@
   * the runner's final iterates equal `run_rounds'` bit for bit, and
     JAX's runner's to 1e-12;
   * `wire_report` equals JAX's runner's for the same strategies;
-  * the `telemetry=` path and the pod / O(active) parts of the elastic
-    path raise NotImplementedError naming their ROADMAP Queue 1 items
-    (the elastic runs themselves: tests/test_torch_elastic.py).
+  * a telemetry sink is accepted by both constructors and changes no
+    iterate; a raw round cannot run a schedule, and a sparse schedule too
+    large to densify is refused (the elastic runs themselves:
+    tests/test_torch_elastic.py).
 """
 import jax
 import jax.numpy as jnp
@@ -269,11 +270,25 @@ def test_wire_report_equals_jax(quad6, name, kw):
 def test_unported_paths_raise_naming_their_items(quad6):
     _, prob = quad6
     rnd = core.make_fedgda_gt_round(prob.loss, K, ETA)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        FederatedRunner(rnd, prob.agent_data, telemetry=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data, K,
-                                      ETA, telemetry=object())
+    # the telemetry sink is ported (Queue 1 item 11): both constructors take
+    # one, it records the rounds, and it changes no iterate
+    from repro_torch.obs import Telemetry
+
+    x0 = torch.ones(6, dtype=torch.float64)
+    raw = FederatedRunner(rnd, prob.agent_data, telemetry=Telemetry())
+    xa, ya = FederatedRunner(rnd, prob.agent_data).run(x0, -x0, 3)
+    xb, yb = raw.run(x0, -x0, 3)
+    assert torch.equal(xa, xb) and torch.equal(ya, yb)
+    assert [e["runtime"] for e in raw.telemetry.series("span", "round")] == ["sync"] * 3
+    # a raw round has no strategy to price: no wire counters
+    assert raw.telemetry.series("counter") == []
+    tm = Telemetry(probes=("priced_vs_measured",))
+    built = FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data,
+                                          K, ETA, telemetry=tm)
+    xc, yc = built.run(x0, -x0, 3)
+    assert torch.equal(xa, xc) and torch.equal(ya, yc)
+    assert len(tm.series("counter", "wire_bytes")) == 3
+    assert tm.probe_series("priced_vs_measured")[0]["priced"] > 0
     from repro_torch import sim
 
     runner = FederatedRunner.from_strategy(prob.loss, "fedgda_gt", prob.agent_data,

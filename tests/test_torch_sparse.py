@@ -285,9 +285,22 @@ class TestSparseEngineParity:
     def test_telemetry_and_wire_without_pods_raise(self, probs):
         _, tp = probs
         src = sim.ArrayDataSource(tp.agent_data)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            sim.SparseElasticEngine(tp.loss, "fedgda_gt", src, K, ETA,
-                                    telemetry=object())
+        # the sink is ported (Queue 1 item 11): the engine takes one, emits
+        # its fallback decision and sparse rounds, and moves no iterate
+        from repro_torch.obs import Telemetry
+
+        sched = sparse_population().sparse_schedule(SEED, T, K, device="cpu")
+        tm = Telemetry(probes=("tracker_drift",))
+        on = sim.SparseElasticEngine(tp.loss, "fedgda_gt", src, K, ETA,
+                                     dense_fallback_max_m=0, telemetry=tm)
+        off = sim.SparseElasticEngine(tp.loss, "fedgda_gt", src, K, ETA,
+                                      dense_fallback_max_m=0)
+        for a, b in zip(on.run(_zeros(), _zeros(), sched),
+                        off.run(_zeros(), _zeros(), sched)):
+            assert torch.equal(a, b)
+        assert [e["value"] for e in tm.series("event", "dense_fallback")] == [False]
+        assert [e["runtime"] for e in tm.series("span", "round")] == ["sparse"] * T
+        assert len(tm.probe_series("tracker_drift")) == T
         with pytest.raises(ValueError, match="pod_map"):
             sim.SparseElasticEngine(tp.loss, "fedgda_gt", src, K, ETA, wire_pods=True)
 
