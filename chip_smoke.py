@@ -2449,10 +2449,11 @@ def allclose_err(torch, got, want, rtol: float, atol: float) -> float:
     return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
-def kernel_streams(torch, run, substr: str) -> dict:
-    """The streams (profiler ids) that the CUDA kernels whose name holds
-    `substr` ran on over one run(), with their counts, from the Chrome
-    trace of a profiler session; {} when the trace names no stream."""
+def kernel_streams_by(torch, run, matchers: dict) -> dict:
+    """The streams (profiler ids) that CUDA kernels ran on over one run(),
+    with their counts, from the Chrome trace of a profiler session:
+    {key: {stream: count}} for each (key, predicate on the kernel's name),
+    {} for a key whose kernels the trace puts on no stream."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2464,13 +2465,57 @@ def kernel_streams(torch, run, substr: str) -> dict:
     prof.export_chrome_trace(str(path))
     with open(path) as f:
         trace = json.load(f)
-    counts = {}
+    counts = {key: {} for key in matchers}
     for ev in trace.get("traceEvents", []):
         stream = ev.get("args", {}).get("stream")
-        if ev.get("cat") == "kernel" and substr in ev.get("name", "") \
-                and stream is not None:
-            counts[str(stream)] = counts.get(str(stream), 0) + 1
+        if ev.get("cat") != "kernel" or stream is None:
+            continue
+        for key, match in matchers.items():
+            if match(ev.get("name", "")):
+                counts[key][str(stream)] = counts[key].get(str(stream), 0) + 1
     return counts
+
+
+#: the launch sites the round engine and the strategies call, by kernel:
+#: (module, attribute), patched with a spy that reads the current stream
+#: (the callers' names: a wrapper counts its launches through its own)
+LAUNCH_SITES = {"gt_update": ("repro_torch.kernels.ops", "gt_update"),
+                "pack_payload": ("repro_torch.fed.transport", "pack_payload_2d"),
+                "compress_correction": ("repro_torch.fed.strategies", "compress_leaf")}
+#: the kernels' names in the profiler's trace (unpack_kernel also holds
+#: "pack_kernel")
+TRACE_NAMES = {
+    "gt_update": lambda n: "gt_update_kernel" in n,
+    "pack_payload": lambda n: ("pack_kernel" in n or "pack_stream_kernel" in n)
+    and "unpack" not in n,
+    "compress_correction": lambda n: "compress_kernel" in n,
+}
+
+
+def launch_streams(torch, run, names) -> dict:
+    """The current stream at each launch site of `names` over one run():
+    {name: {stream handle: calls}} (a spy on the wrapper its caller calls)."""
+    import importlib
+
+    seen = {name: collections.Counter() for name in names}
+    saved = []
+    for name in names:
+        mod, attr = LAUNCH_SITES[name]
+        mod = importlib.import_module(mod)
+        real = getattr(mod, attr)
+
+        def spy(z, *a, _real=real, _name=name, **kw):
+            seen[_name][torch.cuda.current_stream(z.device).cuda_stream] += 1
+            return _real(z, *a, **kw)
+
+        saved.append((mod, attr, real))
+        setattr(mod, attr, spy)
+    try:
+        run()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return {name: dict(c) for name, c in seen.items()}
 
 
 def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
@@ -2494,7 +2539,6 @@ def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> di
         FullSync,
         GradientTracking,
     )
-    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.obs import Telemetry
 
     prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
@@ -2600,30 +2644,23 @@ def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> di
         # the launch site's current stream (a spy on the wrapper the round
         # engine calls) and the profiler's stream ids, over one round
         sr = make_async(make)
-        spied, real = [], kernel_ops.gt_update
-
-        def spy(z, g, c, **kw2):
-            spied.append(torch.cuda.current_stream(z.device).cuda_stream)
-            return real(z, g, c, **kw2)
-
-        kernel_ops.gt_update = spy
-        try:
-            streams = kernel_streams(torch, lambda: sr.run(x0, x0, 1, **kw),
-                                     "gt_update_kernel")
-        finally:
-            kernel_ops.gt_update = real
-        launch_streams = collections.Counter(spied)
-        sync_streams = kernel_streams(torch, lambda: FederatedRunner.from_strategy(
-            prob.loss, make(), data, K, eta).run(x0, x0, 1, **kw), "gt_update_kernel")
+        gt_trace = {"gt_update": TRACE_NAMES["gt_update"]}
+        traced = {}
+        launched = launch_streams(torch, lambda: traced.update(kernel_streams_by(
+            torch, lambda: sr.run(x0, x0, 1, **kw), gt_trace)), ["gt_update"])
+        launched, streams = launched["gt_update"], traced["gt_update"]
+        sync_streams = kernel_streams_by(torch, lambda: FederatedRunner.from_strategy(
+            prob.loss, make(), data, K, eta).run(x0, x0, 1, **kw),
+            gt_trace)["gt_update"]
         if expected["gt_update"]:
             want = S if schedule is None else sum(live[0])
             per_shard = expected["gt_update"] // (rounds * S if schedule is None
                                                   else n_live)
             own = {s.cuda_stream for s in sr._streams}
-            check(set(launch_streams) <= own and len(launch_streams) == want
-                  and set(launch_streams.values()) == {per_shard},
+            check(set(launched) <= own and len(launched) == want
+                  and set(launched.values()) == {per_shard},
                   f"async_main_path {tag}: gt_update launched on streams "
-                  f"{dict(launch_streams)}, expected {want} of the runner's "
+                  f"{launched}, expected {want} of the runner's "
                   f"{sorted(own)} with {per_shard} each")
             check(len(streams) == want, f"async_main_path {tag}: the trace puts "
                                         f"gt_update on {len(streams)} streams "
@@ -2638,7 +2675,7 @@ def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> di
                                         "sync": sync_prof.get("kernel_launches")},
             "host_syncs_per_round": {"async": syncs, "sync": sync_syncs},
             "gt_update_streams": streams or "none (no gt_update launch)",
-            "gt_update_launch_streams": {str(k): v for k, v in launch_streams.items()},
+            "gt_update_launch_streams": {str(k): v for k, v in launched.items()},
             "gt_update_streams_sync": sync_streams or "not measured",
             "runner_streams": handles,
             "max_rel_diff_vs_sync": rel, "allclose_ratio": err,
@@ -2745,6 +2782,212 @@ def phase_telemetry_main_path(torch, np, card: str, shared: dict, rounds: int) -
                           "bytes": os.path.getsize(traces[0]["path"])},
         "gt_residual_max": max(residuals),
         "duality_gap_last": full.probe_series("duality_gap")[-1], "card": card}
+
+
+# ------------------------------------------------ the multi-host launch path
+#: the multi-host runner's shards on the one card: one CUDA stream each
+MULTIHOST_SHARDS = 4
+def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -> dict:
+    """The main path's problem (d=4096, m=16, f64, K=10) through
+    `launch.multihost.MultiHostRunner(devices=[cuda] * 4)`: 4 shards of 4
+    agents, one CUDA stream each, every shard encoding its own corrections.
+    Runs: (a) FedGDA-GT, (b) CompressedGT top-k 0.1 over the wire, (c)
+    QuantizedGT 8-bit rand-k 0.25 over the wire (per-shard folded draws),
+    (d) CompressedGT top-k 0.1 without the wire (compress_correction on the
+    shards' streams).  Gates: (a) within rtol 1e-9 / atol 1e-12 of
+    `FederatedRunner`; every round's gathered bytes equal m x the payload
+    share of `measured_bytes_per_round`, and `expected_gather_bytes` where
+    the payload is packed (b, c; a's dense stack prices as its dense
+    LeafSpec); each shard's own decode equals the server's bit for bit (b,
+    c); each run through the kernels equals the same run through the plain
+    versions bit for bit (iterates, shard states, wire log); the kernels'
+    launches; gt_update, pack_payload and compress_correction on the
+    runner's 4 streams at the launch site and in the profiler's trace.
+    Prints ms a round (sync, multihost, multihost, sync), CUDA launches,
+    host syncs and device busy a round."""
+    from repro_torch import core
+    from repro_torch.fed import (
+        CompressedGT,
+        FederatedRunner,
+        GradientTracking,
+        QuantizedGT,
+    )
+    from repro_torch.fed.transport import dense_payload_bytes, measured_bytes_per_round
+    from repro_torch.launch.multihost import MultiHostRunner, expected_gather_bytes
+
+    prob, eta, K, x0 = shared["problem"], shared["eta"], shared["K"], shared["x0"]
+    xs, ys = shared["minimax"]
+    data, m, dim = prob.agent_data, prob.num_agents, x0.shape[0]
+    S = MULTIHOST_SHARDS
+    devices = [torch.device(DEVICE, 0)] * S
+    dense = 2 * m * dim * x0.element_size()
+    steps = S * K * 2 * rounds
+    runs = {
+        "a_gt": (GradientTracking, {"gt_update": S * (K - 1) * 2 * rounds}),
+        "b_compressed_wire": (
+            lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk",
+                                      wire_transport=True, **kw),
+            {"gt_update": steps, "pack_payload": 2 * S * rounds,
+             "unpack_payload": 2 * S * rounds}),
+        "c_quantized_randk_wire": (
+            lambda **kw: QuantizedGT(bits=8, ratio=0.25, mode="randk",
+                                     wire_transport=True, **kw),
+            {"gt_update": steps, "pack_payload": 2 * S * rounds,
+             "unpack_payload": 2 * S * rounds}),
+        "d_compressed_dense": (
+            lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk", **kw),
+            {"gt_update": steps, "compress_correction": 2 * S * rounds}),
+    }
+    gap = lambda x, y: core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)
+    out = {"shards": S, "devices": [str(d) for d in devices]}
+
+    def timed(runner):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y = runner.run(x0, x0, rounds)
+        torch.cuda.synchronize()
+        return x, y, (time.perf_counter() - t0) / rounds * 1e3
+
+    def make_mh(make, plain=False):
+        if plain:
+            strategy = make() if make is GradientTracking else make(use_kernel=False)
+            return MultiHostRunner(prob.loss, strategy, data, K, eta, devices=devices,
+                                   update_fn=core.default_update)
+        return MultiHostRunner(prob.loss, make(), data, K, eta, devices=devices)
+
+    def make_sync(make):
+        return FederatedRunner.from_strategy(prob.loss, make(), data, K, eta)
+
+    for tag, (make, expected) in runs.items():
+        strategy = make()
+        wire = bool(getattr(strategy, "wire_transport", False))
+        # one warm-up round each side
+        make_mh(make).run(x0, x0, 1)
+        make_sync(make).run(x0, x0, 1)
+        xs1, ys1, sync_ms = timed(make_sync(make))
+        # the main path: counts at 0 just before, read just after
+        mr = make_mh(make)
+        handles = [s.cuda_stream for s in mr._streams]
+        check(len(set(handles)) == S and mr._n_shards == S,
+              f"multihost_main_path {tag}: not {S} streams")
+        torch.cuda.synchronize()
+        zero_counts()
+        xm, ym, mh_ms = timed(mr)
+        launches = kernel_counts()
+        for name in ("gt_update", "compress_correction", "pack_payload",
+                     "unpack_payload", "flash_attention", "ssm_scan"):
+            want = expected.get(name, 0)
+            check(launches[name] == want, f"multihost_main_path {tag}: "
+                  f"{launches[name]} {name} launches, expected {want}")
+        # bytes, every round
+        gathered = [e["gathered_payload_bytes"] for e in mr.wire_log]
+        share = (measured_bytes_per_round(strategy, x0, x0, K, include_headers=False)
+                 - 2 * dense_payload_bytes((x0, x0))) // 2
+        priced = expected_gather_bytes(strategy, x0, x0, m)
+        check(gathered == [m * share] * rounds,
+              f"multihost_main_path {tag}: gathered {gathered}, expected m x "
+              f"{share} a round")
+        if wire or tag == "a_gt":
+            check(gathered == [priced] * rounds, f"multihost_main_path {tag}: "
+                  f"gathered {gathered}, expected_gather_bytes {priced}")
+        else:
+            check(gathered == [dense] * rounds, f"multihost_main_path {tag}: "
+                  f"gathered {gathered}, the dense stack is {dense}")
+        # the decode pin: each shard's own decode on its stream
+        pin = None
+        if wire:
+            own_x, own_y = mr.decode_on_shards()
+            cx, cy = mr.last_exchange["decoded"]
+            torch.cuda.synchronize()
+            pin = bool(torch.equal(own_x, cx) and torch.equal(own_y, cy))
+            check(pin, f"multihost_main_path {tag}: a shard's decode differs from "
+                       "the server's")
+        # kernels against plain versions, bitwise
+        pr = make_mh(make, plain=True)
+        zero_counts()
+        xp, yp, plain_ms = timed(pr)
+        plain_launches = {k: v for k, v in kernel_counts().items() if v}
+        check(not plain_launches, f"multihost_main_path {tag}: the plain run "
+                                  f"launched {plain_launches}")
+        same = {"x": torch.equal(xm, xp), "y": torch.equal(ym, yp),
+                "wire_log": mr.wire_log == pr.wire_log,
+                **{f"shard{i}_{k}": torch.equal(a[k], b[k])
+                   for i, (a, b) in enumerate(zip(mr._state_s, pr._state_s))
+                   for k in a if k != "key"},
+                **{f"shard{i}_key": torch.equal(a["key"], b["key"])
+                   for i, (a, b) in enumerate(zip(mr._state_s, pr._state_s))
+                   if "key" in a}}
+        check(all(same.values()), f"multihost_main_path {tag}: kernels differ from "
+                                  f"the plain versions ({same})")
+        xm2, ym2, mh2_ms = timed(make_mh(make))
+        check(torch.equal(xm, xm2) and torch.equal(ym, ym2),
+              f"multihost_main_path {tag}: two runs differ")
+        _, _, sync2_ms = timed(make_sync(make))
+        err = max(allclose_err(torch, xm, xs1, ASYNC_RTOL, ASYNC_ATOL),
+                  allclose_err(torch, ym, ys1, ASYNC_RTOL, ASYNC_ATOL))
+        rel = max(float((xm - xs1).abs().max() / xs1.abs().max()),
+                  float((ym - ys1).abs().max() / ys1.abs().max()))
+        if tag == "a_gt":
+            check(err <= 1.0, f"multihost_main_path {tag}: {rel:.3e} off the sync "
+                              f"runner (allclose ratio {err:.3e})")
+        g0, g1 = float(gap(x0, x0)), float(gap(xm, ym))
+        check(np.isfinite(g1) and g1 < g0, f"multihost_main_path {tag}: gap "
+                                           f"{g0:.3e} -> {g1:.3e}")
+        # host syncs a round (two rounds less one), one profiled round of
+        # each runtime
+        r1, r2 = make_mh(make), make_mh(make)
+        syncs = count_syncs(torch, lambda: r2.run(x0, x0, 2)) - count_syncs(
+            torch, lambda: r1.run(x0, x0, 1))
+        s1, s2 = make_sync(make), make_sync(make)
+        sync_syncs = count_syncs(torch, lambda: s2.run(x0, x0, 2)) - count_syncs(
+            torch, lambda: s1.run(x0, x0, 1))
+        names = {"gt_update": "gt_update_kernel", "gemv": "gemv",
+                 "compress_correction": "compress_kernel", "unpack": "unpack_kernel"}
+        prof = profile_round(torch, lambda: make_mh(make).run(x0, x0, 1), names)
+        sync_prof = profile_round(torch, lambda: make_sync(make).run(x0, x0, 1), names)
+        # the shards' kernels: the current stream at the launch site and the
+        # profiler's stream ids, over one round
+        shard_kernels = [k for k in ("gt_update", "pack_payload", "compress_correction")
+                         if expected.get(k)]
+        sr = make_mh(make)
+        own = {s.cuda_stream for s in sr._streams}
+        traced = {}
+        spied = launch_streams(torch, lambda: traced.update(kernel_streams_by(
+            torch, lambda: sr.run(x0, x0, 1),
+            {k: TRACE_NAMES[k] for k in shard_kernels})), shard_kernels)
+        for k in shard_kernels:
+            per_stream = expected[k] // (rounds * S)
+            check(set(spied[k]) <= own and len(spied[k]) == S
+                  and set(spied[k].values()) == {per_stream},
+                  f"multihost_main_path {tag}: {k} launched on streams {spied[k]}, "
+                  f"expected the runner's {sorted(own)} with {per_stream} each")
+            check(len(traced[k]) == S, f"multihost_main_path {tag}: the trace puts "
+                                       f"{k} on {len(traced[k])} streams "
+                                       f"({traced[k]}), expected {S}")
+        out[tag] = {
+            "strategy": repr(strategy), "rounds": rounds, "K": K,
+            "ms_per_round_sync_multihost_multihost_sync": [sync_ms, mh_ms, mh2_ms,
+                                                           sync2_ms],
+            "ms_per_round_plain": plain_ms,
+            "launches": launches,
+            "launches_per_round": {k: v / rounds for k, v in launches.items() if v},
+            "cuda_launches_per_round": {"multihost": prof.get("kernel_launches"),
+                                        "sync": sync_prof.get("kernel_launches")},
+            "host_syncs_per_round": {"multihost": syncs, "sync": sync_syncs},
+            "device_busy_ms": {"multihost": prof.get("device_busy_ms"),
+                               "sync": sync_prof.get("device_busy_ms")},
+            "gathered_payload_bytes_per_round": gathered[0],
+            "expected_gather_bytes": priced, "payload_share_per_agent": share,
+            "dense_stack_bytes": dense,
+            "gathered_total_bytes_per_round": mr.wire_log[0]["gathered_total_bytes"],
+            "decode_pin_bitwise": pin, "bitwise_kernels_vs_plain": same,
+            "launch_streams": {k: {str(s): n for s, n in v.items()}
+                               for k, v in spied.items()},
+            "trace_streams": traced, "runner_streams": handles,
+            "max_rel_diff_vs_sync": rel, "allclose_ratio_vs_sync": err,
+            "rtol": ASYNC_RTOL, "atol": ASYNC_ATOL, "gap_first": g0, "gap_last": g1,
+            "profile_multihost": prof, "profile_sync": sync_prof, "card": card}
+    return out
 
 
 # ----------------------------------------- the rest of the paper's claims
@@ -3070,6 +3313,10 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
             tag: run["launches"][entry["name"]]
             for tag, run in shared.get("async", {}).items()
             if isinstance(run, dict) and "launches" in run}
+        entry["multihost_main_path_launches"] = {
+            tag: run["launches"][entry["name"]]
+            for tag, run in shared.get("multihost", {}).items()
+            if isinstance(run, dict) and "launches" in run}
         entry["telemetry_main_path_launches"] = (
             shared["telemetry"]["launches"][entry["name"]]
             if "telemetry" in shared else None)
@@ -3227,6 +3474,10 @@ def main() -> int:
             torch, np, card, shared, rounds=10))
         if asynced is not None:
             shared["async"] = asynced
+        multihost = run("multihost_main_path", lambda: phase_multihost_main_path(
+            torch, np, card, shared, rounds=10))
+        if multihost is not None:
+            shared["multihost"] = multihost
         telemetry = run("telemetry_main_path", lambda: phase_telemetry_main_path(
             torch, np, card, shared, rounds=10))
         if telemetry is not None:

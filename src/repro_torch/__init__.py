@@ -26,7 +26,10 @@ quadratic and its Dirichlet variant, robust regression, agnostic FL,
 Appendix C toy), `configs` (the ten
 architectures), `models` (the forward path of the dense, local-attention,
 Mamba-1, Mamba-2 and zamba2 hybrid kinds, text frontend, KV/SSM caches),
-`launch.serve` (prefill and greedy decode), `kernels` (the hand-written
+`launch.serve` (prefill and greedy decode), `launch.multihost` (the
+multi-host launch path: `init_distributed`, `MultiHostRunner` with agent
+shards encoding their own packed payloads, the payload layout),
+`examples` (quickstart, agnostic FL, robust regression), `kernels` (the hand-written
 CUDA `gt_update`, `compress_correction_2d`, `pack_payload_2d`,
 `unpack_payload_2d`, `flash_attention` and `ssm_scan`) and `convert`
 (state and model weights from the JAX package, as numpy).  Everything

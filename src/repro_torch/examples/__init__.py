@@ -1,0 +1,7 @@
+"""The paper's examples in the port, each runnable as
+`python -m repro_torch.examples.<name>` (on the card unless `--device cpu`
+is passed): `quickstart` (every strategy on the Sec 5.1 game, the async
+runtime and the flaky-population finale), `agnostic_federated` (Appendix
+A.2) and `robust_regression` (Sec 5.2, Fig 2).  Each prints the signals
+of its counterpart in the top-level `examples/` and returns them to a
+caller (`main(argv)`)."""

@@ -2,8 +2,8 @@
 one (agent shards on their own devices and CUDA streams), communication
 strategies (deterministic, client sampling, compressed, stochastic), noise
 models, communication accounting, the packed wire transport and the pod
-tier's payloads (`fed.pods`; the multi-host runtime is ROADMAP Queue 1
-item 10)."""
+tier's payloads (`fed.pods`; the multi-host runtime, whose shards encode
+their own payloads, is `launch.multihost`)."""
 from .async_runtime import AsyncFederatedRunner
 from .comm import comm_table
 from .noise import (

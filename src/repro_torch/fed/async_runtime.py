@@ -121,75 +121,33 @@ def concat_on_device(parts: List[Pytree], device) -> Pytree:
     return tree_map(lambda *u: torch.cat(u, dim=0), *parts)
 
 
-class AsyncFederatedRunner(RunnerHistoryMixin):
-    """Federated rounds dispatched per agent shard, each shard on its own
-    device and stream (module docstring).
+def shard_devices(devices: Optional[Sequence]) -> List[torch.device]:
+    """A runner's device list as torch.devices: None means every CUDA
+    device, and raises without CUDA (no quiet CPU fallback); pass
+    `["cpu"] * n` for n shards on the CPU."""
+    if devices is None:
+        resolve_device(None)  # raises without CUDA
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    return [_device(d) for d in devices]
 
-    Mirrors `FederatedRunner`'s surface: `run(x, y, num_rounds)` returns
-    the final iterates, `history` / `metric_series` record per-round
-    metrics, `wire_report` prices the strategy.  It takes the loss and the
-    strategy (it owns the phase schedule).  `devices=None` means every CUDA
-    device (`torch.device("cuda", i)`), and raises without CUDA; pass
-    `devices=["cpu"] * n` for n shards on the CPU."""
 
-    def __init__(
-        self,
-        loss: Callable,
-        strategy,
-        agent_data: Pytree,
-        num_local_steps: int,
-        eta_x: float,
-        eta_y: Optional[float] = None,
-        *,
-        proj_x: Callable = identity_proj,
-        proj_y: Callable = identity_proj,
-        metric_fn: Optional[Callable] = None,
-        devices: Optional[Sequence] = None,
-        pod_map=None,
-        telemetry=None,
-        **strategy_kwargs,
-    ):
-        self._strategy = resolve_strategy(strategy, **strategy_kwargs)
-        self._K = num_local_steps
-        #: obs.Telemetry sink or None (None: the code without the sink)
-        self.telemetry = telemetry
-        self._loss = loss
-        self._num_local_steps = num_local_steps
-        self._eta_x = eta_x
-        self._eta_y = eta_x if eta_y is None else eta_y
-        self._proj_x = proj_x
-        self._proj_y = proj_y
-        self._m = _num_agents(agent_data)
+class ShardStreams:
+    """Agent shards on a device list, one CUDA stream each, and the
+    hand-offs between them and the server (module docstring): the layout
+    and stream discipline shared by `AsyncFederatedRunner` and
+    `launch.multihost.MultiHostRunner`."""
 
-        if devices is None:
-            resolve_device(None)  # raises without CUDA
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        devices = [_device(d) for d in devices]
-        self._pod_map = pod_map
-        if pod_map is not None:
-            # pod-aligned sharding: a shard count dividing the pod count, so
-            # every shard holds whole pods and skipping absent shards also
-            # skips quiet pods (fed.pods)
-            from .pods import pod_aligned_shard_count
-
-            if pod_map.m != self._m:
-                raise ValueError(f"pod_map is for m={pod_map.m}, runner has "
-                                 f"{self._m}")
-            if self._m % pod_map.num_pods != 0:
-                raise ValueError(
-                    f"pod-aligned sharding needs m divisible by the pod "
-                    f"count, got m={self._m}, pods={pod_map.num_pods}")
-            self._n_shards = pod_aligned_shard_count(pod_map.num_pods,
-                                                     len(devices))
-        else:
-            self._n_shards = largest_shard_count(self._m, len(devices))
-        self._per = self._m // self._n_shards
-        #: the server device: the exchange's transform, the sampling draws
-        #: and the aggregate run there, on its current stream; it also
-        #: hosts shard 0
+    def _place_shards(self, agent_data: Pytree, devices: List[torch.device],
+                      n_shards: int) -> None:
+        """`n_shards` contiguous shards of the m agents on the first devices,
+        each with its stream on a card and its rows of `agent_data`."""
+        self._n_shards = n_shards
+        self._per = self._m // n_shards
+        #: the server device: the exchange's server half and the aggregate
+        #: run there, on its current stream; it also hosts shard 0
         self._server = devices[0]
-        self._shard_devices = devices[: self._n_shards]
+        self._shard_devices = devices[:n_shards]
         #: one stream per shard on a card; None on the CPU (shards in order)
         self._streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
                          for d in self._shard_devices]
@@ -200,40 +158,14 @@ class AsyncFederatedRunner(RunnerHistoryMixin):
                      _slice_agents(agent_data, i * self._per, (i + 1) * self._per))
             for i, d in enumerate(self._shard_devices)
         ]
-        self._phases = make_phases(loss, self._strategy, num_local_steps, eta_x,
-                                   eta_y, proj_x=proj_x, proj_y=proj_y)
-        self._vgrad = vmap_grad_xy(loss)
-        self._use_corr = bool(getattr(self._strategy, "use_correction", False))
-        self._sync_every = bool(getattr(self._strategy, "sync_every_step", False))
-        self._cdt = getattr(self._strategy, "correction_dtype", None)
-        self._noise = getattr(self._strategy, "noise", None)
-        self._fused = (
-            self._use_corr
-            and self._m > 1
-            and bool(self._strategy.exact_correction)
-            # momentum folds the correction into a velocity, so the first
-            # step is no longer the plain anchor update
-            and not getattr(self._strategy, "momentum", 0.0)
-        )
-        self._metric_fn = metric_fn
-        self._server_state: Dict = {}
-        self._shard_state: Optional[List[Dict]] = None
-        self._sharded_keys = ()
-        #: set by an elastic run: {"tracker", "prev_active"} where it left
-        #: off (as FederatedRunner.elastic_state)
-        self.elastic_state: Optional[Dict] = None
-        self.history: List[RoundStats] = []
 
-    @property
-    def pods_per_shard(self) -> Optional[int]:
-        """Whole pods per agent shard under pod-aligned sharding (None
-        without a pod_map): a quiet run of this many consecutive pods skips
-        its shard."""
-        if self._pod_map is None:
-            return None
-        return self._pod_map.num_pods // self._n_shards
+    def _start(self) -> None:
+        """At the top of a run: the server's current stream, and the shards'
+        streams after what the caller enqueued (data, x, y)."""
+        self._sstream = (torch.cuda.current_stream(self._server)
+                         if self._server.type == "cuda" else None)
+        self._fan_out()
 
-    # ------------------------------------------------------------- streams
     def _on(self, i: int):
         """Shard i's stream as the current one (nothing on the CPU)."""
         s = self._streams[i]
@@ -276,18 +208,24 @@ class AsyncFederatedRunner(RunnerHistoryMixin):
                 self._record(p, self._sstream)
         return concat_on_device(parts, self._server)
 
-    def _host_slices(self, a: np.ndarray, shards=None) -> List:
-        """Per-shard slices of a host array, each a pinned non-blocking copy
-        on its shard's stream."""
-        out = [None] * self._n_shards
-        for i in range(self._n_shards) if shards is None else shards:
+    def _bcast(self, x, y) -> List:
+        """Fresh per-shard (x, y) buffers for the round about to run, one
+        copy per shard made on its stream (every shard gets its own copy,
+        also where it shares the server's device)."""
+        self._fan_out()
+        out = []
+        for i, d in enumerate(self._shard_devices):
             with self._on(i):
-                out[i] = host_to_device(
-                    np.ascontiguousarray(a[i * self._per:(i + 1) * self._per]),
-                    self._shard_devices[i])
+                if d == self._server:
+                    self._record((x, y), self._streams[i])
+                    out.append((tree_map(torch.clone, x), tree_map(torch.clone, y)))
+                else:
+                    out.append(tuple(tree_map(lambda u: u.to(d, non_blocking=True), t)
+                                     for t in (x, y)))
         return out
 
-    # --------------------------------------------------------- shard phases
+    # a shard's phases (`_phases`, `_vgrad`, `_noise` and `_fused` are the
+    # runner's)
     def _shard_broadcast(self, i: int, bx, by, nk=None, budgets=None):
         """Shard i's broadcast (its agents' iterates and, with noise keys,
         the round's draws), on its stream."""
@@ -330,6 +268,110 @@ class AsyncFederatedRunner(RunnerHistoryMixin):
                     _slice_agents(cy, i * per, (i + 1) * per), gbar_x, gbar_y))
         return out
 
+
+class AsyncFederatedRunner(ShardStreams, RunnerHistoryMixin):
+    """Federated rounds dispatched per agent shard, each shard on its own
+    device and stream (module docstring).
+
+    Mirrors `FederatedRunner`'s surface: `run(x, y, num_rounds)` returns
+    the final iterates, `history` / `metric_series` record per-round
+    metrics, `wire_report` prices the strategy.  It takes the loss and the
+    strategy (it owns the phase schedule).  `devices=None` means every CUDA
+    device (`torch.device("cuda", i)`), and raises without CUDA; pass
+    `devices=["cpu"] * n` for n shards on the CPU."""
+
+    def __init__(
+        self,
+        loss: Callable,
+        strategy,
+        agent_data: Pytree,
+        num_local_steps: int,
+        eta_x: float,
+        eta_y: Optional[float] = None,
+        *,
+        proj_x: Callable = identity_proj,
+        proj_y: Callable = identity_proj,
+        metric_fn: Optional[Callable] = None,
+        devices: Optional[Sequence] = None,
+        pod_map=None,
+        telemetry=None,
+        **strategy_kwargs,
+    ):
+        self._strategy = resolve_strategy(strategy, **strategy_kwargs)
+        self._K = num_local_steps
+        #: obs.Telemetry sink or None (None: the code without the sink)
+        self.telemetry = telemetry
+        self._loss = loss
+        self._num_local_steps = num_local_steps
+        self._eta_x = eta_x
+        self._eta_y = eta_x if eta_y is None else eta_y
+        self._proj_x = proj_x
+        self._proj_y = proj_y
+        self._m = _num_agents(agent_data)
+
+        devices = shard_devices(devices)
+        self._pod_map = pod_map
+        if pod_map is not None:
+            # pod-aligned sharding: a shard count dividing the pod count, so
+            # every shard holds whole pods and skipping absent shards also
+            # skips quiet pods (fed.pods)
+            from .pods import pod_aligned_shard_count
+
+            if pod_map.m != self._m:
+                raise ValueError(f"pod_map is for m={pod_map.m}, runner has "
+                                 f"{self._m}")
+            if self._m % pod_map.num_pods != 0:
+                raise ValueError(
+                    f"pod-aligned sharding needs m divisible by the pod "
+                    f"count, got m={self._m}, pods={pod_map.num_pods}")
+            n_shards = pod_aligned_shard_count(pod_map.num_pods, len(devices))
+        else:
+            n_shards = largest_shard_count(self._m, len(devices))
+        self._place_shards(agent_data, devices, n_shards)
+        self._phases = make_phases(loss, self._strategy, num_local_steps, eta_x,
+                                   eta_y, proj_x=proj_x, proj_y=proj_y)
+        self._vgrad = vmap_grad_xy(loss)
+        self._use_corr = bool(getattr(self._strategy, "use_correction", False))
+        self._sync_every = bool(getattr(self._strategy, "sync_every_step", False))
+        self._cdt = getattr(self._strategy, "correction_dtype", None)
+        self._noise = getattr(self._strategy, "noise", None)
+        self._fused = (
+            self._use_corr
+            and self._m > 1
+            and bool(self._strategy.exact_correction)
+            # momentum folds the correction into a velocity, so the first
+            # step is no longer the plain anchor update
+            and not getattr(self._strategy, "momentum", 0.0)
+        )
+        self._metric_fn = metric_fn
+        self._server_state: Dict = {}
+        self._shard_state: Optional[List[Dict]] = None
+        self._sharded_keys = ()
+        #: set by an elastic run: {"tracker", "prev_active"} where it left
+        #: off (as FederatedRunner.elastic_state)
+        self.elastic_state: Optional[Dict] = None
+        self.history: List[RoundStats] = []
+
+    @property
+    def pods_per_shard(self) -> Optional[int]:
+        """Whole pods per agent shard under pod-aligned sharding (None
+        without a pod_map): a quiet run of this many consecutive pods skips
+        its shard."""
+        if self._pod_map is None:
+            return None
+        return self._pod_map.num_pods // self._n_shards
+
+    def _host_slices(self, a: np.ndarray, shards=None) -> List:
+        """Per-shard slices of a host array, each a pinned non-blocking copy
+        on its shard's stream."""
+        out = [None] * self._n_shards
+        for i in range(self._n_shards) if shards is None else shards:
+            with self._on(i):
+                out[i] = host_to_device(
+                    np.ascontiguousarray(a[i * self._per:(i + 1) * self._per]),
+                    self._shard_devices[i])
+        return out
+
     def _combine(self, sums: List, shards: Sequence[int]):
         """Sum the shards' partial aggregates on the server and project (the
         partials carry the weights, so the combine is a plain sum)."""
@@ -338,22 +380,6 @@ class AsyncFederatedRunner(RunnerHistoryMixin):
         x1 = tree_map(lambda *u: sum(u), *xs)
         y1 = tree_map(lambda *u: sum(u), *ys)
         return self._proj_x(x1), self._proj_y(y1)
-
-    def _bcast(self, x, y) -> List:
-        """Fresh per-shard (x, y) buffers for the round about to run, one
-        copy per shard made on its stream (every shard gets its own copy,
-        also where it shares the server's device)."""
-        self._fan_out()
-        out = []
-        for i, d in enumerate(self._shard_devices):
-            with self._on(i):
-                if d == self._server:
-                    self._record((x, y), self._streams[i])
-                    out.append((tree_map(torch.clone, x), tree_map(torch.clone, y)))
-                else:
-                    out.append(tuple(tree_map(lambda u: u.to(d, non_blocking=True), t)
-                                     for t in (x, y)))
-        return out
 
     def _zero_shard_rows(self, x, y):
         """One shard's zero gradient rows on the server: the stand-in for a
@@ -475,10 +501,7 @@ class AsyncFederatedRunner(RunnerHistoryMixin):
     ):
         x = tree_map(lambda u: u.to(self._server), x)
         y = tree_map(lambda u: u.to(self._server), y)
-        self._sstream = (torch.cuda.current_stream(self._server)
-                         if self._server.type == "cuda" else None)
-        # the shards start after what the caller enqueued (data, x, y)
-        self._fan_out()
+        self._start()
         if self._shard_state is None:
             self._init_state(x, y)
             if state is not None:

@@ -9,9 +9,11 @@ block (JAX's `lax.cond` inside the scan) is a plain `if` after every
 `shared_attn_every`-th layer, with JAX's shared-cache index.
 
 Ported: the text frontend and the dense, local, Mamba-1 and Mamba-2
-layer kinds.  The `moe` kind, the audio and vision_text frontends,
-`remat`, `h_sharding` and `chunked_lm_loss` raise `not_ported` (ROADMAP
-Queue 1 items 12-13).
+layer kinds, forward only.  The `moe` kind and the audio and vision_text
+frontends raise `not_ported` (ROADMAP Queue 1 item 12).  `forward` has no
+`remat` or `h_sharding` argument and the port has no `chunked_lm_loss`:
+the LM training path (Queue 1 item 12) and the SPMD layer (item 13) bring
+them.
 """
 from __future__ import annotations
 

@@ -1163,3 +1163,111 @@ def test_cuda_async_gt_update_launches_on_the_shard_streams(cuda_device, monkeyp
     assert collections.Counter(seen) == {h: (K - 1) * 2 * rounds for h in handles}
     assert gt_update.launches == len(seen)
     assert torch.cuda.current_stream(cuda_device).cuda_stream not in handles
+
+
+# --------------------------------------------------- the multi-host runner
+def _multihost(prob, strategy, devices, **kw):
+    from repro_torch.launch.multihost import MultiHostRunner
+
+    return MultiHostRunner(prob.loss, strategy, prob.agent_data, 4, 1e-4,
+                           devices=devices, **kw)
+
+
+@pytest.mark.parametrize("mk", [
+    lambda **kw: CompressedGT(compression_ratio=0.25, wire_transport=True, **kw),
+    lambda **kw: QuantizedGT(bits=8, wire_transport=True, **kw),
+    lambda **kw: QuantizedGT(bits=4, ratio=0.25, mode="randk", wire_transport=True,
+                             **kw),
+], ids=["cgt_topk25", "qgt8", "qgt4_randk25"])
+def test_cuda_multihost_bytes_decode_pin_and_plain(cuda_device, mk):
+    """`MultiHostRunner(devices=[card] * 4)`: every round's gathered bytes
+    equal `expected_gather_bytes` and m x the payload share of
+    `measured_bytes_per_round`; each shard's own decode on its stream
+    equals the server's decode bit for bit; the run through the kernels
+    equals the run through the plain versions bit for bit."""
+    from repro_torch.fed.transport import dense_payload_bytes, measured_bytes_per_round
+    from repro_torch.launch.multihost import expected_gather_bytes
+
+    prob, x0 = _async_setup(cuda_device)
+    rounds, m = 3, 16
+    mr = _multihost(prob, mk(), [cuda_device] * ASYNC_SHARDS)
+    xm, ym = mr.run(x0, x0, rounds)
+    assert len({s.cuda_stream for s in mr._streams}) == ASYNC_SHARDS
+    meas = measured_bytes_per_round(mk(), x0, x0, 4, include_headers=False)
+    share = (meas - 2 * dense_payload_bytes((x0, x0))) // 2
+    assert [e["gathered_payload_bytes"] for e in mr.wire_log] == [
+        expected_gather_bytes(mk(), x0, x0, m)] * rounds == [m * share] * rounds
+    own_x, own_y = mr.decode_on_shards()
+    cx, cy = mr.last_exchange["decoded"]
+    torch.cuda.synchronize()
+    assert torch.equal(own_x, cx) and torch.equal(own_y, cy)
+    pr = _multihost(prob, mk(use_kernel=False), [cuda_device] * ASYNC_SHARDS,
+                    update_fn=core.default_update)
+    xp, yp = pr.run(x0, x0, rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(xm, xp) and torch.equal(ym, yp)
+    assert mr.wire_log == pr.wire_log
+
+
+def test_cuda_multihost_exact_gt_matches_sync(cuda_device):
+    """FedGDA-GT through the multi-host runner on 4 streams within rtol
+    1e-9 / atol 1e-12 of the sync runner on the card; its gather is the
+    dense correction stack."""
+    from repro_torch import fed
+
+    prob, x0 = _async_setup(cuda_device)
+    xs, ys = fed.FederatedRunner.from_strategy(prob.loss, "fedgda_gt",
+                                               prob.agent_data, 4, 1e-4).run(x0, x0, 5)
+    mr = _multihost(prob, GradientTracking(), [cuda_device] * ASYNC_SHARDS)
+    xm, ym = mr.run(x0, x0, 5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xm, xs, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(ym, ys, rtol=1e-9, atol=1e-12)
+    assert [e["gathered_payload_bytes"] for e in mr.wire_log] == [2 * 16 * 128 * 8] * 5
+
+
+@pytest.mark.parametrize("wire", [False, True], ids=["dense", "wire"])
+def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeypatch,
+                                                            wire):
+    """Every shard's gt_update, and its compress_correction (dense) or
+    pack_payload (wire) launches, go to its own stream: 4 distinct streams
+    of the runner, the same count on each, none on the server's; the
+    server's unpack_payload launches stay on the server's stream.  The
+    spies sit at the callers' names (a wrapper counts its launches through
+    its own)."""
+    import collections
+
+    from repro_torch.fed import strategies, transport
+    from repro_torch.kernels import ops
+
+    seen = collections.defaultdict(list)
+
+    def spying(mod, attr):
+        real = getattr(mod, attr)
+
+        def spy(z, *a, **kw):
+            seen[attr].append(torch.cuda.current_stream(z.device).cuda_stream)
+            return real(z, *a, **kw)
+
+        monkeypatch.setattr(mod, attr, spy)
+
+    spying(ops, "gt_update")
+    spying(strategies, "compress_leaf")
+    spying(transport, "pack_payload_2d")
+    spying(transport, "unpack_payload_2d")
+    prob, x0 = _async_setup(cuda_device)
+    K, rounds = 4, 2
+    mr = _multihost(prob, CompressedGT(compression_ratio=0.25, wire_transport=wire),
+                    [cuda_device] * ASYNC_SHARDS)
+    mr.run(x0, x0, rounds)
+    torch.cuda.synchronize()
+    handles = [s.cuda_stream for s in mr._streams]
+    assert len(set(handles)) == ASYNC_SHARDS
+    server = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert server not in handles
+    assert collections.Counter(seen["gt_update"]) == {h: K * 2 * rounds
+                                                      for h in handles}
+    shard_kernel = "pack_payload_2d" if wire else "compress_leaf"
+    assert collections.Counter(seen[shard_kernel]) == {h: 2 * rounds for h in handles}
+    assert collections.Counter(seen["unpack_payload_2d"]) == (
+        {server: 2 * ASYNC_SHARDS * rounds} if wire else {})

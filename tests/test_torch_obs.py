@@ -1,6 +1,6 @@
 """The port's observability (`repro_torch.obs`) and the runtimes' telemetry,
-tests/test_obs.py ported (`TestMultiHostTelemetry` waits for the
-multi-host runtime, ROADMAP Queue 1 item 10), on JAX's data (CPU; the
+tests/test_obs.py ported (`TestMultiHostTelemetry` is in
+tests/test_torch_multihost.py, with the multi-host runtime), on JAX's data (CPU; the
 port's async shards on `devices=["cpu"] * 8`, JAX's on `fed_devices`):
 
   * a sink changes no iterate: `telemetry=None` and a full sink (every
