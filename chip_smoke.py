@@ -19,20 +19,30 @@ schedules drawn on the card, membership-aware FedGDA-GT) through the same
 runner and kernels, the O(active) sparse engine and the two-level pod tree
 (`sim.SparseElasticEngine`, at the mega preset's 1e6-agent registry and at
 the main path's width), the asynchronous runtime (agent shards on CUDA
-streams of the card) and the telemetry sink on the main path, and the
+streams of the card) and the telemetry sink on the main path, the
 serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
-`ssm_scan` kernels.  Every phase prints one JSON line (fig2 also the
+`ssm_scan` kernels, and federated adversarial LM training of zamba2-7b
+at full width (`repro_torch.launch.train`) through those kernels, their
+backward kernels `flash_attention_bwd` and `ssm_scan_bwd`, and
+`gt_update`.  Every phase prints one JSON line (fig2 also the
 reference's CSV table); any failed check
 exits non-zero without the final line.  The last two lines are the card's
 `nvidia-smi` name and power limit, then
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Phases (in this order, but for the host-bound ones on JAX's numbers,
-theorem1 through runner_resume, device_draws, stochastic_claims,
-elastic_claims and sparse_claims, which run right after setup, before any
-profiler session slows the host):
+    python3 chip_smoke.py --claims
+
+runs, after setup, only the host-bound phases on JAX's numbers (theorem1,
+sec51, prop1, compressed_claims, fig2, agnostic, stochastic_claims,
+elastic_claims, sparse_claims; 11-12 minutes on an H100), which a run
+without arguments leaves out to stay well inside a 1,200 s call; both
+runs end with the same two lines.
+
+Phases (in this order, but for runner_resume and device_draws, which run
+right after setup, before any profiler session slows the host; the
+phases of `--claims` are marked so):
   setup      card, power limit, torch / CUDA versions, kernel build time
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
              (every dtype pair, both signs) and a ragged 2^20+17; times
@@ -63,20 +73,35 @@ profiler session slows the host):
              from a profile); each instantiation's registers, spills and
              shared memory, and a check of the library's SASS that the
              f32 route issues TF32 and the bf16 route bf16 MMAs
+  flash_attention_bwd
+             the backward kernel vs autograd of the plain version (each
+             gradient within 1e-4 of its max |value|, two calls bitwise
+             equal, the forward bitwise unchanged by its LSE output) at
+             zamba2-7b's training shape [16, 32, 128, 112] causal, gemma2-2b's
+             local layer (hd 256, window 4096, softcap 50) at S 1024 and a
+             GQA case; times against the operations bound (10 hd flops a
+             pair at 67 TFLOP/s) and SDPA's backward without softcap or
+             window
   ssm_scan   kernel vs plain version (y and final state, tolerance 1e-4) at
              the serving shape (B=4, S=512, D=7168, N=64, Mamba-2's
              per-head decay unexpanded), a Mamba-1 shape (S=2048, D=8192,
              N=16, full decay), ragged sizes and a non-zero state0; times
              against the bytes bound
-  theorem1   d=20, m=8, K=10, eta=2e-4, 1000 rounds through the kernel in
+  ssm_scan_bwd
+             the backward kernel vs autograd of the plain version, as
+             above, at zamba2-7b's training shape [16, 128, 112, 64, 64]
+             (per-head decay, d da reduced in the kernel) and
+             falcon-mamba-7b's Mamba-1 layout at S 2048; times against the
+             bytes bound
+  theorem1   [--claims] d=20, m=8, K=10, eta=2e-4, 1000 rounds through the kernel in
              f64 on the committed JAX fixture: final gap < 1e-18, steady
              linear rate, per-round gaps within rtol 1e-5 of JAX's
-  sec51      the paper's Sec 5.1 scale (d=50, n=500, m=20, K=20, eta=1e-4,
+  sec51      [--claims] the paper's Sec 5.1 scale (d=50, n=500, m=20, K=20, eta=1e-4,
              750 rounds): FedGDA-GT's gap < 1e-8 x Local SGDA's and GDA's
-  prop1      Appendix C toy: Local SGDA (K=10, eta=1e-3) reaches the
+  prop1      [--claims] Appendix C toy: Local SGDA (K=10, eta=1e-3) reaches the
              closed-form fixed point, where the Prop 1 residual vanishes;
              K=1 GDA (eta=0.1) reaches the minimax point 3.3
-  compressed_claims
+  compressed_claims [--claims]
              the compressed fixture runs through the kernels: per-round
              gaps within rtol 1e-5 of JAX's (Theorem 1 problem, 300
              rounds; d=6 quadratic, 1000 rounds) and the JAX package's
@@ -98,7 +123,7 @@ profiler session slows the host):
              moves exactly the LeafSpec price
   compressed_profile
              device time by kernel over one round of (b)
-  fig2       the paper's Sec 5.2 at its own size (d=20, n=100, m=10,
+  fig2       [--claims] the paper's Sec 5.2 at its own size (d=20, n=100, m=10,
              K=10, T=800, alpha 1, 5, 20) through the port's Fig 2 driver
              (`FederatedRunner` over JAX's data), one alpha after
              another: FedGDA-GT, Local SGDA and centralized projected GDA
@@ -106,7 +131,7 @@ profiler session slows the host):
              JAX's (ROBUST_X_RTOL, ROBUST_LOSS_RTOL), the claims of
              tests/test_paper_claims.py:260 and :286, gt_update launches
              T*(K-1)*2 an alpha; prints the reference's table
-  agnostic   Appendix A.2 on JAX's data (M=5, dim 8, n=80, shift 4, K=5,
+  agnostic   [--claims] Appendix A.2 on JAX's data (M=5, dim 8, n=80, shift 4, K=5,
              eta=2e-3, 1500 rounds): lambda on the simplex, the worst
              agent's risk below uniform FL's, lambda and risks within
              1e-12 of JAX's
@@ -123,7 +148,7 @@ profiler session slows the host):
              for bit, normal within DRAW_ULP (CUDA's log1p is another
              implementation), key batches equal to stacked single-key
              draws; the time of one noisy main-path round's draw
-  stochastic_claims
+  stochastic_claims [--claims]
              on JAX's fixture data: Section 4's separation (d=10, m=6,
              K=10, eta=5e-4, 1500 rounds; noiseless SAGDA, Local SGDA,
              SAGDA at sigma 0.1 and 0.01) per round within rtol 1e-5 of
@@ -145,7 +170,7 @@ profiler session slows the host):
              launches of a round under the profiler, and the draws' share
              of them and of the device time (one broadcast draws several
              rounds in one pass: per round is a pass over its rounds)
-  elastic_claims
+  elastic_claims [--claims]
              the elastic benchmark on JAX's fixture (m=10, d=30, K=10,
              eta=1e-4, seed 0): the four scenarios' schedules (1200
              rounds) drawn on the card equal JAX's bit for bit, and a
@@ -159,7 +184,7 @@ profiler session slows the host):
              checkpointed at round 100 and resumed with its elastic_state
              and strategy_state equals 200 uninterrupted rounds bit for
              bit; every table row's active-set bytes equal JAX's
-  sparse_claims
+  sparse_claims [--claims]
              the O(active) engine on JAX's fixture (`sparse_rounds.npz`):
              the m=8 runs of the six families (d=16, K=5, 4 active, T=6,
              seed 0; schedules bitwise JAX's): the dense fallback bitwise
@@ -243,11 +268,24 @@ profiler session slows the host):
   serve_profile
              device time by kernel over one prefill and one decode step,
              and the device's busy share of each
+  train_main_path
+             zamba2-7b at full width cut to 6 layers (634 M parameters),
+             seed 0, 4 agents x batch 4 x seq 128, K 8, eta 2e-3, remat, 3
+             FedGDA-GT rounds through `launch.train.train`: round-0
+             gradients through the kernels vs the plain versions, leaf by
+             leaf (1e-4 of the leaf's max |g|, or the least of three 1e-6
+             embedding perturbations' effect on that leaf where larger),
+             loss finite and falling, |delta| <= 1, launches a round
+             exactly `train_launch_prediction`'s; ms a round, the training
+             run's peak memory beside its prediction from the round-0 gate
+             (agents cut to 2 before training where the prediction at 4
+             passes 72 GB) and the gate's, and one profiled round
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes; its launches on each stochastic_main_path,
-             elastic_main_path, elastic_claims, sparse_main_path,
-             sparse_claims, async_main_path and telemetry_main_path run)
+             elastic_main_path, sparse_main_path, async_main_path,
+             multihost_main_path, train_main_path and telemetry_main_path
+             run)
 """
 from __future__ import annotations
 
@@ -278,7 +316,8 @@ COMPRESSED_ROUNDS = {"thm1": 300, "quad6": 1000}  # of 500 and 1500
 LARGE = (16384, 4096)
 #: the CUDA sources the port builds (src/repro_torch/kernels/csrc/<name>.cu)
 KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload",
-                  "flash_attention", "ssm_scan")
+                  "flash_attention", "flash_attention_bwd", "ssm_scan",
+                  "ssm_scan_bwd")
 #: H100 SXM dense peak rates by input type (data sheet): f32 outside the
 #: tensor cores, bf16 on them; the bound of the model kernels' operations
 PEAK_FLOPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
@@ -295,6 +334,19 @@ FLASH_MMA = {"float": "HMMA.1688.F32.TF32", "__nv_bfloat16": "HMMA.16816.F32.BF1
 FLASH_TOL_F32 = 1e-5
 FLASH_REL_BF16 = 2.0 ** -7
 SCAN_TOL = 1e-4
+#: the backward kernels against autograd of the plain versions, each
+#: gradient within this share of its largest |value| (f32 sums in another
+#: order; the kernels' own sums run in a fixed order, so two calls agree
+#: bit for bit)
+GRAD_REL = 1e-4
+#: the LM training main path: zamba2-7b at full width, cut to the one
+#: depth that applies its shared attention block once, with JAX
+#: train.py's defaults, 3 rounds of FedGDA-GT, remat on
+#: (`make_adversarial_loss`'s default); agents cut to 2, before
+#: training, only where `train_peak_prediction` at 4 passes
+#: TRAIN_MEMORY_CUT bytes of device memory
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_ROUNDS = "zamba2-7b", 6, 3
+TRAIN_MEMORY_CUT = 72e9
 #: the serving path's logits against the plain path's, relative to the
 #: largest |logit|, at full width cut to 6 layers.  At all 81 layers the
 #: randomly initialised model amplifies f32-level differences ~1e4-fold
@@ -833,7 +885,9 @@ def _kernel_fns() -> dict:
             "pack_payload": kernels.pack_payload_2d,
             "unpack_payload": kernels.unpack_payload_2d,
             "flash_attention": kernels.flash_attention,
-            "ssm_scan": kernels.ssm_scan}
+            "flash_attention_bwd": kernels.flash_attention_bwd,
+            "ssm_scan": kernels.ssm_scan,
+            "ssm_scan_bwd": kernels.ssm_scan_bwd}
 
 
 def kernel_counts() -> dict:
@@ -1054,6 +1108,422 @@ def phase_ssm_scan(torch, card: str, shared: dict) -> dict:
         torch.cuda.empty_cache()
     shared.setdefault("timing", {})["ssm_scan"] = out
     return out
+
+
+# ------------------------------------------------- the backward kernels
+def flash_bwd_cases():
+    """(tag, B, H, KV, S, hd, causal, window, softcap): zamba2-7b's shared
+    block at the training shape (4 agents x batch 4), gemma2-2b's local
+    layer at S 1024 and a grouped case."""
+    return [
+        ("train_zamba2", 16, 32, 32, 128, 112, True, 0, 0.0),
+        ("gemma2_local", 2, 8, 4, 1024, 256, True, 4096, 50.0),
+        ("gqa", 2, 16, 4, 512, 64, True, 0, 0.0),
+    ]
+
+
+def grad_errors(torch, got, want) -> list:
+    """Each gradient's max |got - want| over its max |want|."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def phase_flash_attention_bwd(torch, np, card: str, shared: dict) -> dict:
+    """The flash backward kernel against autograd of the plain version
+    (`torch.func.vjp`), each gradient within GRAD_REL of its max |value|,
+    two calls bitwise equal; the forward's outputs bitwise unchanged by
+    its LSE output; times against the operations bound (10 hd flops per
+    unmasked pair on the CUDA cores' f32 rate) and SDPA's backward where
+    one call computes the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (
+        _forward,
+        flash_attention_bwd,
+        plain_flash_attention_bwd,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    out = {"ptxas": [{k: u.get(k) for k in ("function", "registers",
+                                            "spill_store_bytes")}
+                     for u in _build.ptxas_usage("flash_attention_bwd")]}
+    for tag, B, H, KV, S, hd, causal, window, cap in flash_bwd_cases():
+        q = torch.randn(B, H, S, hd, generator=gen, device=DEVICE)
+        k, v = (torch.randn(B, KV, S, hd, generator=gen, device=DEVICE) for _ in range(2))
+        dout = torch.randn(B, H, S, hd, generator=gen, device=DEVICE)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = _forward(q, k, v, causal, window, cap, with_lse=True)
+        o_plain = _forward(q, k, v, causal, window, cap, with_lse=False)[0]
+        check(torch.equal(o, o_plain), f"flash {tag}: the LSE output moved the forward")
+        got = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, dout, **kw)
+        want = plain_flash_attention_bwd(q, k, v, dout, **kw)
+        torch.cuda.synchronize()
+        errs = grad_errors(torch, got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(max(errs) <= GRAD_REL, f"flash_attention_bwd {tag}: relative errors "
+                                      f"{errs} beyond {GRAD_REL}")
+        check(same, f"flash_attention_bwd {tag}: two calls differ")
+        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        del got, again, want
+        library, why = None, "null: the softcap and the window have no SDPA argument"
+        if cap == 0.0 and window == 0:
+            qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(
+                qr, kr, vr, is_causal=causal, enable_gqa=KV != H)
+            library = lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), dout,
+                                                  retain_graph=True)
+            why = (f"the backward of torch.nn.functional.scaled_dot_product_attention("
+                   f"is_causal={causal}, enable_gqa={KV != H}) (autograd.grad)")
+        moved = nbytes(q, k, v, o, dout, lse) + nbytes(q, k, v)  # dq, dk, dv
+        flops = 10 * hd * B * H * attention_pairs(np, S, S, causal, window)
+        t = time_case(torch, lambda: flash_attention_bwd(q, k, v, o, lse, dout, **kw),
+                      lambda: plain_flash_attention_bwd(q, k, v, dout, **kw), library,
+                      moved, reps=10, plain_reps=3, card=card)
+        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S["torch.float32"]))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        if library is not None:
+            t["library_kernels"] = sdpa_kernel_names(torch, library)
+        t.update(tag=tag, shape={"B": B, "H": H, "KV": KV, "S": S, "hd": hd},
+                 dtypes=["torch.float32"], causal=causal, window=window, softcap=cap,
+                 max_abs_err=max_abs, rel_err_dq_dk_dv=errs, tolerance_rel=GRAD_REL,
+                 bitwise_repeat=same, forward_bitwise_with_lse=True,
+                 peak_flops_per_s=PEAK_FLOPS_PER_S["torch.float32"], library=why)
+        out[tag] = t
+        del q, k, v, dout, o, lse, o_plain
+        library = None
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["flash_attention_bwd"] = out
+    return out
+
+
+def scan_bwd_cases():
+    """(tag, B, S, H, P, N, decay): zamba2-7b's Mamba-2 at the training
+    shape (per-head decay [B, S, H, 1, 1]) and falcon-mamba-7b's Mamba-1
+    layout at S 2048 (full decay)."""
+    return [
+        ("train_zamba2", 16, 128, 112, 64, 64, "head"),
+        ("mamba1_falcon", 1, 2048, 8192, 1, 16, "full"),
+    ]
+
+
+def phase_ssm_scan_bwd(torch, card: str, shared: dict) -> dict:
+    """The scan backward kernel against autograd of the plain version
+    (`torch.func.vjp` through its sequential loop), each gradient within
+    GRAD_REL of its max |value|, two calls bitwise equal; times against
+    the bytes bound; no single PyTorch call computes it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssm_scan import _launch, plain_ssm_scan_bwd, ssm_scan_bwd
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    out = {"ptxas": [{k: u.get(k) for k in ("function", "registers",
+                                            "spill_store_bytes")}
+                     for u in _build.ptxas_usage("ssm_scan_bwd")]}
+    for tag, B, S, H, P, N, decay in scan_bwd_cases():
+        da_shape = (B, S, H, 1, 1) if decay == "head" else (B, S, H, P, N)
+        da = torch.sigmoid(torch.randn(*da_shape, generator=gen, device=DEVICE))
+        dbx = 0.1 * torch.randn(B, S, H, P, N, generator=gen, device=DEVICE)
+        c = torch.randn(B, S, N, generator=gen, device=DEVICE)
+        dy = torch.randn(B, S, H, P, generator=gen, device=DEVICE)
+        dstate = torch.randn(B, H, P, N, generator=gen, device=DEVICE)
+        # the forward's chunk states, as the training path hands them over
+        chunks = (_launch(da.expand(dbx.shape), dbx, c, None, chunks=True)[2]
+                  if dbx.is_cuda else None)
+        got = ssm_scan_bwd(da, dbx, c, None, dy, dstate, chunks=chunks)
+        again = ssm_scan_bwd(da, dbx, c, None, dy, dstate, chunks=chunks)
+        want = plain_ssm_scan_bwd(da, dbx, c, None, dy, dstate)
+        torch.cuda.synchronize()
+        errs = grad_errors(torch, got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        check(max(errs) <= GRAD_REL, f"ssm_scan_bwd {tag}: relative errors "
+                                      f"{errs} beyond {GRAD_REL}")
+        check(same, f"ssm_scan_bwd {tag}: two calls differ")
+        check(tuple(got[0].shape) == da_shape, f"ssm_scan_bwd {tag}: d da "
+                                                f"{tuple(got[0].shape)}")
+        max_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        del again, want
+        torch.cuda.empty_cache()
+        moved = nbytes(da, dbx, c, dy, dstate, *got)
+        flops = 10 * B * S * H * P * N
+        t = time_case(torch, lambda: ssm_scan_bwd(da, dbx, c, None, dy, dstate,
+                                                  chunks=chunks),
+                      lambda: plain_ssm_scan_bwd(da, dbx, c, None, dy, dstate),
+                      None, moved, reps=10, plain_reps=1, card=card)
+        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S["torch.float32"]))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        t.update(tag=tag, shape={"B": B, "S": S, "H": H, "P": P, "N": N},
+                 da_shape=list(da_shape), dtypes=["torch.float32"],
+                 max_abs_err=max_abs, rel_err_da_dbx_c_state0=errs,
+                 tolerance_rel=GRAD_REL, bitwise_repeat=same,
+                 chunk_states_bytes=None if chunks is None else nbytes(chunks),
+                 library="null: no single PyTorch call computes the scan's gradient")
+        out[tag] = t
+        del da, dbx, c, dy, dstate, chunks, got
+        torch.cuda.empty_cache()
+    shared.setdefault("timing", {})["ssm_scan_bwd"] = out
+    return out
+
+
+def train_launch_prediction(cfg, K: int, leaves: int) -> dict:
+    """Kernel launches a FedGDA-GT round of the training main path makes
+    (written down in PERF.md before the first run): K gradient
+    evaluations (the anchor exchange and local steps 1..K-1; the fused
+    anchor step needs none), each a forward, remat's recompute and the
+    backward, plus one forward of the logged global loss; gt_update once
+    a leaf of x and y in each of the K - 1 local steps after the anchor
+    step."""
+    shared_blocks = cfg.num_layers // cfg.shared_attn_every
+    return {"flash_attention": (2 * K + 1) * shared_blocks,
+            "flash_attention_bwd": K * shared_blocks,
+            "ssm_scan": (2 * K + 1) * cfg.num_layers,
+            "ssm_scan_bwd": K * cfg.num_layers,
+            "gt_update": (K - 1) * leaves,
+            "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
+
+
+def phase_train_main_path(torch, np, card: str, shared: dict) -> dict:
+    """The LM training path through its entry point's loop
+    (`repro_torch.launch.train.train`): zamba2-7b at full width cut to 6
+    Mamba-2 layers and one shared attention block, f32 weights from seed
+    0, JAX train.py's defaults (4 agents, batch 4, seq 128, K 8, eta 2e-3,
+    heterogeneity 7), remat on, 3 rounds of FedGDA-GT.  Gates: at round 0
+    each agent's (gx, gy) through the kernels, leaf by leaf, within
+    GRAD_REL of the leaf's max |g| through the plain versions or, for a
+    leaf whose own f32 sensitivity is larger, within the least of what
+    three 1e-6 perturbations of the embeddings do to that same leaf's
+    plain gradients (the serve gate's rule; every leaf's error and the
+    perturbations' are reported); loss finite and falling, |delta| <= 1;
+    launches a round equal to `train_launch_prediction`.  The agents are
+    cut to 2 before training where `train_peak_prediction` at 4 passes
+    TRAIN_MEMORY_CUT."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    argv = ["--arch", TRAIN_ARCH, "--rounds", str(TRAIN_ROUNDS), "--log-every", "1",
+            "--device", DEVICE]
+    torch.cuda.empty_cache()
+    args = train.build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    run = train.setup(args, cfg, remat=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gate = _train_gate(torch, cfg, run, args.agents)
+    predicted = {m: train_peak_prediction(gate, m) for m in (args.agents, 2)}
+    if predicted[args.agents] > TRAIN_MEMORY_CUT:
+        del run
+        torch.cuda.empty_cache()
+        args = train.build_parser().parse_args(argv + ["--agents", "2"])
+        t0 = time.perf_counter()
+        run = train.setup(args, cfg, remat=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    res = _train_run(torch, np, train, cfg, args, run, shared)
+    res.update(setup_s=setup_s, **gate["report"],
+               predicted_peak_memory_bytes=predicted[args.agents],
+               predicted_peak_memory_bytes_by_agents=predicted,
+               agents_cut_to_2=args.agents == 2, card=card)
+    return res
+
+
+def train_peak_prediction(gate: dict, m: int) -> float:
+    """The training run's peak device memory at m agents, predicted from
+    the round-0 gate (written down in PERF.md before the first run that
+    tests it).  A FedGDA-GT local step (`core.engine.make_phases`) holds
+    the broadcast iterates, the current ones and the corrections (3 copies
+    a agent) and the server's point, the round's input and the mean
+    anchor gradient (3 copies).  On top comes, while the step's gradients
+    are formed, one gradient evaluation's own bytes (its activations,
+    remat's recompute and the m gradients it returns; measured at the
+    gate's agent count and scaled to m), or, while `gt_update` runs, the
+    gradients and the new iterates (2 copies a agent)."""
+    copy = gate["copy_bytes"]
+    return (3 * m + 3) * copy + max(gate["grad_bytes"] * m / gate["agents"], 2 * m * copy)
+
+
+def _train_gate(torch, cfg, run, m: int) -> dict:
+    """Round 0: every agent's gradients through the kernels and the plain
+    versions at the broadcast point, held leaf by leaf; and the bytes one
+    gradient evaluation of the kernels' path takes."""
+    from repro_torch.core.types import tree_broadcast_agents, tree_leaves, vmap_grad_xy
+    from repro_torch.problems import make_adversarial_loss
+
+    xs = tree_broadcast_agents(run.params, m)
+    ys = tree_broadcast_agents(run.delta, m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    g_kernel = vmap_grad_xy(run.loss)(xs, ys, run.data)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_bytes = torch.cuda.max_memory_allocated() - before
+    grad_launches = kernel_counts()
+    plain_loss = make_adversarial_loss(cfg, remat=True, use_kernel=False)
+    t0 = time.perf_counter()
+    g_plain = vmap_grad_xy(plain_loss)(xs, ys, run.data)
+    torch.cuda.synchronize()
+    plain_grad_s = time.perf_counter() - t0
+    flat_p = tree_leaves(g_plain.gx) + tree_leaves(g_plain.gy)
+    names = leaf_names(run.params) + ["delta"]
+    rel_k = leaf_rel_errors(tree_leaves(g_kernel.gx) + tree_leaves(g_kernel.gy), flat_p, m)
+    del g_kernel
+    # how far f32-level noise carries into these gradients: the plain path
+    # again with every embedding entry scaled by (1 + 1e-6 z), for a few
+    # draws of z (the serve gate's yardstick, PERTURB_*)
+    rel_pert = []
+    for seed in PERTURB_SEEDS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        with torch.no_grad():
+            noisy = xs["embed"] * (1 + PERTURB_REL * torch.randn(
+                xs["embed"].shape, generator=gen, device=DEVICE))
+        g_pert = vmap_grad_xy(plain_loss)(dict(xs, embed=noisy), ys, run.data)
+        del noisy
+        rel_pert.append(leaf_rel_errors(tree_leaves(g_pert.gx) + tree_leaves(g_pert.gy),
+                                        flat_p, m))
+        del g_pert
+    del xs, ys, g_plain, flat_p
+    gate_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    # each leaf against its own bound: GRAD_REL, or the least of what the
+    # perturbations do to that same leaf where that is larger
+    pert_min = [min(r[i] for r in rel_pert) for i in range(len(names))]
+    bound = [max(GRAD_REL, p) for p in pert_min]
+    over = [f"{names[i]} {rel_k[i]:.3e} > {bound[i]:.3e}"
+            for i in range(len(names)) if rel_k[i] > bound[i]]
+    check(not over, f"train_main_path: round-0 gradients through the kernels off the "
+                    f"plain versions' beyond each leaf's bound (max({GRAD_REL}, the least "
+                    f"of {len(PERTURB_SEEDS)} 1e-6 embedding perturbations' effect on "
+                    f"that leaf)): {over}")
+    past = {names[i]: {"kernel": rel_k[i], "bound": bound[i]}
+            for i in range(len(names)) if rel_k[i] > GRAD_REL}
+    worst = max(rel_k)
+    copy_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(run.params))
+    return {
+        "agents": m, "grad_bytes": grad_bytes, "copy_bytes": copy_bytes,
+        "report": {
+            "round0_grad_s": grad_s, "round0_plain_grad_s": plain_grad_s,
+            "round0_grad_launches": grad_launches,
+            "round0_grad_rel_err_max": worst,
+            "round0_grad_worst_leaf": names[rel_k.index(worst)],
+            "round0_grad_rel_err_by_leaf": dict(zip(names, rel_k)),
+            "round0_perturbed_plain_rel_err_min_by_leaf": dict(zip(names, pert_min)),
+            "round0_perturbed_plain_rel_err_max": [max(r) for r in rel_pert],
+            "round0_leaves_past_tolerance_rel": past,
+            "round0_leaves_within_tolerance_rel":
+                f"{len(names) - len(past)} of {len(names)}",
+            "round0_shared_attn_rel_err": {
+                n: {"kernel": rel_k[i], "perturbed_min": pert_min[i]}
+                for i, n in enumerate(names) if n.startswith("shared_attn.")},
+            "tolerance_rel": GRAD_REL,
+            "round0_gate_agents": m, "round0_grad_bytes": grad_bytes,
+            "round0_gate_peak_memory_bytes": gate_peak,
+        },
+    }
+
+
+def _train_run(torch, np, train, cfg, args, run, shared) -> dict:
+    """The main path's 3 rounds through `launch.train.train`, its gates,
+    and one more round under the profiler."""
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.models import num_params
+
+    n_params = num_params(run.params)
+    leaves = len(tree_leaves(run.params)) + len(tree_leaves(run.delta))
+    loss0 = float(run.global_loss(run.params, run.delta))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    res = train.train(args, run=run)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = train_launch_prediction(cfg, args.local_steps, leaves)
+    per_round = {k: n / args.rounds for k, n in launches.items()}
+    losses = [lv for _, lv, _ in res["log"]]
+    dnorm = float(torch.linalg.norm(res["delta"]["delta"]))
+    check(all(np.isfinite(losses)) and np.isfinite(loss0), f"train: losses {losses}")
+    check(losses[-1] < loss0, f"train: loss {loss0} -> {losses}")
+    check(dnorm <= 1.0 + 1e-6, f"train: |delta| = {dnorm}")
+    check(per_round == {k: float(v) for k, v in want.items()},
+          f"train: launches a round {per_round}, predicted {want}")
+    # one more round under the profiler: device time by kernel, busy share
+    rnd = train.make_round(run.loss, run.strategy, args.local_steps, args.eta,
+                           proj_y=train.delta_projection(1.0))
+    prof = profile_round(torch, lambda: rnd(res["params"], res["delta"], run.data),
+                         {"flash_attention": "flash_kernel",
+                          "flash_attention_bwd": "dkdv_kernel",
+                          "flash_attention_bwd_dq": "dq_kernel",
+                          "ssm_scan": "ssm_scan_kernel",
+                          "ssm_scan_bwd": "ssm_scan_bwd_kernel",
+                          "gt_update": "gt_update_kernel", "gemm": "gemm"})
+    shared["train"] = {"launches": launches}
+    del res["params"], res["delta"], run, rnd
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "d_inner": cfg.d_inner, "num_params": n_params, "leaves_x_y": leaves,
+        "agents": args.agents, "per_agent_batch": args.per_agent_batch,
+        "seq_len": args.seq_len, "K": args.local_steps, "eta": args.eta,
+        "rounds": args.rounds, "remat": True, "dtype": "f32",
+        "loss0": loss0, "losses": losses,
+        "delta_norm": dnorm, "ms_per_round": [s * 1e3 for s in res["round_s"]],
+        "launches": launches, "launches_per_round": per_round,
+        "predicted_launches_per_round": want, "peak_memory_bytes": peak,
+        "profile": prof,
+    }
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of a tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def leaf_rel_errors(got: list, want: list, m: int) -> list:
+    """Per leaf, the largest over the m agents of max |got - want| over
+    the agent's max |want|."""
+    return [max(float((a[i] - b[i]).abs().max()) / max(float(b[i].abs().max()), 1e-30)
+                for i in range(m)) for a, b in zip(got, want)]
+
+
+def bwd_entry(name: str, shared: dict, card: str) -> dict:
+    """The kernels-line entry of a backward kernel: its launches on the
+    training main path, its error and times at that path's shape, measured
+    in its own phase.  No TPU kernel: the JAX package differentiates its
+    plain attention and scan."""
+    source, replaces = BWD_KERNELS[name]
+    t = shared["timing"][name]["train_zamba2"]
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": shared["train"]["launches"][name],
+        "max_abs_err": t["max_abs_err"], "tolerance": t["tolerance_rel"],
+        "tolerance_is": "relative to each gradient's max |value|",
+        "shape": t["shape"], "dtypes": t["dtypes"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": t["library"], "card": card,
+    }
+
+
+#: the backward kernels: (source, what they stand beside)
+BWD_KERNELS = {
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none: no TPU backward kernel; JAX differentiates its plain attention "
+        "(src/repro/models/attention.py:51 _attend)"),
+    "ssm_scan_bwd": (
+        "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "none: no TPU backward kernel; JAX differentiates its plain scan "
+        "(src/repro/models/mamba.py:66 _chunked_scan)"),
+}
 
 
 def bound_from(moved: int, flops: int, flops_per_s: float) -> dict:
@@ -3296,7 +3766,8 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
         "library_ms": None, "library": "null: no single PyTorch call computes "
                                        "z + s*(g + c)", "card": card,
     }] + [compressed_entry(name, shared, card) for name in COMPRESSED_KERNELS] + [
-        model_entry(name, shared, card) for name in MODEL_KERNELS]
+        model_entry(name, shared, card) for name in MODEL_KERNELS] + [
+        bwd_entry(name, shared, card) for name in BWD_KERNELS]
     # the stochastic and elastic main paths' runs: each kernel's launches
     for entry in entries:
         entry["stochastic_main_path_launches"] = {
@@ -3317,18 +3788,10 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
             tag: run["launches"][entry["name"]]
             for tag, run in shared.get("multihost", {}).items()
             if isinstance(run, dict) and "launches" in run}
+        entry["train_main_path_launches"] = shared["train"]["launches"][entry["name"]]
         entry["telemetry_main_path_launches"] = (
             shared["telemetry"]["launches"][entry["name"]]
             if "telemetry" in shared else None)
-        entry["sparse_claims_launches"] = {
-            run: counts[entry["name"]]
-            for run, counts in shared.get("sparse_claims", {}).items()}
-        claims = shared.get("elastic_claims", {})
-        entry["elastic_claims_launches"] = {
-            **{f"flaky_{row}": run["launches"][entry["name"]]
-               for row, run in claims.get("rows", {}).items()},
-            **({"compressed_resume": claims["resume"]["launches"][entry["name"]]}
-               if "resume" in claims else {})}
     return entries
 
 
@@ -3376,7 +3839,11 @@ def model_entry(name: str, shared: dict, card: str) -> dict:
     }
 
 
-def main() -> int:
+def main(argv: list) -> int:
+    if argv not in ([], ["--claims"]):
+        print("usage: python3 chip_smoke.py [--claims]", file=sys.stderr)
+        return 2
+    claims_only = argv == ["--claims"]
     try:
         import numpy as np
         import torch
@@ -3423,32 +3890,32 @@ def main() -> int:
         return out
 
     run("setup", lambda: phase_setup(torch, card))
-    # the host-bound phases on JAX's numbers first: a torch.profiler
-    # session (pack_payload's device time, flash's library kernels, the
-    # profile phases) leaves every later launch ~20% slower on the host
-    # (PERF.md §6, PR 17)
-    run("theorem1", lambda: phase_theorem1(torch, np, fix))
-    run("sec51", lambda: phase_sec51(torch, np, fix))
-    run("prop1", lambda: phase_prop1(torch))
-    run("compressed_claims", lambda: phase_compressed_claims(torch, np))
-    run("fig2", lambda: phase_fig2(np, card))
-    run("agnostic", lambda: phase_agnostic(torch, np, card))
+    if claims_only:
+        # the host-bound phases on JAX's numbers, a call of their own
+        run("theorem1", lambda: phase_theorem1(torch, np, fix))
+        run("sec51", lambda: phase_sec51(torch, np, fix))
+        run("prop1", lambda: phase_prop1(torch))
+        run("compressed_claims", lambda: phase_compressed_claims(torch, np))
+        run("fig2", lambda: phase_fig2(np, card))
+        run("agnostic", lambda: phase_agnostic(torch, np, card))
+        run("stochastic_claims", lambda: phase_stochastic_claims(torch, np))
+        run("elastic_claims", lambda: phase_elastic_claims(torch, np))
+        run("sparse_claims", lambda: phase_sparse_claims(torch, np))
+        return finish(ok, t_start, card)
+    # the host-bound phases first: a torch.profiler session (pack_payload's
+    # device time, flash's library kernels, the profile phases) leaves
+    # every later launch ~20% slower on the host (PERF.md §6)
     run("runner_resume", lambda: phase_runner_resume(torch, card))
     run("device_draws", lambda: phase_device_draws(torch, np, card))
-    run("stochastic_claims", lambda: phase_stochastic_claims(torch, np))
-    claims = run("elastic_claims", lambda: phase_elastic_claims(torch, np))
-    if claims is not None:
-        shared["elastic_claims"] = claims["runs"]
-    sparse = run("sparse_claims", lambda: phase_sparse_claims(torch, np))
-    if sparse is not None:
-        shared["sparse_claims"] = sparse["launches"]
     run("gt_update", lambda: phase_gt_update(torch, card, cases))
     run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
     if "payloads" in shared:
         run("unpack_payload", lambda: phase_unpack_payload(torch, card, shared))
     run("flash_attention", lambda: phase_flash_attention(torch, np, card, shared))
+    run("flash_attention_bwd", lambda: phase_flash_attention_bwd(torch, np, card, shared))
     run("ssm_scan", lambda: phase_ssm_scan(torch, card, shared))
+    run("ssm_scan_bwd", lambda: phase_ssm_scan_bwd(torch, card, shared))
     run("main_path", lambda: phase_main_path(
         torch, card, shared, dim=4096, samples=8192, agents=16, K=10, rounds=10))
     if "state" in shared:
@@ -3492,12 +3959,21 @@ def main() -> int:
         run("serve_profile", lambda: phase_serve_profile(torch, shared))
         del shared["serve"]  # the parameters (26 GB)
         torch.cuda.empty_cache()
+    trained = run("train_main_path", lambda: phase_train_main_path(torch, np, card, shared))
     if ("state" in shared and "compressed" in shared and served is not None
-            and len(shared.get("timing", {})) == 5):
+            and trained is not None and len(shared.get("timing", {})) == 7):
         kernels = run("kernels", lambda: kernel_entries(
             torch, shared["launches"], shared["state"], card, shared))
         if kernels is not None:
             emit({"kernels": kernels})
+    return finish(ok, t_start, card)
+
+
+def finish(ok: bool, t_start: float, card: str) -> int:
+    """The total's line; if every phase passed, the card's line and the
+    result line last."""
+    import torch
+
     emit({"phase": "total", "ok": ok, "s": time.perf_counter() - t_start})
     if not ok:
         return 1
@@ -3509,4 +3985,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

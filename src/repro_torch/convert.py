@@ -167,15 +167,17 @@ def sparse_tracker_from_numpy(tracker: dict, device: DeviceLike = None):
     return out
 
 
-def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
-                            dtype: Optional[torch.dtype] = None):
+def model_tree_from_numpy(cfg, tree: Any, device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> dict:
     """The JAX package's model parameters (`jax.tree.map(np.asarray,
-    params)` of `repro.models.init_params`) as the port's `ModelParams` on
-    `device` (default CUDA).  JAX stacks each pattern slot's layers
-    ([n_per, ...] under "blocks/{j}_{kind}"); layer gi of the port is
-    period gi // len(pattern) of slot gi % len(pattern)."""
-    from .models.transformer import ModelParams
-
+    params)` of `repro.models.init_params`) as the port's tree of plain
+    tensors on `device` (default CUDA): {"layers": [one dict per layer],
+    "final_norm", "embed", "shared_attn" (zamba2)}, what the LM training
+    path differentiates (`ModelParams.tree()`'s layout).  JAX stacks each
+    pattern slot's layers ([n_per, ...] under "blocks/{j}_{kind}"); layer
+    gi of the port is period gi // len(pattern) of slot gi % len(pattern).
+    JAX's delta ({"delta": [d_model]}) and token batches come across with
+    `tree_from_numpy`."""
     device = resolve_device(device)
     per = len(cfg.pattern)
     layers = []
@@ -189,4 +191,13 @@ def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
            "embed": tensor_from_numpy(tree["embed"], device, dtype)}
     if "shared_attn" in tree:
         out["shared_attn"] = tree_from_numpy(tree["shared_attn"], device, dtype)
-    return ModelParams.from_tree(cfg, out)
+    return out
+
+
+def model_params_from_numpy(cfg, tree: Any, device: DeviceLike = None,
+                            dtype: Optional[torch.dtype] = None):
+    """The JAX package's model parameters as the port's `ModelParams` on
+    `device` (default CUDA), from `model_tree_from_numpy`."""
+    from .models.transformer import ModelParams
+
+    return ModelParams.from_tree(cfg, model_tree_from_numpy(cfg, tree, device, dtype))

@@ -559,6 +559,9 @@ def make_phases(
             else:
                 xs = agent_where(gates[k], xs1, xs)
                 ys = agent_where(gates[k], ys1, ys)
+            # freed before the next step's gradients are formed: each is
+            # m copies of the model
+            del g, xs1, ys1
         return dataclasses.replace(rs, xs=xs, ys=ys)
 
     def aggregate(rs):

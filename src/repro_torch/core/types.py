@@ -154,8 +154,10 @@ def vmap_grad_xy(loss: LossFn) -> Callable[[Pytree, Pytree, Pytree], SaddleField
             grads = torch.autograd.grad(
                 vloss(xr, yr, data).sum(), leaves, allow_unused=True
             )
+        # contiguous, as the fused update kernel takes them (a model's
+        # einsum gradients can come back permuted; a no-op elsewhere)
         grads = iter(
-            torch.zeros_like(u) if gv is None else gv
+            torch.zeros_like(u) if gv is None else gv.contiguous()
             for u, gv in zip(leaves, grads)
         )
         gx = tree_map(lambda _: next(grads), xs)

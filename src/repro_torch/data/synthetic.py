@@ -1,26 +1,51 @@
 """Federated heterogeneous synthetic data (port of
 `repro/data/synthetic.py`).
 
-Dirichlet mixture weights (`dirichlet_partition_weights`) are the
+Two heterogeneity dials coexist here:
+
+  * the integer `heterogeneity` knob of `federated_token_batches` — a
+    deterministic per-agent vocabulary shift, on seed-exact token draws
+    (`data/tokens.py`);
+  * Dirichlet mixture weights (`dirichlet_partition_weights`) are the
 standard federated non-iid model (Hsu et al. 2019): each agent draws its
 component mixture from Dirichlet(alpha), so alpha -> 0 gives near-one-hot
 (maximally heterogeneous) agents and alpha -> inf the iid limit;
-`heterogeneity_index` scores a weight matrix on [0, 1).
-
-The draws come from a `torch.Generator`: the same distribution as the
-JAX package's, not the same numbers (as in `problems/quadratic.py`).  To
-run on JAX's draws, carry them over as numpy (`convert.py`).
+`heterogeneity_index` scores a weight matrix on [0, 1).  Its draws come
+from a `torch.Generator`: the same distribution as the JAX package's,
+not the same numbers (as in `problems/quadratic.py`).  To run on JAX's
+draws, carry them over as numpy (`convert.py`).
 """
 from __future__ import annotations
 
 import torch
 
-from ..device import not_ported
+from .. import prng
+from ..core.types import tree_map
+from ..device import DeviceLike
+from .tokens import synthetic_lm_batch
 
 
-def federated_token_batches(*args, **kwargs):
-    raise not_ported("data.federated_token_batches (needs data/tokens.py)",
-                     "Queue 1 item 12")
+def federated_token_batches(
+    key: torch.Tensor,
+    num_agents: int,
+    per_agent_batch: int,
+    seq_len: int,
+    vocab_size: int,
+    heterogeneity: int = 0,
+    device: DeviceLike = None,
+) -> dict:
+    """Agent-stacked LM batches: leaves shaped [m, B_local, S] on `device`
+    (default CUDA), equal to JAX's for the same `prng` key.
+
+    heterogeneity shifts each agent's token marginal by
+    `agent_index * heterogeneity` vocabulary slots (0 = iid agents)."""
+    keys = prng.split(key, num_agents)
+    batches = [
+        synthetic_lm_batch(keys[i], per_agent_batch, seq_len, vocab_size,
+                           skew=i * heterogeneity, device=device)
+        for i in range(num_agents)
+    ]
+    return tree_map(lambda *xs: torch.stack(xs), *batches)
 
 
 def dirichlet_partition_weights(
@@ -52,8 +77,6 @@ def heterogeneity_index(weights: torch.Tensor) -> torch.Tensor:
 
 def partition_among_agents(data: dict, num_agents: int) -> dict:
     """Split the leading batch axis of every leaf into [m, B/m, ...]."""
-    from ..core.types import tree_map
-
     def split(u):
         b = u.shape[0]
         assert b % num_agents == 0, (b, num_agents)

@@ -30,15 +30,17 @@ NVCC_FLAGS = (
 #: flags of each source beyond NVCC_FLAGS.  The federated kernels equal
 #: their plain versions bit for bit, so no multiply-add may be contracted
 #: into an FMA; the model kernels are held to a tolerance and keep FMA
-#: contraction.  Flash attention (24 (dtype, head-dim) instantiations)
-#: and pack_payload (16 staged and 8 streaming ones) let nvcc spread
-#: their optimisation over the cores.
+#: contraction.  Flash attention (24 (dtype, head-dim) instantiations,
+#: its backward 12), and pack_payload (16 staged and 8 streaming ones)
+#: let nvcc spread their optimisation over the cores.
 SOURCE_FLAGS = {
     "gt_update": ("-fmad=false",),
     "compress_correction": ("-fmad=false",),
     "pack_payload": ("-fmad=false", "--split-compile=0"),
     "flash_attention": ("--split-compile=0",),
+    "flash_attention_bwd": ("--split-compile=0",),
     "ssm_scan": (),
+    "ssm_scan_bwd": (),
 }
 
 #: nvcc's output (ptxas register / spill report) of the builds this

@@ -85,6 +85,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Sq] per-row log-sum-exp (natural units), or null
   int B, H, KV, Sq, Skv, hd;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int causal, window;
@@ -553,6 +554,11 @@ __global__ void __launch_bounds__(C::THREADS) flash_kernel(const Params p) {
     const float inv = __fdividef(1.f, fmaxf(sum, 1e-30f));
     const int qi = qw + g + 8 * r;
     if (qi >= p.Sq) continue;
+    // the backward's softmax statistic: log(sum_j e^x_j), from the running
+    // max and sum in log2 units; a store beside the output, which it
+    // leaves unchanged
+    if (p.lse != nullptr && t4 == 0)
+      p.lse[(long long)bh * p.Sq + qi] = (m[r] + log2f(fmaxf(sum, 1e-30f))) * 0.69314718055994531f;
     T* const orow = op + qi * p.oss;
 #pragma unroll
     for (int nn = 0; nn < C::NT; ++nn) {
@@ -629,12 +635,15 @@ int vec_bytes(const void* ptr, const long long* strides, int es) {
 // Launch on `stream`; returns a cudaError_t (0 on success).  q [B, H, Sq,
 // hd], k/v [B, KV, Skv, hd] and out [B, H, Sq, hd], each with unit stride
 // over hd and the (batch, head, seq) strides given in `strides` (12
-// values: q, k, v, out), all of one dtype.  Shapes the kernel does not
+// values: q, k, v, out), all of one dtype.  lse, if not null, receives
+// each row's log-sum-exp of its logits (f32, natural units, contiguous
+// [B, H, Sq]) for the backward (`flash_attention_bwd.cu`).  Shapes the kernel does not
 // take (hd outside 1..256, KV not dividing H) return
 // cudaErrorInvalidValue without launching; an empty problem launches
 // nothing.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int H,
+                                      const void* v, void* out, float* lse,
+                                      int B, int H,
                                       int KV, int Sq, int Skv, int hd,
                                       const long long* strides, int causal,
                                       int window, float softcap, float scale,
@@ -645,7 +654,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return 0;
   const int es = dtype == kF32 ? 4 : 2;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = out;
+  p.q = q; p.k = k; p.v = v; p.o = out; p.lse = lse;
   p.B = B; p.H = H; p.KV = KV; p.Sq = Sq; p.Skv = Skv; p.hd = hd;
   p.qsb = strides[0]; p.qsh = strides[1]; p.qss = strides[2];
   p.ksb = strides[3]; p.ksh = strides[4]; p.kss = strides[5];

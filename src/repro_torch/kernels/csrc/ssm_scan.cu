@@ -22,7 +22,9 @@
 // U steps before it computes them, so that each warp keeps U steps of
 // reads in flight (a dependent load per step would leave the card
 // latency-bound).  Built with FMA contraction (no -fmad=false): y and the
-// state are held to a tolerance.
+// state are held to a tolerance.  When asked, it also stores the state
+// entering every chunk of T steps, from which the backward
+// (`ssm_scan_bwd.cu`) recomputes h_{t-1}.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +40,7 @@ struct Params {
   const float* state0;  // nullptr: start from zero
   float* y;
   float* state;
+  float* chunks;  // [B, ceil(S / T), H, P, N] states entering each chunk, or null
   int B, S, H, P, N;
   long long da_sb, da_ss, da_sh, da_sp, da_sn;
   long long c_sb, c_ss, c_sn;
@@ -51,10 +54,12 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// L lanes per row (a power of two up to 32), NPT states per lane
+// L lanes per row (a power of two up to 32), NPT states per lane; the
+// backward's chunks are T = 32 / NPT steps long (`ssm_scan_bwd.cu`)
 template <int L, int NPT>
 __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(const Params p) {
   constexpr int RPW = 32 / L;  // rows per warp
+  constexpr int T = 32 / NPT;  // a multiple of U
   const int lane = threadIdx.x & 31;
   const int li = lane & (L - 1);
   const long long HP = (long long)p.H * p.P;
@@ -82,9 +87,22 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(const Params p) {
     const int n = li + j * L;
     h[j] = (p.state0 != nullptr && n < N) ? p.state0[r * N + n] : 0.f;
   }
+  // the state entering each chunk of T steps, for the backward
+  const long long nch = (p.S + T - 1) / T;
+  float* chunk = p.chunks == nullptr ? nullptr : p.chunks + (b * nch * HP + hp) * N;
+  auto save = [&](int t) {
+    if (chunk != nullptr && live && t % T == 0) {
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) {
+        const int n = li + j * L;
+        if (n < N) chunk[(long long)(t / T) * HP * N + n] = h[j];
+      }
+    }
+  };
 
   int t = 0;
   for (; t + U <= p.S; t += U) {
+    save(t);
     float a[U][NPT], bx[U][NPT], cv[U][NPT];
 #pragma unroll
     for (int u = 0; u < U; ++u)
@@ -110,6 +128,7 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(const Params p) {
     }
   }
   for (; t < p.S; ++t) {
+    save(t);
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < NPT; ++j) {
@@ -149,17 +168,22 @@ int launch(const Params& p, cudaStream_t stream) {
 // dbx [B, S, H, P, N] contiguous; da read at da_strides (5 values, b, s,
 // h, p, n; 0 broadcasts); c at c_strides (b, s, n); state0 [B, H, P, N]
 // contiguous or null; y [B, S, H, P] and state [B, H, P, N] contiguous
-// outputs.  N outside 1..256 returns cudaErrorInvalidValue without
+// outputs; chunks, if not null, receives the state entering every chunk
+// of T steps (T = 32 / ceil(N / 32) rounded up to a power of two's
+// states per lane: 32 for N <= 32, 16 for N <= 64, 8 for N <= 128, else
+// 4), contiguous [B, ceil(S / T), H, P, N], for the backward.  N outside 1..256 returns cudaErrorInvalidValue without
 // launching; an empty problem launches nothing (and leaves state unset).
 extern "C" int ssm_scan_launch(const float* da, const float* dbx,
                                const float* c, const float* state0, float* y,
-                               float* state, int B, int S, int H, int P, int N,
+                               float* state, float* chunks, int B, int S,
+                               int H, int P, int N,
                                const long long* da_strides,
                                const long long* c_strides, void* stream) {
   if (N < 1 || N > 256) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || P <= 0 || S < 0) return 0;
   Params p;
   p.da = da; p.dbx = dbx; p.c = c; p.state0 = state0; p.y = y; p.state = state;
+  p.chunks = chunks;
   p.B = B; p.S = S; p.H = H; p.P = P; p.N = N;
   p.da_sb = da_strides[0]; p.da_ss = da_strides[1]; p.da_sh = da_strides[2];
   p.da_sp = da_strides[3]; p.da_sn = da_strides[4];

@@ -1,4 +1,4 @@
-"""Blocked online-softmax (flash) attention, forward only.
+"""Blocked online-softmax (flash) attention, and its gradient.
 
 Port of `repro/kernels/flash_attention.py` `flash_attention`.  The CUDA
 kernel (`csrc/flash_attention.cu`) computes both products on Hopper's
@@ -16,18 +16,31 @@ are masked inside), reads q/k/v through their strides, and does
 grouped-query attention natively: k/v carry KV heads and q-head h reads
 kv-head h // (H // KV), with no repeated K/V.
 
-On a CPU tensor `flash_attention` runs the plain version
-(`ref.flash_attention_ref`); on a CUDA tensor it launches the kernel or
-raises.  `flash_attention.launches` counts kernel launches only.
+The gradient (f32 only; the JAX package trains in f32) is the kernel of
+`csrc/flash_attention_bwd.cu` (`flash_attention_bwd`), which has no TPU
+counterpart: JAX differentiates its plain attention.  The forward then
+also leaves each row's log-sum-exp, from which the backward recomputes
+P.  `flash_attention` is a `torch.autograd.Function` wherever a gradient
+may be asked for (an input that requires one, or a `torch.func.vmap`
+over it): its `vmap` rule folds the mapped axis into the batch axis, so
+the kernels see plain tensors and the backward is an ordinary autograd
+node.  Without either it calls the forward directly (the serving path).
+
+On a CPU tensor every function here runs its plain version
+(`ref.flash_attention_ref`; the backward is `torch.func.vjp` of it); on a
+CUDA tensor it launches the kernel or raises.  `flash_attention.launches`
+and `flash_attention_bwd.launches` count kernel launches only.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from . import _build, ref
+from ._functorch import fold, traced, unfold
 
 #: dtype codes of the C launcher (`csrc/flash_attention.cu` `DType`)
 DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
@@ -40,7 +53,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), i, i,
                        ctypes.c_float, ctypes.c_float, i, p]
         fn.restype = i
@@ -89,15 +102,20 @@ def _check(q, k, v, window: int, softcap: float) -> None:
                         f"{list(DTYPE_CODES)}, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention: head_dim must have unit stride")
+    _check_layout(q, k, v)
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention: window {window} and softcap "
                          f"{softcap} must be >= 0")
-    if max(B * H, Sq, Skv) > _INT32:
+
+
+def _check_layout(*ts) -> None:
+    """What the kernels need of the tensors' layout: unit stride over hd,
+    sizes within int32 (checked again on what a `vmap` rule unwraps)."""
+    if any(t.stride(-1) != 1 for t in ts):
+        raise ValueError("flash_attention: head_dim must have unit stride")
+    B, H, Sq = ts[0].shape[:3]
+    if max(B * H, Sq, ts[1].shape[2]) > _INT32:
         raise ValueError("flash_attention: sizes beyond int32")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: forward only (no backward kernel)")
 
 
 def flash_attention(
@@ -109,7 +127,9 @@ def flash_attention(
     other strides), in f32, returned in q's dtype with q's layout.
     Masks use tile-index positions (query i at i, key j at j): causal
     i >= j, window i - j < window (window > 0); softcap > 0 caps the
-    logits as softcap * tanh(s / softcap).
+    logits as softcap * tanh(s / softcap).  Differentiable in f32 (bf16
+    raises TypeError where a gradient may be asked for), under
+    `torch.func.vmap` too.
 
     A query that no key may see (with a window, when
     i >= Skv + window - 1) gets an answer that depends on the tiling, as
@@ -120,20 +140,37 @@ def flash_attention(
     keys from the one holding key max(0, q0 - window + 1) through the one
     holding Skv - 1 (under causal: its last query), and a warp skips
     those wholly after its last query (causal) or before its first
-    query's first key (window).  No model path asks for such a row."""
+    query's first key (window).  No model path asks for such a row, and
+    such rows are outside the gradient's contract: the backward gives
+    them dq = 0 and no share of dk / dv."""
     window, softcap = int(window), float(softcap)
     _check(q, k, v, window, softcap)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if traced(q, k, v):
+        if q.dtype != torch.float32:
+            raise TypeError("flash_attention: the gradient is f32 only (the JAX "
+                            f"package trains in f32), got {q.dtype}")
+        return _FlashAttention.apply(q, k, v, bool(causal), window, softcap)[0]
+    return _forward(q, k, v, causal, window, softcap, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, softcap, with_lse: bool):
+    """(out, lse or None): the plain version on the CPU, the kernel on a
+    card."""
+    if q.device.type == "cpu":
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out = ref.flash_attention_ref(q, k, v, **kw)
+        return out, (ref.flash_attention_lse_ref(q, k, v, **kw) if with_lse else None)
+    _check_layout(q, k, v)
     out = torch.empty_like(q)  # q's strides when q is dense
     if out.stride(-1) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     B, H, Sq, hd = q.shape
+    lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B * H * Sq == 0:
-        return out
+        return out, lse
     KV, Skv = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -142,6 +179,7 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, H, KV, Sq, Skv, hd, strides, int(bool(causal)), window,
             softcap, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype], stream,
         )
@@ -149,7 +187,121 @@ def flash_attention(
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) of the forward, differentiable in q, k, v; lse (the
+    rows' log-sum-exp, saved for the backward) is not."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap):
+        return _forward(q, k, v, causal, window, softcap, with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        n = info.batch_size
+        qf, kf, vf = (fold(t, d, n) for t, d in zip((q, k, v), in_dims[:3]))
+        out, lse = _FlashAttention.apply(qf, kf, vf, causal, window, softcap)
+        return (unfold(out, n), unfold(lse, n)), (0, 0)
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.c_float,
+            ctypes.c_float, p]
+        fn.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plain_flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, *,
+    causal: bool = True, window: int = 0, softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the plain version (`ref.flash_attention_ref`) for
+    the cotangent dout, by `torch.func.vjp`, on any device."""
+    def fwd(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+
+    return torch.func.vjp(fwd, q, k, v)[1](dout)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+    window: int = 0, softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` at q, k, v (f32, its layouts)
+    for the cotangent dout [B, H, Sq, hd], given the forward's out and
+    lse [B, H, Sq].  On a CPU tensor the plain version's gradient
+    (`plain_flash_attention_bwd`, which needs neither out nor lse); on a
+    CUDA tensor the kernel, which sums in a fixed order (two calls give
+    the same bits), or raises.  dq / dk / dv come back contiguous."""
+    window, softcap = int(window), float(softcap)
+    _check(q, k, v, window, softcap)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: f32 only, got {q.dtype}")
+    if dout.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} and out "
+                         f"{tuple(out.shape)} must be q's {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return plain_flash_attention_bwd(q, k, v, dout, causal=causal,
+                                         window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} "
+                         f"must be f32 {(B, H, Sq)}")
+    dout = dout if dout.stride(-1) == 1 else dout.contiguous()
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    lse = lse.contiguous()
+    _check_layout(q, k, v, out, dout)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=q.device)
+                  for t in (q, k, v))
+    if B * H * Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    ts = (q, k, v, out, dout, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(*(s for t in ts for s in t.stride()[:3]))
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv, delta)),
+            B, H, KV, Sq, Skv, hd, strides, int(bool(causal)), window, softcap,
+            1.0 / math.sqrt(hd), stream,
+        )
+    if err != 0:
+        raise RuntimeError("flash_attention_bwd kernel launch failed: "
+                           + lib.flash_attention_bwd_error_string(err).decode())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

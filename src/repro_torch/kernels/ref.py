@@ -331,6 +331,25 @@ def flash_attention_ref(
 
     JAX's `ref.flash_attention_ref` takes repeated heads and computes the
     scores in the inputs' dtype; in f32 the two are the same function."""
+    s, vf = _flash_scores(q, k, v, causal, window, softcap)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+    window: int = 0, softcap: float = 0.0,
+) -> torch.Tensor:
+    """Each query row's log-sum-exp of its masked, capped logits (natural
+    units), [B, H, Sq] in f32: the statistic the flash kernel's forward
+    leaves for its backward."""
+    s, _ = _flash_scores(q, k, v, causal, window, softcap)
+    return torch.logsumexp(s, dim=-1).float()
+
+
+def _flash_scores(q, k, v, causal: bool, window: int, softcap: float):
+    """The masked, capped logits [B, H, Sq, Skv] and the repeated v, in the
+    compute dtype."""
     H, KV, hd = q.shape[1], k.shape[1], q.shape[-1]
     if H % KV:
         raise ValueError(f"flash_attention_ref: {H} q heads over {KV} kv heads")
@@ -352,9 +371,7 @@ def flash_attention_ref(
         mask &= qp >= kp
     if window > 0:
         mask &= qp - kp < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), vf
 
 
 def ssm_scan_ref(
@@ -373,8 +390,10 @@ def ssm_scan_ref(
     h = (torch.zeros(B, H, P, N, dtype=torch.float32, device=dbx.device)
          if state0 is None else state0.float())
     da, dbx, c = da.float(), dbx.float(), c_coef.float()
-    y = torch.empty(B, S, H, P, dtype=torch.float32, device=dbx.device)
+    ys = []  # stacked, not written in place: the loop runs under vmap too
     for t in range(S):
         h = da[:, t] * h + dbx[:, t]
-        y[:, t] = (h * c[:, t, None, None, :]).sum(-1)
+        ys.append((h * c[:, t, None, None, :]).sum(-1))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.empty(B, S, H, P, dtype=torch.float32, device=dbx.device))
     return y, h

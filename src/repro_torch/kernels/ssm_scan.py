@@ -1,4 +1,5 @@
-"""Selective scan: h_t = da_t * h_{t-1} + dbx_t,  y_t = <h_t, c_t>.
+"""Selective scan: h_t = da_t * h_{t-1} + dbx_t,  y_t = <h_t, c_t>, and
+its gradient.
 
 Port of `repro/kernels/ssm_scan.py` `ssm_scan`.  The CUDA kernel
 (`csrc/ssm_scan.cu`) gives each (batch, head, channel) row a group of
@@ -9,9 +10,20 @@ alone, from zero; the serving path fills its SSM cache with the final
 state).  `da` is read through its strides, so Mamba-2's per-head decay
 [B, S, H, 1, 1] is never expanded to dbx's size.
 
-On a CPU tensor `ssm_scan` runs the plain version (`ref.ssm_scan_ref`);
-on a CUDA tensor it launches the kernel or raises.  `ssm_scan.launches`
-counts kernel launches only.
+The gradient is the kernel of `csrc/ssm_scan_bwd.cu` (`ssm_scan_bwd`),
+which has no TPU counterpart: JAX differentiates its plain scan.  The
+forward then also stores the state entering every chunk of T steps
+(`chunk_len`), from which the backward recomputes h_{t-1}; d da comes
+back in da's own shape, reduced inside the kernel where da broadcasts.
+`ssm_scan` is a `torch.autograd.Function` wherever a gradient may be
+asked for (an input that requires one, or a `torch.func.vmap` over it):
+its `vmap` rule folds the mapped axis into the batch axis, so the kernels
+see plain tensors.  Without either it calls the forward directly.
+
+On a CPU tensor every function here runs its plain version
+(`ref.ssm_scan_ref`; the backward is `torch.func.vjp` of it); on a CUDA
+tensor it launches the kernel or raises.  `ssm_scan.launches` and
+`ssm_scan_bwd.launches` count kernel launches only.
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+from ._functorch import fold, traced, unfold
 
 MAX_STATE = 256
 _INT32 = 2**31 - 1
@@ -32,26 +45,34 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.POINTER(ctypes.c_longlong)
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ll, ll, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ll, ll, p]
         fn.restype = i
         lib.ssm_scan_error_string.argtypes = [i]
         lib.ssm_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _as_5d(da, dbx, c_coef, state0):
-    """The operands in the kernel's layout: dbx [B, S, H, P, N], da a
-    broadcast view of dbx's shape (stride 0 where it broadcasts, never
-    copied), c [B, S, N], state0 [B, H, P, N] or None."""
+def chunk_len(N: int) -> int:
+    """Steps per chunk of the backward for N states (`csrc/ssm_scan.cu`:
+    32 / the states a lane holds)."""
+    per_lane = 1 if N <= 32 else -(-N // 32)
+    return 32 // (1 << (per_lane - 1).bit_length())
+
+
+def _as_5d(da, dbx, c_coef, state0, expand: bool = True):
+    """The operands in the kernel's layout: dbx [B, S, H, P, N], da of
+    dbx's rank with each axis 1 or dbx's (with `expand`, a stride-0 view
+    of dbx's shape, never copied), c [B, S, N], state0 [B, H, P, N] or
+    None."""
     nd = dbx.dim()
     if nd not in (3, 4, 5):
         raise ValueError("ssm_scan: dbx must be [S, D, N], [B, S, D, N] or "
                          f"[B, S, H, P, N], got {tuple(dbx.shape)}")
-    try:
-        da = da.broadcast_to(dbx.shape)
-    except RuntimeError as e:
+    if da.dim() > nd or any(a not in (1, b) for a, b in zip(
+            da.shape[::-1], dbx.shape[::-1])):
         raise ValueError(f"ssm_scan: da {tuple(da.shape)} does not broadcast "
-                         f"to dbx {tuple(dbx.shape)}") from e
+                         f"to dbx {tuple(dbx.shape)}")
+    da = da.reshape((1,) * (nd - da.dim()) + tuple(da.shape))
     if nd == 3:  # one sequence, as the TPU kernel takes it
         da, dbx, c_coef = da[None], dbx[None], c_coef[None]
         state0 = None if state0 is None else state0[None]
@@ -65,6 +86,8 @@ def _as_5d(da, dbx, c_coef, state0):
     if state0 is not None and tuple(state0.shape) != (B, H, P, N):
         raise ValueError(f"ssm_scan: state0 {tuple(state0.shape)} must be "
                          f"{(B, H, P, N)}")
+    if expand:
+        da = da.expand(dbx.shape)
     return da, dbx, c_coef, state0
 
 
@@ -82,8 +105,6 @@ def _check(da, dbx, c, state0) -> None:
         raise ValueError(f"ssm_scan: state size {N} outside 1..{MAX_STATE}")
     if max(B, S, H, P) > _INT32:
         raise ValueError("ssm_scan: sizes beyond int32")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError("ssm_scan: forward only (no backward kernel)")
 
 
 def ssm_scan(
@@ -99,11 +120,20 @@ def ssm_scan(
         -> y [B, S, H, P] (Mamba-2's heads).
 
     da broadcasts to dbx and is read through its strides; dbx and state0
-    are contiguous; state0 None starts from zero."""
+    are contiguous; state0 None starts from zero.  Differentiable in all
+    four (the final state's cotangent seeds the reverse recurrence),
+    under `torch.func.vmap` too."""
+    if dbx.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssm_scan: no kernel for device {dbx.device}")
+    operands = [t for t in (da, dbx, c_coef, state0) if t is not None]
+    if traced(*operands):
+        shape = dbx.shape
+        da5, dbx5, c5, s05 = _as_5d(da, dbx, c_coef, state0, expand=False)
+        _check(da5.expand(dbx5.shape), dbx5, c5, s05)
+        y, state, _ = _SSMScan.apply(da5, dbx5, c5, s05)
+        return y.reshape(shape[:-1]), state.reshape(_state_shape(shape))
     if dbx.device.type == "cpu":
         return plain_ssm_scan(da, dbx, c_coef, state0)
-    if dbx.device.type != "cuda":
-        raise ValueError(f"ssm_scan: no kernel for device {dbx.device}")
     return _in_layout(_launch, da, dbx, c_coef, state0)
 
 
@@ -134,15 +164,21 @@ def _state_shape(shape) -> tuple:
     return (shape[0], *shape[2:])
 
 
-def _launch(da, dbx, c, state0):
+def _launch(da, dbx, c, state0, chunks: bool = False):
+    """(y, state), and with `chunks` the states entering every chunk of
+    `chunk_len(N)` steps [B, ceil(S / T), H, P, N], from the kernel."""
     B, S, H, P, N = dbx.shape
     y = torch.empty(B, S, H, P, dtype=torch.float32, device=dbx.device)
     state = torch.empty(B, H, P, N, dtype=torch.float32, device=dbx.device)
+    T = chunk_len(N)
+    saved = (torch.empty(B, -(-S // T), H, P, N, dtype=torch.float32,
+                         device=dbx.device) if chunks else None)
+    out = (y, state) if not chunks else (y, state, saved)
     if B * H * P == 0:
-        return y, state
+        return out
     if S == 0:
         state.copy_(state0 if state0 is not None else torch.zeros_like(state))
-        return y, state
+        return out
     da_strides = (ctypes.c_longlong * 5)(*da.stride())
     c_strides = (ctypes.c_longlong * 3)(*c.stride())
     lib = _library()
@@ -151,14 +187,161 @@ def _launch(da, dbx, c, state0):
         err = lib.ssm_scan_launch(
             da.data_ptr(), dbx.data_ptr(), c.data_ptr(),
             None if state0 is None else state0.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, P, N,
+            y.data_ptr(), state.data_ptr(),
+            None if saved is None else saved.data_ptr(), B, S, H, P, N,
             da_strides, c_strides, stream,
         )
     if err != 0:
         raise RuntimeError("ssm_scan kernel launch failed: "
                            + lib.ssm_scan_error_string(err).decode())
     ssm_scan.launches += 1
-    return y, state
+    return out
 
 
 ssm_scan.launches = 0
+
+
+class _SSMScan(torch.autograd.Function):
+    """(y, state, chunk states) over the 5-D layout with da of dbx's rank
+    (each axis 1 or dbx's); differentiable in da, dbx, c and state0."""
+
+    @staticmethod
+    def forward(da, dbx, c, state0):
+        dae = da.expand(dbx.shape)
+        if dbx.device.type == "cpu":
+            y, state = ref.ssm_scan_ref(dae, dbx, c, state0)
+            return y, state, torch.empty(0)
+        return _launch(dae, dbx, c, state0, chunks=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        da, dbx, c, state0 = inputs
+        ctx.mark_non_differentiable(output[2])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(da, dbx, c, state0, output[2])
+
+    @staticmethod
+    def backward(ctx, dy, dstate, _dchunks):
+        da, dbx, c, state0, chunks = ctx.saved_tensors
+        dda, ddbx, dc, ds0 = ssm_scan_bwd(da, dbx, c, state0, dy, dstate,
+                                          chunks=chunks)
+        return dda, ddbx, dc, (None if state0 is None else ds0)
+
+    @staticmethod
+    def vmap(info, in_dims, da, dbx, c, state0):
+        n = info.batch_size
+        d_da, d_dbx, d_c, d_s0 = in_dims
+        dbx_f = fold(dbx, d_dbx, n)
+        B = dbx_f.shape[0] // n
+        da = da.expand(n, *da.shape) if d_da is None else da.movedim(d_da, 0)
+        # a broadcast da's batch axis may be 1: repeat it to B, then fold
+        da = da.expand(n, B, *da.shape[2:]).reshape(n * B, *da.shape[2:])
+        y, state, chunks = _SSMScan.apply(da, dbx_f, fold(c, d_c, n),
+                                          fold(state0, d_s0, n))
+        if chunks.dim() == 1:  # the plain version saves none
+            return (unfold(y, n), unfold(state, n), chunks), (0, 0, None)
+        return (unfold(y, n), unfold(state, n), unfold(chunks, n)), (0, 0, 0)
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("ssm_scan_bwd")
+    fn = lib.ssm_scan_bwd_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [p] * 12 + [i] * 7 + [ll, ll, p]
+        fn.restype = i
+        lib.ssm_scan_bwd_parts.argtypes = [i, i, i]
+        lib.ssm_scan_bwd_parts.restype = ctypes.c_longlong
+        lib.ssm_scan_bwd_error_string.argtypes = [i]
+        lib.ssm_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None):
+    """(d da, d dbx, d c, d state0) of the plain version
+    (`ref.ssm_scan_ref` over the 5-D layout, da of dbx's rank broadcast)
+    for the cotangents dy [B, S, H, P] and dstate [B, H, P, N] (None:
+    zero), by `torch.func.vjp`; d da in da's shape, d state0 zero-based
+    when state0 is None."""
+    s0 = torch.zeros(dbx.shape[0], *dbx.shape[2:], dtype=torch.float32,
+                     device=dbx.device) if state0 is None else state0
+
+    def fwd(da, dbx, c, s0):
+        return ref.ssm_scan_ref(da.expand(dbx.shape), dbx, c, s0)
+
+    (y, state), vjp = torch.func.vjp(fwd, da, dbx, c, s0)
+    dy = torch.zeros_like(y) if dy is None else dy
+    dstate = torch.zeros_like(state) if dstate is None else dstate
+    return vjp((dy, dstate))
+
+
+def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
+    """(d da, d dbx, d c, d state0) of the scan over the 5-D layout (da of
+    dbx's rank, each axis 1 or dbx's) for the cotangents dy [B, S, H, P]
+    and dstate [B, H, P, N] (None: zero); d da comes back in da's shape,
+    d state0 is the state's whether or not state0 was given.  On a CPU
+    tensor the plain version's (`plain_ssm_scan_bwd`); on a CUDA tensor
+    the kernel, which sums in a fixed order (two calls give the same
+    bits), or raises.  `chunks` are the forward's chunk states
+    (`_launch(..., chunks=True)`), which the kernel needs."""
+    if dbx.device.type == "cpu":
+        return plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate)
+    if dbx.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd: no kernel for device {dbx.device}")
+    B, S, H, P, N = dbx.shape
+    if da.dim() != 5 or any(a not in (1, b) for a, b in zip(da.shape, dbx.shape)):
+        raise ValueError(f"ssm_scan_bwd: da {tuple(da.shape)} must have dbx's "
+                         f"rank, each axis 1 or dbx's {tuple(dbx.shape)}")
+    dae = da.expand(dbx.shape)
+    _check(dae, dbx, c, state0)
+    nch = -(-S // chunk_len(N))
+    if chunks is None or tuple(chunks.shape) != (B, nch, H, P, N):
+        raise ValueError(f"ssm_scan_bwd: the forward's chunk states [B, {nch}, H, P, N] "
+                         "are needed on a card")
+    dev = dbx.device
+    if dy is None:
+        dy = torch.zeros(B, S, H, P, dtype=torch.float32, device=dev)
+    dy = dy.contiguous()
+    dstate = None if dstate is None else dstate.contiguous()
+    if tuple(dy.shape) != (B, S, H, P) or (
+            dstate is not None and tuple(dstate.shape) != (B, H, P, N)):
+        raise ValueError("ssm_scan_bwd: cotangents of the wrong shape")
+    mode = 0 if da.shape[4] == N else 1  # da full over the states, or not
+    reduce_p = mode == 1 and da.shape[3] == 1 and P > 1
+    empty = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
+    ddbx = empty(B, S, H, P, N)
+    dda = empty(B, S, H, P, N) if mode == 0 else empty(B, S, H, P)
+    dda_heads = empty(B, S, H) if reduce_p else None
+    dc = empty(B, S, N)
+    ds0 = empty(B, H, P, N)
+    if B * H * P * S == 0:
+        return (torch.zeros_like(da), ddbx.zero_(), dc.zero_(),
+                ds0.copy_(torch.zeros_like(ds0) if dstate is None else dstate))
+    lib = _bwd_library()
+    parts = int(lib.ssm_scan_bwd_parts(H, P, N))
+    dc_part = empty(B, parts, S, N)
+    da_strides = (ctypes.c_longlong * 5)(*dae.stride())
+    c_strides = (ctypes.c_longlong * 3)(*c.stride())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ssm_scan_bwd_launch(
+            dae.data_ptr(), dbx.data_ptr(), c.data_ptr(), chunks.data_ptr(),
+            dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
+            ddbx.data_ptr(), dda.data_ptr(),
+            None if dda_heads is None else dda_heads.data_ptr(), dc.data_ptr(),
+            dc_part.data_ptr(), ds0.data_ptr(), B, S, H, P, N, mode,
+            int(reduce_p), da_strides, c_strides, stream,
+        )
+    if err != 0:
+        raise RuntimeError("ssm_scan_bwd kernel launch failed: "
+                           + lib.ssm_scan_bwd_error_string(err).decode())
+    ssm_scan_bwd.launches += 1
+    if reduce_p:
+        dda = dda_heads.view(B, S, H, 1, 1)
+    elif mode == 1:
+        dda = dda.view(B, S, H, P, 1)
+    return dda.sum_to_size(da.shape), ddbx, dc, ds0
+
+
+ssm_scan_bwd.launches = 0

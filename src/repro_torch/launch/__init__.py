@@ -1,5 +1,6 @@
-"""Entry points of the port: `launch/serve.py` (the serving entry point)
-and `launch/multihost.py` (the multi-host federated launch path:
+"""Entry points of the port: `launch/serve.py` (the serving entry point),
+`launch/train.py` (federated adversarial LM training) and
+`launch/multihost.py` (the multi-host federated launch path:
 `init_distributed`, `MultiHostRunner` and the packed-payload layout)."""
 from .multihost import (
     MultiHostRunner,

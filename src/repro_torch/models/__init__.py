@@ -1,9 +1,11 @@
-"""The model zoo's forward path (port of `repro/models`): configs come
-from `repro_torch.configs`; `chunked_lm_loss` waits for the training
-slice."""
+"""The model zoo (port of `repro/models`): the forward path, the chunked
+LM loss and remat; configs come from `repro_torch.configs`."""
 from .frontends import batch_struct, random_batch
+from .layers import cross_entropy
 from .transformer import (
     ModelParams,
+    checkpoint,
+    chunked_lm_loss,
     embed_inputs,
     forward,
     init_caches,
@@ -14,6 +16,9 @@ from .transformer import (
 
 __all__ = [
     "ModelParams",
+    "checkpoint",
+    "chunked_lm_loss",
+    "cross_entropy",
     "embed_inputs",
     "forward",
     "init_caches",

@@ -10,7 +10,9 @@ over the new K/V alone.  That is JAX's function wherever prefill fills an
 empty cache from one contiguous run of positions: JAX attends over the
 whole cache with the empty slots masked, and a masked score weighs
 exactly zero.  A one-token decode step against the cache stays plain
-(`_attend`), as JAX computes it outside any Pallas kernel.
+(`_attend`), as JAX computes it outside any Pallas kernel.  Training
+differentiates the same call: the wrapper is an autograd Function whose
+backward is the flash backward kernel on the card.
 
 Caches are updated in place: the K/V/pos buffers a cache holds are
 written, and the returned cache holds the same buffers (JAX returns

@@ -2,8 +2,8 @@
 functions on tensors and parameter dicts, with JAX's names and math.
 
 Parameters live in `nn.ParameterDict`s (see `transformer.init_params`),
-which the functions read like JAX's dicts.  `cross_entropy` is ported
-with the training slice."""
+or in plain dicts of tensors (`ModelParams.tree()`, what training
+differentiates); the functions read both like JAX's dicts."""
 from __future__ import annotations
 
 import math
@@ -13,8 +13,9 @@ from torch import nn
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter of the serving path (no gradient: only the forward pass
-    is ported)."""
+    """A parameter of the model's modules, with no gradient of its own:
+    training differentiates the engine's copies of the tensors
+    (`ModelParams.tree()`), not the modules."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -64,3 +65,10 @@ def unembed(h: torch.Tensor, table: torch.Tensor, softcap: float = 0.0) -> torch
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token CE; logits [..., V] float32, labels [...] int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return torch.mean(logz - gold)

@@ -11,7 +11,9 @@ scan: the kernel carries the state in registers over the whole sequence,
 so no chunking is needed, computes y_t = <h_t, c_t> itself (JAX's y
 einsum) and returns the final state that fills the cache.  Mamba-2's
 per-head decay is handed over unexpanded.  The one-token decode step stays
-plain, as in JAX.
+plain, as in JAX.  Training differentiates the same call: the wrapper is
+an autograd Function whose backward is the scan's backward kernel on the
+card, d da reduced to the per-head shape inside it.
 
 The depthwise causal convolution is written as W shifted multiply-adds:
 no cuDNN, so no TF32 on the card.

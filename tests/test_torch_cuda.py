@@ -12,6 +12,7 @@ a machine without JAX, without the repository's JAX conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 import itertools
+import math
 
 import pytest
 import torch
@@ -1271,3 +1272,211 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
     assert collections.Counter(seen[shard_kernel]) == {h: 2 * rounds for h in handles}
     assert collections.Counter(seen["unpack_payload_2d"]) == (
         {server: 2 * ASYNC_SHARDS * rounds} if wire else {})
+
+
+# ------------------------------------------------- the backward kernels
+GRAD_REL = 1e-4  # of each gradient's max |value|
+
+
+def _grad_close(got, want, what="", floor=0.0):
+    """got within GRAD_REL of want's max |value|; where the exact gradient
+    is 0 throughout (a causal row that sees one key has dq = dk = 0), of
+    `floor`, the gradient's size as its operands set it."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = float(want.abs().max()) or max(floor, 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= GRAD_REL * scale, f"{what}: max |err| {err:.3e} > {GRAD_REL} x {scale:.3e}"
+
+
+def _flash_grads(q, k, v, dout, kw):
+    from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
+
+    out, lse = _forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], with_lse=True)
+    return flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, KV, Sq, Skv, hd, causal, window, softcap, layout)
+    (2, 4, 4, 128, 128, 112, True, 0, 0.0, "dense"),       # zamba2's hd
+    (1, 8, 4, 300, 300, 256, True, 4096, 50.0, "dense"),   # gemma2's local
+    (1, 8, 2, 200, 200, 64, True, 50, 0.0, "model"),        # GQA, strided
+    (2, 2, 1, 37, 100, 32, False, 0, 0.0, "dense"),         # Sq < Skv, MQA
+    (1, 2, 2, 150, 130, 48, False, 40, 20.0, "model"),      # window, softcap
+    (1, 4, 2, 77, 77, 33, True, 0, 5.0, "dense"),           # ragged hd
+    (1, 2, 2, 1, 9, 160, True, 0, 0.0, "dense"),            # one query, one key
+    (1, 2, 2, 1, 9, 160, False, 0, 0.0, "dense"),           # one query
+], ids=["zamba2", "gemma2-local", "gqa-model", "mqa", "window-cap", "hd33", "sq1",
+        "sq1-full"])
+def test_cuda_flash_attention_bwd_equals_plain(cuda_device, case):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        plain_flash_attention_bwd,
+    )
+
+    B, H, KV, Sq, Skv, hd, causal, window, softcap, layout = case
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * hd)
+
+    def make(heads, S):
+        if layout == "model":  # [B, S, heads, hd] read through a transpose
+            return torch.randn(B, S, heads, hd, generator=gen, device=cuda_device).transpose(1, 2)
+        return torch.randn(B, heads, S, hd, generator=gen, device=cuda_device)
+
+    q, k, v, dout = make(H, Sq), make(KV, Skv), make(KV, Skv), make(H, Sq)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    flash_attention_bwd.launches = 0
+    got = _flash_grads(q, k, v, dout, kw)
+    again = _flash_grads(q, k, v, dout, kw)
+    assert flash_attention_bwd.launches == 2
+    want = plain_flash_attention_bwd(q, k, v, dout, **kw)
+    big = lambda t: float(t.abs().max())
+    floor = big(dout) * big(v) * max(big(q), big(k)) / math.sqrt(hd)
+    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+        _grad_close(g, w, name, floor)
+        assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def test_cuda_flash_attention_lse_leaves_the_output_bitwise(cuda_device):
+    from repro_torch.kernels.flash_attention import _forward
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for hd, dt, window, softcap in ((112, torch.float32, 0, 0.0),
+                                    (256, torch.float32, 64, 50.0),
+                                    (64, torch.bfloat16, 0, 0.0)):
+        q, k, v = (torch.randn(2, 4, 333, hd, generator=gen, device=cuda_device).to(dt)
+                   for _ in range(3))
+        plain, none = _forward(q, k, v, True, window, softcap, with_lse=False)
+        got, lse = _forward(q, k, v, True, window, softcap, with_lse=True)
+        assert none is None and torch.equal(plain, got)
+        want = ref.flash_attention_lse_ref(q.float(), k.float(), v.float(), causal=True,
+                                           window=window, softcap=softcap)
+        _close(lse, want, 1e-5)
+
+
+def test_cuda_flash_attention_bwd_offsets_past_int32(cuda_device):
+    """q, k, v, out and dout as views of one buffer of more than 2^31
+    floats, the second batch entry past element 2^31."""
+    from repro_torch.kernels.flash_attention import plain_flash_attention_bwd
+
+    B, H, S, hd = 2, 2, 64, 64
+    per = H * S * hd
+    bstride = (1 << 31) + 64
+    try:
+        buf = torch.empty(bstride + 5 * per, device=cuda_device)
+    except torch.cuda.OutOfMemoryError:
+        pytest.skip("needs 8.6 GB of device memory")
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    views = []
+    for i in range(5):
+        t = buf.as_strided((B, H, S, hd), (bstride, S * hd, hd, 1), i * per)
+        t.copy_(torch.randn(B, H, S, hd, generator=gen, device=cuda_device))
+        views.append(t)
+    q, k, v, _, dout = views
+    kw = dict(causal=True, window=0, softcap=0.0)
+    got = _flash_grads(q, k, v, dout, kw)
+    want = plain_flash_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     dout.contiguous(), **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _grad_close(g, w, name)
+    del buf, views, q, k, v, dout
+
+
+def test_cuda_flash_attention_function_under_vmap_equals_a_loop(cuda_device):
+    """The agents' losses vmapped and one backward: the Function folds
+    the agent axis into the batch, equal to each agent's own gradient."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    A, B, S, H, KV, hd = 3, 2, 96, 4, 2, 112
+    q, k, v, w = (torch.randn(A, B, S, n, hd, generator=gen, device=cuda_device)
+                  for n in (H, KV, KV, H))
+
+    def loss(q, k, v, w):
+        return (grouped_flash_attention(q, k, v, causal=True, window=40) * w).sum()
+
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    got = torch.autograd.grad(torch.func.vmap(loss)(*leaves, w).sum(), leaves)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (1, 1)
+    for i in range(A):
+        one = [t[i].clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(loss(*one, w[i]), one)
+        for g, wv in zip(got, want):
+            _grad_close(g[i], wv)
+    with pytest.raises(TypeError, match="f32"):
+        b = q[0].bfloat16().requires_grad_()
+        grouped_flash_attention(b, b, b)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, H, P, N, decay, layout)
+    (4, 128, 12, 64, 64, "head", 5),    # Mamba-2 (zamba2's head_p and N)
+    (1, 300, 200, 1, 16, "full", 5),    # Mamba-1, ragged S
+    (2, 33, 7, 3, 5, "full", 5),        # ragged, N < 32
+    (2, 19, 5, 2, 100, "head", 5),      # N > 64
+    (1, 17, 3, 4, 256, "head", 5),      # the largest state
+    (2, 40, 96, 1, 16, "chan", 4),      # 4-D layout, da [B, S, D, 1]
+    (1, 50, 6, 1, 8, "full", 3),        # one sequence
+], ids=["mamba2", "mamba1", "ragged", "n100", "n256", "4d", "3d"])
+@pytest.mark.parametrize("start", ["zero", "state0"])
+def test_cuda_ssm_scan_bwd_equals_plain(cuda_device, case, start):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    B, S, H, P, N, decay, nd = case
+    gen = torch.Generator(device=cuda_device).manual_seed(S * N + nd)
+    shapes = {5: (B, S, H, P, N), 4: (B, S, H, N), 3: (S, H, N)}
+    dbx_shape = shapes[nd]
+    da_shape = {"head": (B, S, H, 1, 1), "full": dbx_shape,
+                "chan": (B, S, H, 1)}[decay]
+    da = torch.sigmoid(torch.randn(*da_shape, generator=gen, device=cuda_device)) * 0.95
+    dbx = torch.randn(*dbx_shape, generator=gen, device=cuda_device) * 0.1
+    c = torch.randn(*((B, S, N) if nd > 3 else (S, N)), generator=gen, device=cuda_device)
+    s0 = (torch.randn(*_state(dbx_shape), generator=gen, device=cuda_device)
+          if start == "state0" else None)
+    leaves = [t.clone().requires_grad_() for t in (da, dbx, c) + ((s0,) if s0 is not None else ())]
+    wy = torch.randn(*dbx_shape[:-1], generator=gen, device=cuda_device)
+    ws = torch.randn(*_state(dbx_shape), generator=gen, device=cuda_device)
+
+    def grads(scan):
+        args = leaves + ([None] if s0 is None else [])
+        y, st = scan(*args)
+        return torch.autograd.grad((y * wy).sum() + (st * ws).sum(), leaves)
+
+    from repro_torch.kernels.ssm_scan import plain_ssm_scan
+
+    ssm_scan_bwd.launches = 0
+    got, again = grads(ssm_scan), grads(ssm_scan)
+    assert ssm_scan_bwd.launches == 2
+    want = grads(plain_ssm_scan)
+    for name, g, g2, w in zip(("dda", "ddbx", "dc", "dstate0"), got, again, want):
+        _grad_close(g, w, name)
+        assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def _state(dbx_shape):
+    """The final state's shape for dbx of `dbx_shape`."""
+    return dbx_shape[1:] if len(dbx_shape) == 3 else (dbx_shape[0], *dbx_shape[2:])
+
+
+def test_cuda_ssm_scan_function_under_vmap_equals_a_loop(cuda_device):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    A, B, S, H, P, N = 3, 2, 64, 6, 64, 64
+    da = torch.sigmoid(torch.randn(A, B, S, H, 1, 1, generator=gen, device=cuda_device))
+    dbx = torch.randn(A, B, S, H, P, N, generator=gen, device=cuda_device) * 0.1
+    c = torch.randn(A, B, S, N, generator=gen, device=cuda_device)
+    w = torch.randn(A, B, S, H, P, generator=gen, device=cuda_device)
+
+    def loss(da, dbx, c, w):
+        return (ssm_scan(da, dbx, c)[0] * w).sum()
+
+    leaves = [t.clone().requires_grad_() for t in (da, dbx, c)]
+    ssm_scan.launches = ssm_scan_bwd.launches = 0
+    got = torch.autograd.grad(torch.func.vmap(loss)(*leaves, w).sum(), leaves)
+    assert (ssm_scan.launches, ssm_scan_bwd.launches) == (1, 1)
+    for i in range(A):
+        one = [t[i].clone().requires_grad_() for t in (da, dbx, c)]
+        want = torch.autograd.grad(loss(*one, w[i]), one)
+        for g, wv in zip(got, want):
+            _grad_close(g[i], wv)

@@ -77,8 +77,12 @@ class TestDirichletPartitions:
     def test_bad_alpha_and_token_batches(self):
         with pytest.raises(ValueError, match="> 0"):
             data.dirichlet_partition_weights(torch.Generator(), 3, 2, 0.0)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            data.federated_token_batches(None, 2, 2, 8, 16)
+        # the token batches are ported (Queue 1 item 12's training path):
+        # agent-stacked, JAX's draws (tests/test_torch_train.py)
+        from repro_torch import prng
+
+        tb = data.federated_token_batches(prng.PRNGKey(0), 2, 2, 8, 16, device="cpu")
+        assert tb["tokens"].shape == tb["labels"].shape == (2, 2, 8)
         parts = data.partition_among_agents({"t": torch.arange(12).reshape(6, 2)}, 3)
         assert parts["t"].shape == (3, 2, 2)
 
