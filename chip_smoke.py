@@ -925,13 +925,62 @@ def flash_cases(torch):
     ]
 
 
+def sass_ops(name: str, pattern: str = r"\b((?:HMMA|RED|ATOM[GS]?)\.\S+)") -> dict:
+    """{entry function (mangled): {instruction: count}} of the library
+    built from `csrc/<name>.cu`, for the instructions `pattern` matches
+    (`cuobjdump -sass`; by default the tensor-core products and the
+    atomics)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    nvcc = _build._nvcc()
+    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"{name}: cuobjdump failed: {sass.stderr[-500:]}")
+    ops, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            ops[fn] = {}
+            continue
+        m = re.search(pattern, line)
+        if fn is not None and m:
+            op = m.group(1).rstrip(";")
+            ops[fn][op] = ops[fn].get(op, 0) + 1
+    return ops
+
+
+def bwd_build_report(name: str, kernel: str) -> dict:
+    """A backward library's ptxas report (registers, spills, static shared
+    memory of each entry function) and its SASS's tensor-core and atomic
+    instructions; fails on a spill store or any float atomic.  `kernel`
+    names its main entry function."""
+    from repro_torch.kernels import _build
+
+    usage = _build.ptxas_usage(name)
+    ptxas = [{k: u.get(k) for k in ("function", "registers", "spill_store_bytes",
+                                    "spill_load_bytes", "static_smem_bytes")}
+             for u in usage]
+    check(len(ptxas) > 0 and all(u["spill_store_bytes"] == 0 for u in ptxas),
+          f"{name}: ptxas spills {[(u['function'], u['spill_store_bytes']) for u in ptxas]}")
+    ops = sass_ops(name)
+    atomics = {fn: o for fn, o in ops.items() if any(not k.startswith("HMMA") for k in o)}
+    check(not atomics, f"{name}: atomic instructions {atomics}")
+    main = {fn: o for fn, o in ops.items() if kernel in fn}
+    check(len(main) > 0, f"{name}: no {kernel} in the library's SASS")
+    return {"ptxas": ptxas, "sass_mma": main, "atomics": 0}
+
+
 def flash_build_report(torch) -> dict:
     """Each flash instantiation's registers, spills and shared memory (the
     ptxas report of this process's build and the kernel's plan), and the
     tensor-core instructions its SASS holds (`cuobjdump -sass`): the f32
     route must issue TF32 MMAs, the bf16 route bf16 MMAs."""
     import re
-    import shutil
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import plan
@@ -956,23 +1005,8 @@ def flash_build_report(torch) -> dict:
             "spill_store_bytes": u.get("spill_store_bytes"),
             "spill_load_bytes": u.get("spill_load_bytes"),
             "smem_bytes": plan(hdp, tdt)["smem_bytes"]}
-    nvcc = _build._nvcc()
-    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("flash_attention"))],
-                          capture_output=True, text=True, timeout=300)
-    check(sass.returncode == 0, f"flash_attention: cuobjdump failed: {sass.stderr[-500:]}")
-    mma, fn = {}, None
-    for line in sass.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = tiling(m.group(1))
-            if fn is not None:
-                mma[fn] = {}
-            continue
-        m = re.search(r"\b(HMMA\.\S+)", line)
-        if fn is not None and m:
-            op = m.group(1).rstrip(";")
-            mma[fn][op] = mma[fn].get(op, 0) + 1
+    mma = {tiling(fn): o for fn, o in sass_ops("flash_attention", r"\b(HMMA\.\S+)").items()
+           if tiling(fn) is not None}
     check(len(mma) > 0, "flash_attention: no flash_kernel in the library's SASS")
     for (dt, hdp, _, _), ops in mma.items():
         check(ops.get(FLASH_MMA[dt], 0) > 0 and set(ops) == {FLASH_MMA[dt]},
@@ -1072,8 +1106,11 @@ def ssm_cases():
 
 def phase_ssm_scan(torch, card: str, shared: dict) -> dict:
     """The scan kernel against its plain version (y and the final state),
-    timed against the bytes bound; no single PyTorch call computes it."""
+    and y and the state bitwise unchanged where the launch also stores the
+    backward's chunk states; timed against the bytes bound; no single
+    PyTorch call computes it."""
     from repro_torch.kernels import ref, ssm_scan
+    from repro_torch.kernels.ssm_scan import _launch
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     out = {}
@@ -1091,7 +1128,10 @@ def phase_ssm_scan(torch, card: str, shared: dict) -> dict:
         ok = all(bool(torch.allclose(a, b, rtol=SCAN_TOL, atol=SCAN_TOL))
                  for a, b in ((y, want_y), (st, want_st)))
         check(ok, f"ssm_scan {tag}: max |err| {err:.3e} beyond {SCAN_TOL}")
-        del want_y, want_st
+        y2, st2, _ = _launch(da.expand(dbx.shape), dbx, c, s0, chunks=True)
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"ssm_scan {tag}: storing the chunk states moved y or the state")
+        del want_y, want_st, y2, st2
         moved = nbytes(da, dbx, c, s0, y, st)
         flops = 4 * B * S * H * P * N
         t = time_case(torch, lambda: ssm_scan(da, dbx, c, s0),
@@ -1102,6 +1142,7 @@ def phase_ssm_scan(torch, card: str, shared: dict) -> dict:
         t.update(tag=tag, shape={"B": B, "S": S, "H": H, "P": P, "N": N},
                  da_shape=list(da_shape), dtypes=["torch.float32"],
                  state0=with_state, max_abs_err=err, tolerance=SCAN_TOL,
+                 forward_bitwise_with_chunks=True,
                  library="null: no single PyTorch call computes the scan")
         out[tag] = t
         del da, dbx, c, s0, y, st
@@ -1132,22 +1173,27 @@ def phase_flash_attention_bwd(torch, np, card: str, shared: dict) -> dict:
     """The flash backward kernel against autograd of the plain version
     (`torch.func.vjp`), each gradient within GRAD_REL of its max |value|,
     two calls bitwise equal; the forward's outputs bitwise unchanged by
-    its LSE output; times against the operations bound (10 hd flops per
-    unmasked pair on the CUDA cores' f32 rate) and SDPA's backward where
-    one call computes the same function."""
+    its LSE output; ptxas with no spill, the SASS with TF32 tensor-core
+    products in the main kernel and no atomics; times against the
+    operations bound (10 hd flops per unmasked pair at the 3xTF32 route's
+    rate) and SDPA's backward where one call computes the same
+    function."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import (
         _forward,
+        bwd_plan,
+        bwd_scratch,
         flash_attention_bwd,
         plain_flash_attention_bwd,
     )
 
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    out = {"ptxas": [{k: u.get(k) for k in ("function", "registers",
-                                            "spill_store_bytes")}
-                     for u in _build.ptxas_usage("flash_attention_bwd")]}
+    out = {"build": bwd_build_report("flash_attention_bwd", "flash_bwd_kernel")}
+    for fn, ops in out["build"]["sass_mma"].items():
+        mma = FLASH_MMA["float"]
+        check(ops.get(mma, 0) > 0 and set(ops) == {mma},
+              f"flash_attention_bwd {fn}: tensor-core instructions {ops}, want {mma}")
     for tag, B, H, KV, S, hd, causal, window, cap in flash_bwd_cases():
         q = torch.randn(B, H, S, hd, generator=gen, device=DEVICE)
         k, v = (torch.randn(B, KV, S, hd, generator=gen, device=DEVICE) for _ in range(2))
@@ -1181,15 +1227,18 @@ def phase_flash_attention_bwd(torch, np, card: str, shared: dict) -> dict:
         t = time_case(torch, lambda: flash_attention_bwd(q, k, v, o, lse, dout, **kw),
                       lambda: plain_flash_attention_bwd(q, k, v, dout, **kw), library,
                       moved, reps=10, plain_reps=3, card=card)
-        t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S["torch.float32"]))
+        t.update(bound_from(moved, flops, FLASH_PEAK_FLOPS_PER_S["torch.float32"]))
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
         if library is not None:
             t["library_kernels"] = sdpa_kernel_names(torch, library)
+        plan = bwd_plan(hd)
         t.update(tag=tag, shape={"B": B, "H": H, "KV": KV, "S": S, "hd": hd},
                  dtypes=["torch.float32"], causal=causal, window=window, softcap=cap,
                  max_abs_err=max_abs, rel_err_dq_dk_dv=errs, tolerance_rel=GRAD_REL,
-                 bitwise_repeat=same, forward_bitwise_with_lse=True,
-                 peak_flops_per_s=PEAK_FLOPS_PER_S["torch.float32"], library=why)
+                 bitwise_repeat=same, forward_bitwise_with_lse=True, route="3xTF32",
+                 peak_flops_per_s=FLASH_PEAK_FLOPS_PER_S["torch.float32"], tiling=plan,
+                 scratch=bwd_scratch(B, H, KV, S, S, hd),
+                 library=why)
         out[tag] = t
         del q, k, v, dout, o, lse, o_plain
         library = None
@@ -1211,15 +1260,18 @@ def scan_bwd_cases():
 def phase_ssm_scan_bwd(torch, card: str, shared: dict) -> dict:
     """The scan backward kernel against autograd of the plain version
     (`torch.func.vjp` through its sequential loop), each gradient within
-    GRAD_REL of its max |value|, two calls bitwise equal; times against
-    the bytes bound; no single PyTorch call computes it."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ssm_scan import _launch, plain_ssm_scan_bwd, ssm_scan_bwd
+    GRAD_REL of its max |value|, two calls bitwise equal; ptxas with no
+    spill and no atomics in the SASS; times against the bytes bound; no
+    single PyTorch call computes it."""
+    from repro_torch.kernels.ssm_scan import (
+        _launch,
+        bwd_plan,
+        plain_ssm_scan_bwd,
+        ssm_scan_bwd,
+    )
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    out = {"ptxas": [{k: u.get(k) for k in ("function", "registers",
-                                            "spill_store_bytes")}
-                     for u in _build.ptxas_usage("ssm_scan_bwd")]}
+    out = {"build": bwd_build_report("ssm_scan_bwd", "ssm_scan_bwd_kernel")}
     for tag, B, S, H, P, N, decay in scan_bwd_cases():
         da_shape = (B, S, H, 1, 1) if decay == "head" else (B, S, H, P, N)
         da = torch.sigmoid(torch.randn(*da_shape, generator=gen, device=DEVICE))
@@ -1252,10 +1304,13 @@ def phase_ssm_scan_bwd(torch, card: str, shared: dict) -> dict:
                       None, moved, reps=10, plain_reps=1, card=card)
         t.update(bound_from(moved, flops, PEAK_FLOPS_PER_S["torch.float32"]))
         t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        mode = 0 if decay == "full" else 1
+        plan = bwd_plan(B, H, P, N, mode, mode == 1 and P > 1)
         t.update(tag=tag, shape={"B": B, "S": S, "H": H, "P": P, "N": N},
                  da_shape=list(da_shape), dtypes=["torch.float32"],
                  max_abs_err=max_abs, rel_err_da_dbx_c_state0=errs,
-                 tolerance_rel=GRAD_REL, bitwise_repeat=same,
+                 tolerance_rel=GRAD_REL, bitwise_repeat=same, plan=plan,
+                 dc_partial_bytes=4 * B * plan["parts"] * S * N,
                  chunk_states_bytes=None if chunks is None else nbytes(chunks),
                  library="null: no single PyTorch call computes the scan's gradient")
         out[tag] = t
@@ -1400,6 +1455,8 @@ def _train_gate(torch, cfg, run, m: int) -> dict:
     past = {names[i]: {"kernel": rel_k[i], "bound": bound[i]}
             for i in range(len(names)) if rel_k[i] > GRAD_REL}
     worst = max(rel_k)
+    # the gate's margin: the leaf nearest its own bound
+    share = [rel_k[i] / bound[i] for i in range(len(names))]
     copy_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(run.params))
     return {
         "agents": m, "grad_bytes": grad_bytes, "copy_bytes": copy_bytes,
@@ -1408,6 +1465,8 @@ def _train_gate(torch, cfg, run, m: int) -> dict:
             "round0_grad_launches": grad_launches,
             "round0_grad_rel_err_max": worst,
             "round0_grad_worst_leaf": names[rel_k.index(worst)],
+            "round0_worst_share_of_bound": max(share),
+            "round0_worst_share_leaf": names[share.index(max(share))],
             "round0_grad_rel_err_by_leaf": dict(zip(names, rel_k)),
             "round0_perturbed_plain_rel_err_min_by_leaf": dict(zip(names, pert_min)),
             "round0_perturbed_plain_rel_err_max": [max(r) for r in rel_pert],
@@ -1456,10 +1515,11 @@ def _train_run(torch, np, train, cfg, args, run, shared) -> dict:
                            proj_y=train.delta_projection(1.0))
     prof = profile_round(torch, lambda: rnd(res["params"], res["delta"], run.data),
                          {"flash_attention": "flash_kernel",
-                          "flash_attention_bwd": "dkdv_kernel",
-                          "flash_attention_bwd_dq": "dq_kernel",
+                          "flash_attention_bwd": "flash_bwd_kernel",
+                          "flash_attention_bwd_dq_reduce": "dq_reduce_kernel",
                           "ssm_scan": "ssm_scan_kernel",
                           "ssm_scan_bwd": "ssm_scan_bwd_kernel",
+                          "ssm_scan_bwd_dc_reduce": "dc_reduce_kernel",
                           "gt_update": "gt_update_kernel", "gemm": "gemm"})
     shared["train"] = {"launches": launches}
     del res["params"], res["delta"], run, rnd

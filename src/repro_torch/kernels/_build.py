@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 #: their plain versions bit for bit, so no multiply-add may be contracted
 #: into an FMA; the model kernels are held to a tolerance and keep FMA
 #: contraction.  Flash attention (24 (dtype, head-dim) instantiations,
-#: its backward 12), and pack_payload (16 staged and 8 streaming ones)
+#: its backward 9), and pack_payload (16 staged and 8 streaming ones)
 #: let nvcc spread their optimisation over the cores.
 SOURCE_FLAGS = {
     "gt_update": ("-fmad=false",),

@@ -55,11 +55,12 @@ __device__ __forceinline__ float group_sum(float v) {
 }
 
 // L lanes per row (a power of two up to 32), NPT states per lane; the
-// backward's chunks are T = 32 / NPT steps long (`ssm_scan_bwd.cu`)
+// backward's chunks are T steps long, 16 up to N = 128 states and 8 above
+// (`ssm_scan_bwd.cu` `chunk_len`)
 template <int L, int NPT>
 __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(const Params p) {
   constexpr int RPW = 32 / L;  // rows per warp
-  constexpr int T = 32 / NPT;  // a multiple of U
+  constexpr int T = NPT > 4 ? 8 : 16;  // a multiple of U
   const int lane = threadIdx.x & 31;
   const int li = lane & (L - 1);
   const long long HP = (long long)p.H * p.P;
@@ -169,9 +170,8 @@ int launch(const Params& p, cudaStream_t stream) {
 // h, p, n; 0 broadcasts); c at c_strides (b, s, n); state0 [B, H, P, N]
 // contiguous or null; y [B, S, H, P] and state [B, H, P, N] contiguous
 // outputs; chunks, if not null, receives the state entering every chunk
-// of T steps (T = 32 / ceil(N / 32) rounded up to a power of two's
-// states per lane: 32 for N <= 32, 16 for N <= 64, 8 for N <= 128, else
-// 4), contiguous [B, ceil(S / T), H, P, N], for the backward.  N outside 1..256 returns cudaErrorInvalidValue without
+// of T steps (16 for N <= 128, else 8), contiguous [B, ceil(S / T), H,
+// P, N], for the backward.  N outside 1..256 returns cudaErrorInvalidValue without
 // launching; an empty problem launches nothing (and leaves state unset).
 extern "C" int ssm_scan_launch(const float* da, const float* dbx,
                                const float* c, const float* state0, float* y,

@@ -228,13 +228,47 @@ def _bwd_library() -> ctypes.CDLL:
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 6 + [
+        fn.argtypes = [p] * 12 + [i] * 6 + [
             ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.c_float,
             ctypes.c_float, p]
         fn.restype = i
+        lib.flash_attention_bwd_plan.argtypes = [i, ctypes.POINTER(i)]
+        lib.flash_attention_bwd_plan.restype = i
+        lib.flash_attention_bwd_scratch.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.flash_attention_bwd_scratch.restype = i
         lib.flash_attention_bwd_error_string.argtypes = [i]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_plan(hd: int) -> dict:
+    """The backward's tiling for head_dim `hd` (from the built library):
+    the padded head dim, keys per CTA, query rows per tile, stages,
+    threads per CTA and dynamic shared memory in bytes."""
+    out = (ctypes.c_int * 6)()
+    lib = _bwd_library()
+    err = lib.flash_attention_bwd_plan(int(hd), out)
+    if err != 0:
+        raise ValueError("flash_attention_bwd: no tiling for head_dim "
+                         f"{hd}: " + lib.flash_attention_bwd_error_string(err).decode())
+    keys = ("head_dim_padded", "keys_per_cta", "rows_per_tile", "stages", "threads",
+            "smem_bytes")
+    return dict(zip(keys, out))
+
+
+def bwd_scratch(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int) -> dict:
+    """The backward's scratch for these shapes (from the built library):
+    floats of dq's per-key-tile partials (0 where one key tile writes dq
+    in place), floats of dk / dv's per-chunk partials (0 where each key
+    tile's query tiles run in one CTA), and the CTAs that share a key
+    tile's query tiles (split-Q, where B * KV key tiles would not fill the
+    card)."""
+    out = (ctypes.c_longlong * 3)()
+    lib = _bwd_library()
+    err = lib.flash_attention_bwd_scratch(B, H, KV, Sq, Skv, hd, out)
+    if err != 0:
+        raise ValueError("flash_attention_bwd: " + lib.flash_attention_bwd_error_string(err).decode())
+    return dict(zip(("dq_partial_floats", "dkv_partial_floats", "ctas_a_key_tile"), out))
 
 
 def plain_flash_attention_bwd(
@@ -287,13 +321,19 @@ def flash_attention_bwd(
     if B * H * Sq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    # scratch: each key tile's share of dq, and each chunk's of dk / dv;
+    # the library sums them in order (none where it writes in place)
+    scratch = bwd_scratch(B, H, KV, Sq, Skv, hd)
+    dq_part, dkv_part = (torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+                         for n in (scratch["dq_partial_floats"], scratch["dkv_partial_floats"]))
+    lib = _bwd_library()
     ts = (q, k, v, out, dout, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(s for t in ts for s in t.stride()[:3]))
-    lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_bwd_launch(
             *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv, delta)),
+            *(None if t is None else t.data_ptr() for t in (dq_part, dkv_part)),
             B, H, KV, Sq, Skv, hd, strides, int(bool(causal)), window, softcap,
             1.0 / math.sqrt(hd), stream,
         )

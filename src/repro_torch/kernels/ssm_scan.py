@@ -53,10 +53,11 @@ def _library() -> ctypes.CDLL:
 
 
 def chunk_len(N: int) -> int:
-    """Steps per chunk of the backward for N states (`csrc/ssm_scan.cu`:
-    32 / the states a lane holds)."""
-    per_lane = 1 if N <= 32 else -(-N // 32)
-    return 32 // (1 << (per_lane - 1).bit_length())
+    """Steps per chunk of the backward for N states: the forward
+    (`csrc/ssm_scan.cu`) stores the state entering every chunk, and the
+    backward (`csrc/ssm_scan_bwd.cu` `chunk_len`) stages a chunk's dbx in
+    shared memory, 16 steps up to 128 states and 8 above."""
+    return 16 if N <= 128 else 8
 
 
 def _as_5d(da, dbx, c_coef, state0, expand: bool = True):
@@ -251,11 +252,29 @@ def _bwd_library() -> ctypes.CDLL:
         ll = ctypes.POINTER(ctypes.c_longlong)
         fn.argtypes = [p] * 12 + [i] * 7 + [ll, ll, p]
         fn.restype = i
-        lib.ssm_scan_bwd_parts.argtypes = [i, i, i]
-        lib.ssm_scan_bwd_parts.restype = ctypes.c_longlong
+        lib.ssm_scan_bwd_plan.argtypes = [i] * 6 + [ll]
+        lib.ssm_scan_bwd_plan.restype = i
         lib.ssm_scan_bwd_error_string.argtypes = [i]
         lib.ssm_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_plan(B: int, H: int, P: int, N: int, da_mode: int, reduce_p: bool) -> dict:
+    """The backward's plan (from the built library) for dbx [B, S, H, P, N],
+    da full over the states (da_mode 0) or broadcast over them (1), and
+    d da wanted summed over P (`reduce_p`): rows a CTA, CTAs over a
+    batch's rows (dc's partials), heads whose d da a CTA sums over P (0:
+    a second pass does), steps per chunk, threads per CTA and dynamic
+    shared memory in bytes."""
+    out = (ctypes.c_longlong * 6)()
+    lib = _bwd_library()
+    err = lib.ssm_scan_bwd_plan(B, H, P, N, da_mode, int(reduce_p), out)
+    if err != 0:
+        raise ValueError("ssm_scan_bwd: no plan: "
+                         + lib.ssm_scan_bwd_error_string(err).decode())
+    keys = ("rows_per_cta", "parts", "heads_per_cta", "chunk_len", "threads",
+            "smem_bytes")
+    return dict(zip(keys, out))
 
 
 def plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None):
@@ -311,7 +330,6 @@ def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
     reduce_p = mode == 1 and da.shape[3] == 1 and P > 1
     empty = lambda *shape: torch.empty(*shape, dtype=torch.float32, device=dev)
     ddbx = empty(B, S, H, P, N)
-    dda = empty(B, S, H, P, N) if mode == 0 else empty(B, S, H, P)
     dda_heads = empty(B, S, H) if reduce_p else None
     dc = empty(B, S, N)
     ds0 = empty(B, H, P, N)
@@ -319,8 +337,11 @@ def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
         return (torch.zeros_like(da), ddbx.zero_(), dc.zero_(),
                 ds0.copy_(torch.zeros_like(ds0) if dstate is None else dstate))
     lib = _bwd_library()
-    parts = int(lib.ssm_scan_bwd_parts(H, P, N))
-    dc_part = empty(B, parts, S, N)
+    plan = bwd_plan(B, H, P, N, mode, reduce_p)
+    # d da a row: none where the kernel's CTAs sum whole heads over P
+    dda = (empty(B, S, H, P, N) if mode == 0 else
+           None if reduce_p and plan["heads_per_cta"] else empty(B, S, H, P))
+    dc_part = empty(B, plan["parts"], S, N)
     da_strides = (ctypes.c_longlong * 5)(*dae.stride())
     c_strides = (ctypes.c_longlong * 3)(*c.stride())
     with torch.cuda.device(dev):
@@ -328,7 +349,7 @@ def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
         err = lib.ssm_scan_bwd_launch(
             dae.data_ptr(), dbx.data_ptr(), c.data_ptr(), chunks.data_ptr(),
             dy.data_ptr(), None if dstate is None else dstate.data_ptr(),
-            ddbx.data_ptr(), dda.data_ptr(),
+            ddbx.data_ptr(), None if dda is None else dda.data_ptr(),
             None if dda_heads is None else dda_heads.data_ptr(), dc.data_ptr(),
             dc_part.data_ptr(), ds0.data_ptr(), B, S, H, P, N, mode,
             int(reduce_p), da_strides, c_strides, stream,

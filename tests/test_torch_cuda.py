@@ -1306,8 +1306,14 @@ def _flash_grads(q, k, v, dout, kw):
     (1, 4, 2, 77, 77, 33, True, 0, 5.0, "dense"),           # ragged hd
     (1, 2, 2, 1, 9, 160, True, 0, 0.0, "dense"),            # one query, one key
     (1, 2, 2, 1, 9, 160, False, 0, 0.0, "dense"),           # one query
+    (1, 4, 4, 1024, 1024, 64, True, 0, 0.0, "dense"),       # 8 key tiles' dq partials, split-Q
+    (1, 2, 1, 256, 1024, 64, False, 0, 0.0, "dense"),       # ... none masked
+    (2, 4, 4, 200, 200, 112, True, 0, 0.0, "dense"),        # Skv off the 64-key tiles
+    (1, 16, 2, 256, 256, 64, True, 0, 0.0, "model"),        # G = 8 grouped heads
+    (1, 4, 2, 130, 260, 256, False, 0, 20.0, "model"),      # hd 256, Sq < Skv, softcap
+    (1, 8, 4, 300, 300, 256, True, 64, 0.0, "dense"),       # hd 256, window
 ], ids=["zamba2", "gemma2-local", "gqa-model", "mqa", "window-cap", "hd33", "sq1",
-        "sq1-full"])
+        "sq1-full", "s1024", "s1024-full", "skv200", "g8", "hd256-full", "hd256-window"])
 def test_cuda_flash_attention_bwd_equals_plain(cuda_device, case):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd,
@@ -1417,7 +1423,13 @@ def test_cuda_flash_attention_function_under_vmap_equals_a_loop(cuda_device):
     (1, 17, 3, 4, 256, "head", 5),      # the largest state
     (2, 40, 96, 1, 16, "chan", 4),      # 4-D layout, da [B, S, D, 1]
     (1, 50, 6, 1, 8, "full", 3),        # one sequence
-], ids=["mamba2", "mamba1", "ragged", "n100", "n256", "4d", "3d"])
+    (2, 37, 5, 24, 64, "head", 5),      # S not a multiple of 16; a head = 3 row groups
+    (2, 50, 3, 12, 64, "head", 5),      # row groups end mid-head (d da over P apart)
+    (2, 45, 4, 32, 16, "head", 5),      # N 16, a head a row group
+    (1, 21, 2, 12, 256, "head", 5),     # N 256: chunks of 8, a head = 3 row groups
+    (2, 30, 3, 5, 256, "full", 5),      # N 256, da full over the states
+], ids=["mamba2", "mamba1", "ragged", "n100", "n256", "4d", "3d", "s37-p24",
+        "p12-midhead", "n16-head", "n256-p12", "n256-full"])
 @pytest.mark.parametrize("start", ["zero", "state0"])
 def test_cuda_ssm_scan_bwd_equals_plain(cuda_device, case, start):
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd
@@ -1451,6 +1463,32 @@ def test_cuda_ssm_scan_bwd_equals_plain(cuda_device, case, start):
     for name, g, g2, w in zip(("dda", "ddbx", "dc", "dstate0"), got, again, want):
         _grad_close(g, w, name)
         assert torch.equal(g, g2), f"{name}: two calls differ"
+
+
+def test_cuda_scan_and_flash_bwd_plans(cuda_device):
+    """The backward kernels' plans at the training shapes: the scan's CTAs
+    cover a whole head of zamba2-7b (64 rows, d da summed over P in the
+    CTA, 112 dc partials a batch); flash's CTAs of 8 warps on key tiles
+    of 64 with query tiles of 16 at hd 112 (two CTAs an SM), of 16 warps
+    on 128 keys with query tiles of 32 at hd 64."""
+    from repro_torch.kernels.flash_attention import bwd_plan as flash_plan
+    from repro_torch.kernels.ssm_scan import bwd_plan, chunk_len
+
+    got = bwd_plan(16, 112, 64, 64, 1, True)
+    assert (got["rows_per_cta"], got["parts"], got["heads_per_cta"], got["chunk_len"]) == (
+        64, 112, 1, chunk_len(64))
+    assert got["smem_bytes"] <= 113 * 1024
+    assert bwd_plan(2, 3, 12, 64, 1, True)["heads_per_cta"] == 0  # 12 rows: mid-group
+    assert bwd_plan(1, 8192, 1, 16, 0, False)["chunk_len"] == chunk_len(16) == 16
+    assert bwd_plan(1, 3, 4, 256, 1, True)["chunk_len"] == chunk_len(256) == 8
+    f = flash_plan(112)
+    assert (f["keys_per_cta"], f["rows_per_tile"], f["threads"]) == (64, 16, 256)
+    assert f["smem_bytes"] <= 113 * 1024
+    f = flash_plan(64)
+    assert (f["keys_per_cta"], f["rows_per_tile"], f["threads"]) == (128, 32, 512)
+    f = flash_plan(256)
+    assert (f["keys_per_cta"], f["threads"]) == (64, 256)
+    assert all(flash_plan(hd)["smem_bytes"] <= 227 * 1024 for hd in (16, 64, 96, 112, 128, 256))
 
 
 def _state(dbx_shape):
