@@ -22,7 +22,9 @@ the main path's width), the asynchronous runtime (agent shards on CUDA
 streams of the card) and the telemetry sink on the main path, the
 serving path of zamba2-7b at full width
 (`python -m repro_torch.launch.serve`) with the `flash_attention` and
-`ssm_scan` kernels, and federated adversarial LM training of zamba2-7b
+`ssm_scan` kernels, the other model families on that path (pixtral-12b's
+vision_text frontend, llama4-scout's MoE layers, hubert-xlarge's
+encoder) through `flash_attention`, and federated adversarial LM training of zamba2-7b
 at full width (`repro_torch.launch.train`) through those kernels, their
 backward kernels `flash_attention_bwd` and `ssm_scan_bwd`, and
 `gt_update`.  Every phase prints one JSON line (fig2 also the
@@ -63,7 +65,9 @@ phases of `--claims` are marked so):
              kernel vs plain version (tolerance 1e-5 in f32; in bf16 one
              rounding, 2^-7 of the largest |output|), and both vs an f64
              computation, at the serving shape [4, 32, 512, 112] causal
-             in f32 and bf16, gemma2-2b's local layer (H=8, KV=4, hd=256,
+             in f32 and bf16, pixtral-12b's prefill [4, 32 / 8, 512, 128]
+             causal and hubert-xlarge's encoder [4, 16, 512, 80]
+             non-causal in f32, gemma2-2b's local layer (H=8, KV=4, hd=256,
              S=8192, window 4096, softcap 50) in f32 and bf16, a ragged
              S=1000 and a non-causal grouped Sq=256 < Skv=1024; times
              against the larger of the bytes and the operations bound (at
@@ -268,6 +272,27 @@ phases of `--claims` are marked so):
   serve_profile
              device time by kernel over one prefill and one decode step,
              and the device's busy share of each
+  serve_vlm  pixtral-12b at full width and depth in f32 (11.58 B
+             parameters), seed 0, batch 4, prompt 512 (256 patches, 256
+             text tokens), 32 tokens through `repro_torch.launch.serve`:
+             40 flash_attention launches a prefill, none a decode step;
+             the logits against the same tokens teacher-forced through
+             the plain versions within max(1e-4, the least of three 1e-6
+             perturbations of embed and frontend_proj), a 2-layer cut
+             within 1e-4; prefill, decode, tokens/s, peak memory beside
+             its prediction, a profiled prefill and decode step
+  serve_moe  llama4-scout-17b-a16e at full width cut to 6 layers (13.49 B
+             parameters) through `serve.generate`, as serve_vlm with its
+             text prompts (6 launches a prefill; embed perturbed); every
+             routing decision that differs from the plain path's a
+             near-tie (top-1/top-2 gap under NEAR_TIE_GAP), the tokens
+             each expert dropped at capacity 40
+  encode_audio
+             hubert-xlarge at full width and depth (48 layers, non-causal)
+             on 4 x 512 random frames through embed_inputs, forward and
+             logits_from_hidden: 48 flash_attention launches; the logits
+             against the plain versions within max(1e-4, the least of
+             three 1e-6 perturbations of the frames); encode ms
   train_main_path
              zamba2-7b at full width cut to 6 layers (634 M parameters),
              seed 0, 4 agents x batch 4 x seq 128, K 8, eta 2e-3, remat, 3
@@ -370,6 +395,33 @@ ROBUST_LOSS_RTOL = 3e-7
 AGNOSTIC_RTOL = 1e-12
 #: the serve phase's run of `python -m repro_torch.launch.serve`
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = "zamba2-7b", 4, 512, 32
+#: the serving phases of the other model families, each at serve's batch,
+#: prompt and tokens: pixtral-12b (vision_text, 256 patches of the 512
+#: prompt positions) at full width and depth through the entry point,
+#: llama4-scout (MoE) at full width cut to 6 layers (48 are 403 GB in
+#: f32; 6 are 54 GB, the depth the training path runs) through
+#: `serve.generate`, and hubert-xlarge's encoder (48 layers, 512 frames)
+VLM_ARCH, MOE_ARCH, AUDIO_ARCH = "pixtral-12b", "llama4-scout-17b-a16e", "hubert-xlarge"
+MOE_LAYERS = 6
+#: the full-width cuts of serve_vlm and serve_moe held to SERVE_CUT_TOL
+CUT_LAYERS = 2
+#: The three phases' full runs hold the kernels' logits to PERTURB_FACTOR
+#: times the least of three PERTURB_REL input perturbations' effect on the
+#: plain path.  These models barely amplify f32 noise, so the kernels' f32
+#: rounding and a 1e-6 input perturbation move the logits by the same
+#: ~1e-7-1e-6, and which is larger is chance (0.69-1.16 of the least
+#: perturbation on an H100: llama4-scout at 6 layers read 2.648e-7
+#: against 2.290e-7); 3 leaves room for that, while a fault in a kernel
+#: moves the logits by orders of magnitude more.  Each phase reports the
+#: ratio as `rel_err_over_least_perturbation`.
+PERTURB_FACTOR = 3
+#: a routing decision of the MoE's kernel path may differ from the plain
+#: path's only at a near-tie: the plain path's top-1 minus top-2 router
+#: probability below this.  The kernels move a layer's input by f32
+#: rounding (~1e-6 of its scale), which moves a router probability by
+#: ~1e-7; 1e-4 is a thousand times that, and a gap of a few percent is
+#: typical between two of 16 experts
+NEAR_TIE_GAP = 1e-4
 
 
 def emit(obj) -> None:
@@ -912,12 +964,16 @@ def attention_pairs(np, Sq: int, Skv: int, causal: bool, window: int) -> int:
 def flash_cases(torch):
     """(tag, B, H, KV, Sq, Skv, hd, dtype, causal, window, softcap): the
     serving shape first (zamba2-7b's shared block at prefill), the same in
-    bf16, gemma2-2b's local layer at 8k in f32 and bf16, a ragged length
-    and a non-causal grouped Sq < Skv."""
+    bf16, pixtral-12b's prefill (32 query heads over 8 KV heads, hd 128),
+    hubert-xlarge's encoder (non-causal, hd 80), gemma2-2b's local layer
+    at 8k in f32 and bf16, a ragged length and a non-causal grouped
+    Sq < Skv."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         ("serve_zamba2", 4, 32, 32, 512, 512, 112, f32, True, 0, 0.0),
         ("serve_zamba2_bf16", 4, 32, 32, 512, 512, 112, bf16, True, 0, 0.0),
+        ("serve_pixtral", 4, 32, 8, 512, 512, 128, f32, True, 0, 0.0),
+        ("encode_hubert", 4, 16, 16, 512, 512, 80, f32, False, 0, 0.0),
         ("gemma2_local_f32", 1, 8, 4, 8192, 8192, 256, f32, True, 4096, 50.0),
         ("gemma2_local_bf16", 1, 8, 4, 8192, 8192, 256, bf16, True, 4096, 50.0),
         ("ragged_1000", 2, 16, 16, 1000, 1000, 112, f32, True, 0, 0.0),
@@ -1714,10 +1770,15 @@ def phase_serve(torch, card: str, shared: dict) -> dict:
 def phase_serve_profile(torch, shared: dict) -> dict:
     """Device time by kernel over one full-width prefill and one decode
     step (torch.profiler), and the device's busy share of each."""
+    return serving_profile(torch, shared["serve"])
+
+
+def serving_profile(torch, res: dict) -> dict:
+    """`phase_serve_profile` of a serving run `res` (what `serve.generate`
+    returned, with "cfg", "params", "prompts")."""
     from repro_torch.launch import serve
     from repro_torch.models import init_caches
 
-    res = shared["serve"]
     cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
     names = {"flash_attention": "flash_kernel", "ssm_scan": "ssm_scan_kernel",
              "gemm": "gemm"}
@@ -1728,20 +1789,383 @@ def phase_serve_profile(torch, shared: dict) -> dict:
             logits, state["caches"] = serve.prefill(params, cfg, prompts, caches)
             state["tok"] = logits[:, -1].argmax(-1)[:, None]
 
+    B, S = prompts["tokens"].shape[0], serve.prompt_length(prompts)
+
     def empty_caches():
-        return init_caches(cfg, prompts.shape[0], prompts.shape[1] + 2,
-                           torch.float32, DEVICE)
+        return init_caches(cfg, B, S + 2, torch.float32, DEVICE)
 
     def run_decode():
         with torch.inference_mode():
-            serve.decode(params, cfg, state["caches"], state["tok"],
-                         prompts.shape[1])
+            serve.decode(params, cfg, state["caches"], state["tok"], S)
 
     run_prefill(empty_caches())  # warm
     caches = empty_caches()
     out = {"prefill": profile_round(torch, lambda: run_prefill(caches), names)}
     out["decode_step"] = profile_round(torch, run_decode, names)
     return out
+
+
+def model_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.parameters())
+
+
+def with_tops(params, cfg=None, layers=None, **tops):
+    """`params` (a `ModelParams`) with some of its top-level tensors
+    ("embed", "frontend_proj", "out_head") or its layers replaced; the
+    rest shared."""
+    from repro_torch.models import ModelParams
+
+    t = {name: getattr(params, name) for name in ("embed", "frontend_proj", "out_head")}
+    t.update(tops)
+    return ModelParams(cfg or params.cfg, list(params.layers if layers is None else layers),
+                       params.final_norm, t["embed"], params.shared_attn,
+                       frontend_proj=t["frontend_proj"], out_head=t["out_head"])
+
+
+def perturbed(torch, t, seed: int):
+    """t * (1 + PERTURB_REL z), z ~ N(0, 1) from `seed`, on the card,
+    formed in place in z's buffer: one copy of t's size, no temporary."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    with torch.inference_mode():
+        z = torch.randn(t.shape, generator=gen, device=DEVICE)
+        return z.mul_(PERTURB_REL).add_(1).mul_(t)
+
+
+def logit_rel_err(a, b):
+    """(max |a - b| over max |b|, the same per decode step)."""
+    scale = float(b.abs().max())
+    return (float((a - b).abs().max()) / scale,
+            ((a - b).abs().amax(dim=(0, 2)) / scale).tolist())
+
+
+def serve_peak_prediction(cfg, params, batch: int, capacity: int, perturb: tuple,
+                          baseline: int) -> dict:
+    """Device bytes a serving phase should peak at: what the earlier
+    phases still hold (`baseline`), the weights, one set of the perturbed
+    copies of the `perturb` tensors, and the KV caches of two runs (the
+    kernel path's and the plain path's)."""
+    attn_layers = sum(k in ("attn", "local", "moe") for k in cfg.layer_types)
+    caches = 2 * attn_layers * 2 * batch * capacity * cfg.num_kv_heads * cfg.head_dim * 4
+    weights = model_bytes(params)
+    copy = sum(getattr(params, name).numel() * getattr(params, name).element_size()
+               for name in perturb)
+    return {"weights_bytes": weights, "perturbed_copy_bytes": copy,
+            "caches_bytes": caches,
+            "predicted_peak_bytes": baseline + weights + copy + caches}
+
+
+def serve_gates(torch, res: dict, perturb: tuple, n: int) -> dict:
+    """The serving gates of `res` (what `serve.generate` returned, with
+    "cfg", "params", "prompts"): the logits through the kernels against
+    the same tokens teacher-forced through the plain versions, within
+    PERTURB_FACTOR times the least of what three PERTURB_REL perturbations
+    of the `perturb` tensors do to the plain path's; and a CUT_LAYERS-layer
+    cut at full width, kernels against plain within SERVE_CUT_TOL.
+    Returns the plain run, its routing decisions ("plain_routing": each
+    `moe_ffn` call's, recorded around that run alone) and the gates'
+    numbers."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches
+
+    cfg, params, prompts, tokens = res["cfg"], res["params"], res["prompts"], res["tokens"]
+    B, S = tokens.shape[0], serve.prompt_length(prompts)
+
+    def teacher_forced(model, model_cfg, use_kernel):
+        caches = init_caches(model_cfg, B, S + n, torch.float32, DEVICE)
+        return serve.generate(model, model_cfg, prompts, caches, n,
+                              use_kernel=use_kernel, forced=tokens)
+
+    got = res["step_logits"]
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite logits through the kernels")
+    plain, plain_routing = routed(lambda: teacher_forced(params, cfg, False))
+    want = plain["step_logits"]
+    check(bool(torch.isfinite(want).all()), f"{cfg.name}: non-finite plain logits")
+    check(plain["launches"]["prefill"]["flash_attention"] == 0,
+          f"{cfg.name}: the plain path launched {plain['launches']}")
+    rel, rel_by_step = logit_rel_err(got, want)
+    rel_pert, rel_pert_by_step = [], []
+    for seed in PERTURB_SEEDS:
+        noisy = {name: perturbed(torch, getattr(params, name), seed) for name in perturb}
+        r, by_step = logit_rel_err(
+            teacher_forced(with_tops(params, **noisy), cfg, False)["step_logits"], want)
+        del noisy
+        rel_pert.append(r)
+        rel_pert_by_step.append(by_step)
+    bound = PERTURB_FACTOR * min(rel_pert)
+    check(rel <= bound, f"{cfg.name}: kernels move the logits by {rel:.3e} of max |logit|, "
+          f"beyond {PERTURB_FACTOR} x the least effect of a {PERTURB_REL} perturbation "
+          f"of {perturb} ({min(rel_pert):.3e})")
+    cut_cfg = dataclasses.replace(cfg, num_layers=CUT_LAYERS)
+    cut = with_tops(params, cut_cfg, params.layers[:CUT_LAYERS])
+    cut_k, cut_p = teacher_forced(cut, cut_cfg, True), teacher_forced(cut, cut_cfg, False)
+    rel_cut, rel_cut_by_step = logit_rel_err(cut_k["step_logits"], cut_p["step_logits"])
+    check(rel_cut <= SERVE_CUT_TOL, f"{cfg.name}, {CUT_LAYERS} layers: logits differ "
+          f"from the plain path by {rel_cut:.3e} of max |logit|")
+    check(cut_k["launches"]["prefill"]["flash_attention"] == CUT_LAYERS,
+          f"{cfg.name}, {CUT_LAYERS} layers: prefill launched {cut_k['launches']['prefill']}")
+    return {
+        "plain": plain, "plain_routing": plain_routing,
+        "gates": {
+            "logits_finite": True, "max_abs_logit": float(want.abs().max()),
+            "rel_err_vs_plain": rel, "rel_err_vs_plain_by_step": rel_by_step,
+            "perturbed": list(perturb), "perturbation_rel": PERTURB_REL,
+            "perturbation_seeds": list(PERTURB_SEEDS),
+            "rel_err_perturbed_plain": rel_pert,
+            "rel_err_perturbed_plain_by_step": rel_pert_by_step,
+            "rel_err_over_least_perturbation": rel / min(rel_pert),
+            "perturbation_factor": PERTURB_FACTOR, "rel_err_bound": bound,
+            "cut_layers": CUT_LAYERS, "cut_rel_err_vs_plain": rel_cut,
+            "cut_rel_err_by_step": rel_cut_by_step, "cut_tolerance_rel": SERVE_CUT_TOL,
+            "cut_launches_per_prefill": cut_k["launches"]["prefill"],
+            "plain_argmax_equals_tokens": float((want.argmax(-1) == tokens).float().mean()),
+        }}
+
+
+def routed(run):
+    """run()'s result and each MoE router call's (expert index [B, S, K],
+    router probabilities [B, S, E]) over it, in call order (a spy on
+    `repro_torch.models.moe.router_decisions`, which `moe_ffn` calls)."""
+    from repro_torch.models import moe
+
+    real, log = moe.router_decisions, []
+
+    def spy(params, h, top_k):
+        out = real(params, h, top_k)
+        log.append((out[0], moe.router_probs(params, h)))
+        return out
+
+    moe.router_decisions = spy
+    try:
+        return run(), log
+    finally:
+        moe.router_decisions = real
+
+
+def check_serve_launches(cfg, res: dict, launches: dict, flash_per_prefill: int) -> None:
+    """flash_attention launches once per attention layer in the prefill,
+    never in decode, and no other kernel launches."""
+    want = {"flash_attention": flash_per_prefill, "ssm_scan": 0}
+    check(res["launches"]["prefill"] == want,
+          f"{cfg.name}: prefill launched {res['launches']['prefill']}")
+    check(res["launches"]["decode"] == {"flash_attention": 0, "ssm_scan": 0},
+          f"{cfg.name}: decode launched {res['launches']['decode']}")
+    check(launches["flash_attention"] == flash_per_prefill
+          and all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"{cfg.name}: launches over the run {launches}")
+
+
+def serve_record(res: dict, plain: dict, peak: dict, baseline: int, card: str) -> dict:
+    """A serving phase's times, memory and launches beside its predictions."""
+    measured = res["peak_memory_bytes"]
+    return {
+        "arch": res["cfg"].name, "num_layers": res["cfg"].num_layers,
+        "batch": res["tokens"].shape[0], "prompt_positions": res["prompt_positions"],
+        "decode_tokens": res["tokens"].shape[1], "decode_steps": res["decode_steps"],
+        "dtype": "f32", "num_params": res["num_params"],
+        "prefill_ms": res["prefill_ms"], "decode_ms_per_step": res["decode_ms_per_step"],
+        "decode_tokens_per_s": res["decode_tokens_per_s"],
+        "plain_prefill_ms": plain["prefill_ms"],
+        "plain_decode_ms_per_step": plain["decode_ms_per_step"],
+        "peak_memory_bytes": measured, "memory_before_bytes": baseline, **peak,
+        "peak_over_prediction": measured / peak["predicted_peak_bytes"],
+        "launches_per_prefill": res["launches"]["prefill"],
+        "launches_over_decode": res["launches"]["decode"],
+        "sample": res["tokens"][0].tolist(), "card": card,
+    }
+
+
+def phase_serve_vlm(torch, card: str, shared: dict) -> dict:
+    """pixtral-12b at full width and depth in f32 through the serving entry
+    point (seed 0, batch 4, prompt 512 = 256 patches + 256 text tokens, 32
+    tokens): 40 flash_attention launches a prefill, none a decode step;
+    the gates of `serve_gates`, perturbing `embed` and `frontend_proj`."""
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    argv = ["--arch", VLM_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+            str(SERVE_PROMPT), "--decode-tokens", str(SERVE_TOKENS), "--seed", "0"]
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    cfg, params = res["cfg"], res["params"]
+    check(res["device"].startswith(DEVICE), f"serve ran on {res['device']}")
+    check(cfg.num_layers == 40 and cfg.d_model == 5120 and cfg.frontend == "vision_text",
+          f"serve_vlm: {cfg.name}'s layout")
+    res["prompt_positions"] = serve.prompt_length(res["prompts"])
+    check(res["prompt_positions"] == SERVE_PROMPT
+          and res["prompts"]["patches"].shape[1] == cfg.num_patches,
+          f"serve_vlm: prompt {res['prompt_positions']} positions")
+    check_serve_launches(cfg, res, launches, cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    gated = serve_gates(torch, res, ("embed", "frontend_proj"), SERVE_TOKENS)
+    res["peak_memory_bytes"] = max(res["peak_memory_bytes"], torch.cuda.max_memory_allocated())
+    peak = serve_peak_prediction(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                                 ("embed", "frontend_proj"), baseline)
+    shared["serve_vlm"] = {"launches": launches}
+    out = serve_record(res, gated["plain"], peak, baseline, card)
+    out.update(gated["gates"], launches_over_run=launches,
+               profile=serving_profile(torch, res))
+    return out
+
+
+def routing_diffs(torch, got: list, want: list, layers: int, E: int, C: int) -> dict:
+    """The MoE's routing on the kernel path (`got`) against the plain
+    path's (`want`), each the (expert_index, probs) of every `moe_ffn`
+    call of a prefill and its decode steps (layers calls each, in order):
+    per layer, the decisions that differ, the plain path's top-1/top-2
+    probability gap of each differing token (each must lie below
+    NEAR_TIE_GAP), and the tokens each expert dropped at the prefill's
+    capacity C on the kernel path."""
+    check(len(got) == len(want) and len(got) % layers == 0,
+          f"routing records {len(got)} and {len(want)} over {layers} layers")
+    differ, gaps, decisions = [0] * layers, [[] for _ in range(layers)], [0] * layers
+    max_dprob = [0.0] * layers
+    for call, ((gi, gp), (wi, wp)) in enumerate(zip(got, want)):
+        layer = call % layers
+        decisions[layer] += wi.numel()
+        bad = (gi != wi).any(-1)  # [B, S]
+        top2 = torch.topk(wp, 2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1])[bad]
+        differ[layer] += int(bad.sum())
+        gaps[layer] += gap.tolist()
+        same = ~bad
+        if bool(same.any()):
+            max_dprob[layer] = max(max_dprob[layer],
+                                   float((gp - wp).abs().amax(-1)[same].max()))
+    worst = max((g for lg in gaps for g in lg), default=0.0)
+    check(worst < NEAR_TIE_GAP, f"serve_moe: a routing decision differs at a top-1/top-2 "
+          f"gap of {worst:.3e} (not a near-tie: {NEAR_TIE_GAP})")
+    dropped = []
+    for layer in range(layers):
+        idx = got[layer][0][..., 0]  # the prefill's call of this layer, [B, S]
+        counts = torch.stack([(idx == e).sum(-1) for e in range(E)], -1)  # [B, E]
+        dropped.append(torch.clamp_min(counts - C, 0).sum(0).tolist())
+    return {"decisions_per_layer": decisions, "differing_per_layer": differ,
+            "differing_plain_gaps_per_layer": gaps, "near_tie_gap": NEAR_TIE_GAP,
+            "max_abs_dprob_same_decision_per_layer": max_dprob,
+            "prefill_capacity": C, "prefill_dropped_per_layer_expert": dropped}
+
+
+def phase_serve_moe(torch, card: str, shared: dict) -> dict:
+    """llama4-scout-17b-a16e at full width cut to MOE_LAYERS layers in f32
+    through `serve.generate` (seed 0 weights, seed 1 prompts, batch 4,
+    prompt 512, 32 tokens): one flash_attention launch per layer a
+    prefill, none a decode step; the gates of `serve_gates` (perturbing
+    `embed`), and every routing decision that differs from the plain
+    path's a near-tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_caches, init_params, num_params, random_batch
+    from repro_torch.models.moe import capacity
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    with torch.inference_mode():
+        params = init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+        batch = random_batch(torch.Generator(device=DEVICE).manual_seed(1), cfg,
+                             SERVE_BATCH, SERVE_PROMPT)
+        prompts = {"tokens": batch["tokens"]}
+        caches = init_caches(cfg, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                             torch.float32, DEVICE)
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    res, routing = routed(lambda: serve.generate(params, cfg, prompts, caches, SERVE_TOKENS))
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    del caches
+    check_serve_launches(cfg, res, launches, cfg.num_layers)
+    res.update(cfg=cfg, params=params, prompts=prompts, num_params=num_params(params),
+               prompt_positions=SERVE_PROMPT)
+    gated = serve_gates(torch, res, ("embed",), SERVE_TOKENS)
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    C = capacity(SERVE_PROMPT, cfg.top_k, cfg.capacity_factor, cfg.num_experts)
+    routes = routing_diffs(torch, routing, gated["plain_routing"], cfg.num_layers,
+                           cfg.num_experts, C)
+    peak = serve_peak_prediction(cfg, params, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                                 ("embed",), baseline)
+    shared["serve_moe"] = {"launches": launches}
+    out = serve_record(res, gated["plain"], peak, baseline, card)
+    out.update(gated["gates"], routing=routes, launches_over_run=launches,
+               profile=serving_profile(torch, res),
+               cut_from_layers=get_config(MOE_ARCH).num_layers,
+               experts=cfg.num_experts, top_k=cfg.top_k, dispatch=cfg.moe_dispatch)
+    return out
+
+
+def phase_encode_audio(torch, card: str, shared: dict) -> dict:
+    """hubert-xlarge at full width and depth in f32 (seed 0 weights, seed 1
+    frames, batch 4, 512 frames) through `embed_inputs` -> `forward` ->
+    `logits_from_hidden`: 48 non-causal flash_attention launches an
+    encode; the logits against the plain versions within PERTURB_FACTOR
+    times the least of what three PERTURB_REL perturbations of the frames
+    do."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (embed_inputs, forward, init_params,
+                                    logits_from_hidden, num_params, random_batch)
+
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(AUDIO_ARCH)
+    with torch.inference_mode():
+        params = init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+        frames = random_batch(torch.Generator(device=DEVICE).manual_seed(1), cfg,
+                              SERVE_BATCH, SERVE_PROMPT)["frames"]
+
+    def encode(frames, use_kernel=True):
+        with torch.inference_mode():
+            h, caches, _ = forward(params, cfg, embed_inputs(params, cfg, {"frames": frames}),
+                                   use_kernel=use_kernel)
+            return logits_from_hidden(params, cfg, h)
+
+    # the main path: counts at 0 just before, read just after
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    got = encode(frames)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_counts()
+    check(launches["flash_attention"] == cfg.num_layers == 48
+          and all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"encode_audio: launches {launches}")
+    check(got.shape == (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(got).all()), "encode_audio: logits")
+    want = encode(frames, use_kernel=False)
+    check(bool(torch.isfinite(want).all()), "encode_audio: non-finite plain logits")
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    rel_pert = [float((encode(perturbed(torch, frames, seed), False) - want).abs().max())
+                / scale for seed in PERTURB_SEEDS]
+    bound = PERTURB_FACTOR * min(rel_pert)
+    check(rel <= bound, f"encode_audio: kernels move the logits by {rel:.3e} of max "
+          f"|logit|, beyond {PERTURB_FACTOR} x the least effect of a {PERTURB_REL} "
+          f"perturbation of the frames ({min(rel_pert):.3e})")
+    ms = time_ms(torch, lambda: encode(frames), reps=3, warmup=1)
+    plain_ms = time_ms(torch, lambda: encode(frames, False), reps=3, warmup=1)
+    weights = model_bytes(params)
+    shared["encode_audio"] = {"launches": launches}
+    return {
+        "arch": cfg.name, "num_layers": cfg.num_layers, "batch": SERVE_BATCH,
+        "frames": SERVE_PROMPT, "causal": cfg.causal, "dtype": "f32",
+        "num_params": num_params(params), "launches_per_encode": launches,
+        "encode_ms": ms, "first_encode_wall_ms": first_ms, "plain_encode_ms": plain_ms,
+        "frames_per_s": SERVE_BATCH * SERVE_PROMPT / ms * 1e3,
+        "max_abs_logit": scale, "rel_err_vs_plain": rel, "perturbed": ["frames"],
+        "perturbation_rel": PERTURB_REL, "perturbation_seeds": list(PERTURB_SEEDS),
+        "rel_err_perturbed_plain": rel_pert,
+        "rel_err_over_least_perturbation": rel / min(rel_pert),
+        "perturbation_factor": PERTURB_FACTOR, "rel_err_bound": bound,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "memory_before_bytes": baseline, "weights_bytes": weights, "card": card,
+    }
 
 
 def parting_round(np, got, want, rtol: float):
@@ -3849,6 +4273,9 @@ def kernel_entries(torch, launches: dict, state: dict, card: str,
             for tag, run in shared.get("multihost", {}).items()
             if isinstance(run, dict) and "launches" in run}
         entry["train_main_path_launches"] = shared["train"]["launches"][entry["name"]]
+        for tag in ("serve_vlm", "serve_moe", "encode_audio"):
+            entry[f"{tag}_launches"] = (shared[tag]["launches"][entry["name"]]
+                                        if tag in shared else None)
         entry["telemetry_main_path_launches"] = (
             shared["telemetry"]["launches"][entry["name"]]
             if "telemetry" in shared else None)
@@ -4019,6 +4446,13 @@ def main(argv: list) -> int:
         run("serve_profile", lambda: phase_serve_profile(torch, shared))
         del shared["serve"]  # the parameters (26 GB)
         torch.cuda.empty_cache()
+    # one model at a time: each phase frees its parameters on return
+    run("serve_vlm", lambda: phase_serve_vlm(torch, card, shared))
+    torch.cuda.empty_cache()
+    run("serve_moe", lambda: phase_serve_moe(torch, card, shared))
+    torch.cuda.empty_cache()
+    run("encode_audio", lambda: phase_encode_audio(torch, card, shared))
+    torch.cuda.empty_cache()
     trained = run("train_main_path", lambda: phase_train_main_path(torch, np, card, shared))
     if ("state" in shared and "compressed" in shared and served is not None
             and trained is not None and len(shared.get("timing", {})) == 7):

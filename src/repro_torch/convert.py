@@ -172,12 +172,13 @@ def model_tree_from_numpy(cfg, tree: Any, device: DeviceLike = None,
     """The JAX package's model parameters (`jax.tree.map(np.asarray,
     params)` of `repro.models.init_params`) as the port's tree of plain
     tensors on `device` (default CUDA): {"layers": [one dict per layer],
-    "final_norm", "embed", "shared_attn" (zamba2)}, what the LM training
-    path differentiates (`ModelParams.tree()`'s layout).  JAX stacks each
-    pattern slot's layers ([n_per, ...] under "blocks/{j}_{kind}"); layer
-    gi of the port is period gi // len(pattern) of slot gi % len(pattern).
-    JAX's delta ({"delta": [d_model]}) and token batches come across with
-    `tree_from_numpy`."""
+    "final_norm", and those of "embed", "frontend_proj", "out_head",
+    "shared_attn" JAX's have}, what the LM training path differentiates
+    (`ModelParams.tree()`'s layout).  JAX stacks each pattern slot's
+    layers ([n_per, ...] under "blocks/{j}_{kind}", a MoE layer's experts
+    [n_per, E, ...] under its "moe"); layer gi of the port is period
+    gi // len(pattern) of slot gi % len(pattern).  JAX's delta ({"delta":
+    [d_model]}) and batches come across with `tree_from_numpy`."""
     device = resolve_device(device)
     per = len(cfg.pattern)
     layers = []
@@ -187,8 +188,10 @@ def model_tree_from_numpy(cfg, tree: Any, device: DeviceLike = None,
         layers.append(tree_map(
             lambda a: tensor_from_numpy(np.asarray(a)[i_per], device, dtype), stacked))
     out = {"layers": layers,
-           "final_norm": tree_from_numpy(tree["final_norm"], device, dtype),
-           "embed": tensor_from_numpy(tree["embed"], device, dtype)}
+           "final_norm": tree_from_numpy(tree["final_norm"], device, dtype)}
+    for name in ("embed", "frontend_proj", "out_head"):
+        if name in tree:
+            out[name] = tensor_from_numpy(tree[name], device, dtype)
     if "shared_attn" in tree:
         out["shared_attn"] = tree_from_numpy(tree["shared_attn"], device, dtype)
     return out

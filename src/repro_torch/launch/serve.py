@@ -14,8 +14,15 @@ prompt_len + n.  On the card, prefill runs through the `flash_attention`
 and `ssm_scan` kernels and decode stays plain; both TF32 switches are set
 off, so the f32 products and the convolution run in full f32.
 
-`main()` returns what it measured (see `generate`), with the parameters,
-so that a caller can rerun the same tokens through the plain versions.
+A vision_text model (pixtral-12b) prefills its whole `random_batch`:
+`--prompt-len` positions, the `num_patches` projected patches first and
+the text tokens after them, as JAX's entry point prefills its batch;
+decode steps take tokens only.  An encoder-only model (hubert-xlarge) has
+no decode path and is refused, as JAX refuses it.
+
+`main()` returns what it measured (see `generate`), with the parameters
+and the batch, so that a caller can rerun the same tokens through the
+plain versions.
 """
 from __future__ import annotations
 
@@ -50,10 +57,18 @@ def _since(before: Dict[str, int]) -> Dict[str, int]:
     return {name: n - before[name] for name, n in launch_counts().items()}
 
 
-def prefill(params, cfg, tokens: torch.Tensor, caches: Dict, *,
-            use_kernel: bool = True):
-    """Logits of the last prompt position [B, 1, V] and the filled caches."""
-    h = embed_inputs(params, cfg, {"tokens": tokens})
+def prompt_length(prompts: Dict) -> int:
+    """Positions a prefill of the prompt batch `prompts` ({"tokens": [B,
+    St]}, + "patches" [B, P, frontend_dim] for vision_text) fills: its
+    tokens, and before them its patches."""
+    n = prompts["tokens"].shape[1]
+    return n + (prompts["patches"].shape[1] if "patches" in prompts else 0)
+
+
+def prefill(params, cfg, prompts: Dict, caches: Dict, *, use_kernel: bool = True):
+    """Logits of the last prompt position [B, 1, V] and the filled caches
+    of the prompt batch `prompts` (see `prompt_length`)."""
+    h = embed_inputs(params, cfg, prompts)
     h, caches, _ = forward(params, cfg, h, caches=caches, use_kernel=use_kernel)
     return logits_from_hidden(params, cfg, h[:, -1:]), caches
 
@@ -67,18 +82,19 @@ def decode(params, cfg, caches: Dict, tok: torch.Tensor, pos: int, *,
     return logits_from_hidden(params, cfg, h), caches
 
 
-def generate(params, cfg, prompts: torch.Tensor, caches: Dict,
+def generate(params, cfg, prompts: Dict, caches: Dict,
              decode_tokens: int, *, use_kernel: bool = True,
              forced: Optional[torch.Tensor] = None) -> Dict:
-    """Prefill `prompts` [B, S] into empty `caches`, then greedy decode
+    """Prefill the prompt batch `prompts` (filling S = `prompt_length`
+    positions) into empty `caches`, then greedy decode at positions S + i
     (`forced` [B, decode_tokens] feeds those tokens instead: teacher
     forcing).  Returns the tokens [B, decode_tokens], the logits that
     chose each [B, decode_tokens, V], the host times of the prefill and of
     the decode loop (each ending in a device synchronize), and the kernel
     launches of each."""
-    dev = prompts.device
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    B, S = prompts.shape
+    tokens = prompts["tokens"]
+    sync = torch.cuda.synchronize if tokens.device.type == "cuda" else (lambda: None)
+    B, S = tokens.shape[0], prompt_length(prompts)
     with torch.inference_mode():
         sync()
         before = launch_counts()
@@ -154,10 +170,11 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                              cfg, args.batch, args.prompt_len)
         caches = init_caches(cfg, args.batch, args.prompt_len + args.decode_tokens,
                              torch.float32, device)
-    out = generate(params, cfg, batch["tokens"], caches, args.decode_tokens)
+    prompts = {k: v for k, v in batch.items() if k != "labels"}
+    out = generate(params, cfg, prompts, caches, args.decode_tokens)
     del caches
     out.update(
-        cfg=cfg, params=params, prompts=batch["tokens"], device=str(device),
+        cfg=cfg, params=params, prompts=prompts, device=str(device),
         num_params=num_params(params),
         peak_memory_bytes=(torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None),

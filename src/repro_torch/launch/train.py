@@ -178,6 +178,10 @@ def setup(args, cfg: Optional[ModelConfig] = None, *, remat: bool = False) -> Se
     built), then weights from seed 0, delta = 0 and the batches."""
     strategy = resolve(args)
     cfg = config_of(args) if cfg is None else cfg
+    if cfg.frontend == "audio":
+        # JAX's train.py fails here with a KeyError in embed_inputs
+        raise ValueError(f"{cfg.name} has the audio frontend: it trains on "
+                         "frames, and this entry point draws token batches")
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False

@@ -10,9 +10,10 @@ block (JAX's `lax.cond` inside the scan) is a plain `if` after every
 
 The model functions take a `ModelParams` (the serving path) or its tree
 of plain tensors (`ModelParams.tree()`, {"layers": [one dict per layer],
-"final_norm", "embed", "shared_attn"}), which is what training
-differentiates: the round engine vmaps the loss over agent-stacked copies
-of that tree, and a vmapped tensor is never wrapped in a parameter.
+"final_norm", and as the config has them "embed", "frontend_proj",
+"out_head", "shared_attn"}), which is what training differentiates: the
+round engine vmaps the loss over agent-stacked copies of that tree, and
+a vmapped tensor is never wrapped in a parameter.
 
 `remat` is JAX's `jax.checkpoint`: `forward(..., remat=True)` recomputes
 each pattern period (with the shared block where it applies) in the
@@ -22,13 +23,16 @@ chunk.  `torch.utils.checkpoint` does not compose with `torch.func.vmap`
 `remat` is an autograd Function of its own whose `vmap` rule recomputes
 under a `vmap` of the body.
 
-Ported: the text frontend and the dense, local, Mamba-1 and Mamba-2
-layer kinds.  The `moe` kind and the audio and vision_text frontends
-raise `not_ported` (ROADMAP Queue 1 item 12); `forward` has no
-`h_sharding` (the SPMD layer, item 13).
+Ported: every layer kind (dense, local, moe, Mamba-1, Mamba-2) and
+every frontend (text; audio: frames through `frontend_proj`, logits
+through `out_head`; vision_text: projected patches before the token
+embeddings), so all ten architectures.  `forward` returns the MoE
+layers' load-balance aux summed in f32, as JAX's scan sums it; it has
+no `h_sharding` (the SPMD layer, ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -36,7 +40,6 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core.types import tree_flatten, tree_leaves
-from ..device import not_ported
 from .attention import init_attention, init_cache, multihead_attention
 from .layers import (
     embed_tokens,
@@ -49,15 +52,12 @@ from .layers import (
     unembed,
 )
 from .mamba import init_mamba, init_mamba_cache, mamba_block
+from .moe import init_moe, moe_ffn
 
 SSM_KINDS = ("mamba1", "mamba2")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if "moe" in cfg.pattern:
-        raise not_ported(f"the moe layer kind ({cfg.name})", "Queue 1 item 12")
-    if cfg.frontend != "text":
-        raise not_ported(f"the {cfg.frontend} frontend ({cfg.name})", "Queue 1 item 12")
+ATTN_KINDS = ("attn", "local", "moe")
+#: the top-level tensors a model may have beside its layers
+TOP_TENSORS = ("embed", "frontend_proj", "out_head")
 
 
 def as_module(tree):
@@ -71,46 +71,55 @@ def as_module(tree):
 
 class ModelParams(nn.Module):
     """The parameters of one model: `layers` (one module per layer, in
-    order), `final_norm`, `embed` (the token table, also the
-    unembedding) and, for zamba2, `shared_attn`.  Built by `init_params`
-    (random, from a generator) or, through `from_tree`, by
+    order), `final_norm`, and as its frontend has them `embed` (the token
+    table, also the unembedding; not audio), `frontend_proj` (audio and
+    vision_text: frame / patch embeddings to d_model) and `out_head`
+    (audio: the unembedding), and for zamba2 `shared_attn`.  Built by
+    `init_params` (random, from a generator) or, through `from_tree`, by
     `convert.model_params_from_numpy` (the JAX package's weights); the
     model functions below read it."""
 
     def __init__(self, cfg: ModelConfig, layers: List[nn.Module],
-                 final_norm: nn.Module, embed: torch.Tensor,
-                 shared_attn: Optional[nn.Module] = None):
+                 final_norm: nn.Module, embed: Optional[torch.Tensor],
+                 shared_attn: Optional[nn.Module] = None, *,
+                 frontend_proj: Optional[torch.Tensor] = None,
+                 out_head: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(layers)
         self.final_norm = final_norm
-        self.embed = param(embed)
+        for name, t in zip(TOP_TENSORS, (embed, frontend_proj, out_head)):
+            setattr(self, name, None if t is None else param(t))
         self.shared_attn = shared_attn
 
     def tree(self) -> Dict:
         """The parameters as nested dicts and lists of plain tensors
         (sharing storage): {"layers": [one dict per layer], "final_norm",
-        "embed", "shared_attn" (zamba2)}, the round engine's x."""
+        then those of "embed", "frontend_proj", "out_head", "shared_attn"
+        the model has}, the round engine's x."""
         def plain(m):
             if isinstance(m, nn.ParameterDict):
                 return {k: v.detach() for k, v in m.items()}
             return {k: plain(v) for k, v in m.items()}
 
         out = {"layers": [plain(m) for m in self.layers],
-               "final_norm": plain(self.final_norm), "embed": self.embed.detach()}
+               "final_norm": plain(self.final_norm)}
+        for name in TOP_TENSORS:
+            if getattr(self, name) is not None:
+                out[name] = getattr(self, name).detach()
         if self.shared_attn is not None:
             out["shared_attn"] = plain(self.shared_attn)
         return out
 
     @classmethod
     def from_tree(cls, cfg: ModelConfig, tree: Dict) -> "ModelParams":
-        """From nested dicts of tensors: {"layers": [one dict per layer],
-        "final_norm", "embed", "shared_attn" (zamba2)}."""
-        _check_ported(cfg)
+        """From nested dicts of tensors, `tree()`'s layout."""
         shared = tree.get("shared_attn")
         return cls(cfg, [as_module(t) for t in tree["layers"]],
-                   as_module(tree["final_norm"]), tree["embed"],
-                   None if shared is None else as_module(shared))
+                   as_module(tree["final_norm"]), tree.get("embed"),
+                   None if shared is None else as_module(shared),
+                   frontend_proj=tree.get("frontend_proj"),
+                   out_head=tree.get("out_head"))
 
 
 # --------------------------------------------------------------------------
@@ -118,14 +127,18 @@ class ModelParams(nn.Module):
 # --------------------------------------------------------------------------
 def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype) -> nn.Module:
     dev = gen.device
-    if kind in ("attn", "local"):
-        return nn.ModuleDict({
+    if kind in ATTN_KINDS:
+        p = {
             "ln1": init_rms_norm(cfg.d_model, dtype, dev),
             "attn": init_attention(gen, cfg.d_model, cfg.num_heads,
                                    cfg.num_kv_heads, cfg.head_dim, dtype),
             "ln2": init_rms_norm(cfg.d_model, dtype, dev),
-            "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, dev),
-        })
+        }
+        if kind == "moe":
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, dtype)
+        else:
+            p["mlp"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, dev)
+        return nn.ModuleDict(p)
     if kind in SSM_KINDS:
         return nn.ModuleDict({
             "ln1": init_rms_norm(cfg.d_model, dtype, dev),
@@ -139,12 +152,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32) -> ModelParams:
     """Random parameters with JAX's distributions (not its numbers), drawn
     from `gen` on `gen.device`."""
-    _check_ported(cfg)
     assert cfg.num_layers % len(cfg.pattern) == 0, (cfg.name, cfg.num_layers)
     dev = gen.device
     layers = [_init_layer(gen, kind, cfg, dtype) for kind in cfg.layer_types]
     final_norm = init_rms_norm(cfg.d_model, dtype, dev)
-    embed = normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, dev)
+    embed = frontend_proj = out_head = None
+    if cfg.frontend != "audio":
+        embed = normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, dev)
+    if cfg.frontend in ("audio", "vision_text"):
+        frontend_proj = normal(gen, (cfg.frontend_dim, cfg.d_model),
+                               1.0 / math.sqrt(cfg.frontend_dim), dtype, dev)
+    if cfg.frontend == "audio":
+        out_head = normal(gen, (cfg.d_model, cfg.vocab_size),
+                          1.0 / math.sqrt(cfg.d_model), dtype, dev)
     shared = None
     if cfg.shared_attn_every:
         shared = nn.ModuleDict({
@@ -152,7 +172,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
             "attn": init_attention(gen, cfg.d_model, cfg.num_heads,
                                    cfg.num_kv_heads, cfg.head_dim, dtype),
         })
-    return ModelParams(cfg, layers, final_norm, embed, shared)
+    return ModelParams(cfg, layers, final_norm, embed, shared,
+                       frontend_proj=frontend_proj, out_head=out_head)
 
 
 def num_params(params) -> int:
@@ -173,11 +194,10 @@ def init_caches(cfg: ModelConfig, batch: int, capacity: int, dtype,
                 device) -> Dict:
     """{"layers": one cache per layer, "shared": one per application of
     the shared block} (JAX stacks them per pattern slot)."""
-    _check_ported(cfg)
     layers: List[Dict] = []
     for kind in cfg.layer_types:
         cap = _layer_cache_capacity(kind, cfg, capacity)
-        if kind in ("attn", "local"):
+        if kind in ATTN_KINDS:
             layers.append(init_cache(batch, cap, cfg.num_kv_heads, cfg.head_dim,
                                      dtype, device))
         else:
@@ -207,8 +227,9 @@ def _apply_layer(
     cache_index: int,
     use_kernel: bool,
 ):
-    aux = 0.0
-    if kind in ("attn", "local"):
+    """(h, the layer's new cache, its aux loss or None: MoE layers only)."""
+    aux = None
+    if kind in ATTN_KINDS:
         hn = rms_norm(h, p["ln1"]["scale"])
         out, new_c = multihead_attention(
             p["attn"],
@@ -224,7 +245,13 @@ def _apply_layer(
         )
         h = h + out
         hn2 = rms_norm(h, p["ln2"]["scale"])
-        return h + swiglu(hn2, p["mlp"]), new_c, aux
+        if kind == "moe":
+            mo, aux = moe_ffn(p["moe"], hn2, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor,
+                              dispatch=cfg.moe_dispatch)
+        else:
+            mo = swiglu(hn2, p["mlp"])
+        return h + mo, new_c, aux
     if kind in SSM_KINDS:
         hn = rms_norm(h, p["ln1"]["scale"])
         out, new_c = mamba_block(
@@ -237,8 +264,6 @@ def _apply_layer(
             use_kernel=use_kernel,
         )
         return h + out, new_c, aux
-    if kind == "moe":
-        raise not_ported("the moe layer kind", "Queue 1 item 12")
     raise ValueError(kind)
 
 
@@ -248,9 +273,20 @@ def _tree(params) -> Dict:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
-    """batch: {"tokens": [B, St]} (the text frontend)."""
-    _check_ported(cfg)
-    return embed_tokens(batch["tokens"], _tree(params)["embed"])
+    """batch: {"tokens": [B, St]}, with "patches" [B, P, frontend_dim]
+    (vision_text: projected and placed before the tokens), or {"frames":
+    [B, S, frontend_dim]} (audio)."""
+    tree = _tree(params)
+    if cfg.frontend == "audio":
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name}: the audio frontend takes a batch of "
+                             "'frames', not tokens")
+        return batch["frames"] @ tree["frontend_proj"]
+    h = embed_tokens(batch["tokens"], tree["embed"])
+    if cfg.frontend == "vision_text" and "patches" in batch:
+        ph = batch["patches"] @ tree["frontend_proj"]
+        h = torch.cat([ph.to(h.dtype), h], dim=1)
+    return h
 
 
 def forward(
@@ -262,8 +298,9 @@ def forward(
     position: Optional[int] = None,  # decode: current absolute position
     remat: bool = False,
     use_kernel: bool = True,
-) -> Tuple[torch.Tensor, Optional[Dict], float]:
-    """Returns (final hidden [B,S,d], updated caches, aux loss).
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (final hidden [B,S,d], updated caches, aux loss: an f32
+    scalar, the sum over the MoE layers, 0 without them).
 
     Prefill (position None) runs positions 0..S-1 into empty caches; a
     decode step (position p) runs one token at p.  remat=True recomputes
@@ -271,7 +308,6 @@ def forward(
     it applies to a forward without caches, the training path.
     use_kernel=False runs the flash-attention and scan kernels' plain
     versions instead."""
-    _check_ported(cfg)
     if remat and caches is not None:
         raise ValueError("forward: remat is for the cacheless (training) path")
     tree = _tree(params)
@@ -306,25 +342,31 @@ def forward(
 
     def period(h, layer_ps, sp, i_per):
         """Pattern period i_per: its layers, then the shared block after
-        each layer where it applies."""
+        each layer where it applies; (h, the period's aux or None without
+        MoE layers, new caches)."""
         new_cs = []
+        aux = None
         for j, kind in enumerate(cfg.pattern):
             gi = i_per * per + j
             c = caches["layers"][gi] if caches else None
-            h, new_c, _ = _apply_layer(kind, layer_ps[j], cfg, h, c, q_positions,
+            h, new_c, a = _apply_layer(kind, layer_ps[j], cfg, h, c, q_positions,
                                        cache_index, use_kernel)
+            aux = _add(aux, a)
             new_cs.append(new_c)
             if cfg.shared_attn_every and (gi + 1) % cfg.shared_attn_every == 0:
                 s_idx = (gi + 1) // cfg.shared_attn_every - 1
                 h, cs = apply_shared(h, sp, shared[s_idx] if shared is not None else None)
                 if shared is not None:
                     shared[s_idx] = cs
-        return h, new_cs
+        return h, aux, new_cs
 
+    has_moe = "moe" in cfg.pattern
+    aux = None
     for i_per in range(cfg.num_layers // per):
         layer_ps = tree["layers"][i_per * per:(i_per + 1) * per]
         if not remat:
-            h, new_cs = period(h, layer_ps, shared_p, i_per)
+            h, a, new_cs = period(h, layer_ps, shared_p, i_per)
+            aux = _add(aux, a)
             new_layers.extend(new_cs)
             continue
         gis = range(i_per * per, (i_per + 1) * per)
@@ -335,21 +377,46 @@ def forward(
 
         def body(h, *leaves, i_per=i_per, unflatten=unflatten):
             p = unflatten(list(leaves))
-            return period(h, p["layers"], p["shared"], i_per)[0]
+            h, a, _ = period(h, p["layers"], p["shared"], i_per)
+            return (h, a) if has_moe else h
 
-        h = checkpoint(body, h, *leaves)
+        out = checkpoint(body, h, *leaves)
+        h, aux = (out[0], _add(aux, out[1])) if has_moe else (out, aux)
     h = rms_norm(h, tree["final_norm"]["scale"])
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = None
     if caches is not None:
         new_caches = {"layers": new_layers}
         if cfg.shared_attn_every:
             new_caches["shared"] = shared
-    return h, new_caches, 0.0
+    return h, new_caches, aux
+
+
+def _add(total: Optional[torch.Tensor], a: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    """total + a, where None stands for no term yet (a layer without aux)."""
+    if a is None:
+        return total
+    return a if total is None else total + a
+
+
+def _head(params, cfg: ModelConfig) -> torch.Tensor:
+    """The unembedding: `out_head` [d, V] (audio) or `embed` [V, d]."""
+    return _tree(params)["out_head" if cfg.frontend == "audio" else "embed"]
+
+
+def _logits(cfg: ModelConfig, head: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    if cfg.frontend != "audio":
+        return unembed(h, head, cfg.final_softcap)
+    logits = (h @ head).float()
+    if cfg.final_softcap > 0.0:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 def logits_from_hidden(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
-    _check_ported(cfg)
-    return unembed(h, _tree(params)["embed"], cfg.final_softcap)
+    return _logits(cfg, _head(params, cfg), h)
 
 
 def chunked_lm_loss(
@@ -361,14 +428,13 @@ def chunked_lm_loss(
 ) -> torch.Tensor:
     """Token CE without materializing [B, S, V]: checkpointed chunks over
     S, summed in f32 as JAX's scan sums them."""
-    _check_ported(cfg)
     B, S, _ = h.shape
     chunk = min(chunk, S)
     assert S % chunk == 0, (S, chunk)
-    embed = _tree(params)["embed"]
+    head = _head(params, cfg)
 
-    def one(hb, lb, embed):
-        logits = unembed(hb, embed, cfg.final_softcap)
+    def one(hb, lb, head):
+        logits = _logits(cfg, head, hb)
         logz = torch.logsumexp(logits, dim=-1)
         safe = torch.clamp_min(lb, 0).long()
         gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
@@ -378,7 +444,7 @@ def chunked_lm_loss(
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, S, chunk):
         lb = labels[:, c0:c0 + chunk]
-        tot = tot + checkpoint(one, h[:, c0:c0 + chunk], lb, embed)
+        tot = tot + checkpoint(one, h[:, c0:c0 + chunk], lb, head)
         cnt = cnt + torch.sum(lb >= 0).float()
     return tot / torch.clamp_min(cnt, 1.0)
 
@@ -386,11 +452,11 @@ def chunked_lm_loss(
 # --------------------------------------------------------------------------
 # remat
 # --------------------------------------------------------------------------
-def checkpoint(fn: Callable, *tensors: torch.Tensor) -> torch.Tensor:
-    """fn(*tensors), one tensor out, its activations recomputed in the
-    backward instead of kept (JAX's `jax.checkpoint`).  Every tensor fn
-    differentiates must come in `tensors`: under `torch.func.vmap` a
-    closed-over mapped tensor would escape the map."""
+def checkpoint(fn: Callable, *tensors: torch.Tensor):
+    """fn(*tensors), a tensor or a tuple of tensors out, its activations
+    recomputed in the backward instead of kept (JAX's `jax.checkpoint`).
+    Every tensor fn differentiates must come in `tensors`: under
+    `torch.func.vmap` a closed-over mapped tensor would escape the map."""
     return _Checkpoint.apply(fn, *tensors)
 
 
@@ -405,17 +471,23 @@ class _Checkpoint(torch.autograd.Function):
         ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         saved = ctx.saved_tensors
         with torch.enable_grad():
             args = [t.detach().requires_grad_(t.requires_grad) for t in saved]
             out = ctx.fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            # an output that needs no gradient (none of its inputs does)
+            # takes no part
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
             need = [a for a in args if a.requires_grad]
-            grads = iter(torch.autograd.grad(out, need, grad, allow_unused=True))
-        return (None,) + tuple(next(grads) if a.requires_grad else None for a in args)
+            got = iter(torch.autograd.grad([o for o, _ in pairs], need,
+                                           [g for _, g in pairs], allow_unused=True))
+        return (None,) + tuple(next(got) if a.requires_grad else None for a in args)
 
     @staticmethod
     def vmap(info, in_dims, fn, *tensors):
         mapped = torch.func.vmap(fn, in_dims=tuple(in_dims[1:]),
                                  randomness=info.randomness)
-        return _Checkpoint.apply(mapped, *tensors), 0
+        out = _Checkpoint.apply(mapped, *tensors)
+        return out, ((0,) * len(out) if isinstance(out, tuple) else 0)

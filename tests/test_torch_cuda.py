@@ -33,7 +33,7 @@ from repro_torch.kernels import (
 from repro_torch.kernels.compress_correction import staged_in_shared_memory
 from repro_torch.kernels.pack_payload import pack_staged, payload_data_shape
 from repro_torch.launch import serve
-from repro_torch.models import init_caches, init_params
+from repro_torch.models import init_caches, init_params, random_batch
 from repro_torch.problems import make_quadratic_problem
 
 pytestmark = pytest.mark.torch
@@ -792,8 +792,11 @@ def _close_flash(got, want):
     (1, 2, 2, 200, 333, 256, False, 0, 0.0),      # hd 256: f32's 32-key tiles
     (2, 4, 4, 1, 1000, 112, False, 0, 0.0),       # one query, many keys
     (1, 2, 2, 1, 1, 256, True, 0, 0.0),           # one query, one key
+    (4, 32, 8, 512, 512, 128, True, 0, 0.0),      # pixtral-12b's prefill
+    (4, 16, 16, 512, 512, 80, False, 0, 0.0),     # hubert-xlarge's encoder
 ], ids=["square", "ragged-gqa", "gemma2-local", "sq<skv", "window", "one-query",
-        "hd33", "hd100", "s4096-window", "hd256", "sq1", "sq1-skv1"])
+        "hd33", "hd100", "s4096-window", "hd256", "sq1", "sq1-skv1", "pixtral",
+        "hubert"])
 def test_cuda_flash_attention_equals_plain(cuda_device, dt, case):
     B, H, KV, Sq, Skv, hd, causal, window, softcap = case
     gen = torch.Generator(device=cuda_device).manual_seed(Sq + hd)
@@ -1005,7 +1008,8 @@ def test_cuda_ssm_scan_counts_launches_and_raises(cuda_device):
 
 
 @pytest.mark.parametrize("arch,prompt_len", [
-    ("zamba2-7b", 64), ("gemma2-2b", 128), ("falcon-mamba-7b", 48)])
+    ("zamba2-7b", 64), ("gemma2-2b", 128), ("falcon-mamba-7b", 48),
+    ("llama4-scout-17b-a16e", 128), ("pixtral-12b", 64)])
 def test_cuda_reduced_model_through_kernels_equals_plain(cuda_device, arch,
                                                          prompt_len):
     """Prefill and teacher-forced decode of a reduced model through the
@@ -1016,9 +1020,9 @@ def test_cuda_reduced_model_through_kernels_equals_plain(cuda_device, arch,
     cfg = get_config(arch).reduced()
     params = init_params(torch.Generator(device=cuda_device).manual_seed(0), cfg)
     B, n = 2, 6
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (B, prompt_len), generator=gen,
-                            device=cuda_device)
+    batch = random_batch(torch.Generator(device=cuda_device).manual_seed(1), cfg, B,
+                         prompt_len)
+    prompts = {k: v for k, v in batch.items() if k != "labels"}  # pixtral: patches
     runs = {}
     for use in (True, False):
         caches = init_caches(cfg, B, prompt_len + n, torch.float32, cuda_device)
@@ -1028,7 +1032,7 @@ def test_cuda_reduced_model_through_kernels_equals_plain(cuda_device, arch,
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
-    n_attn = sum(k in ("attn", "local") for k in cfg.layer_types)
+    n_attn = sum(k in ("attn", "local", "moe") for k in cfg.layer_types)
     n_attn += cfg.num_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
     n_ssm = sum(k.startswith("mamba") for k in cfg.layer_types)
     assert runs[True]["launches"]["prefill"] == {"flash_attention": n_attn,

@@ -14,9 +14,10 @@ numpy inputs.
     state's cotangent.
   * `cross_entropy`, `chunked_lm_loss` (with several chunks) and the
     adversarial loss with its (gx, gy), on gemma2-2b, zamba2-7b,
-    falcon-mamba-7b and granite-8b reduced, from JAX's weights and JAX's
-    tokens, within 1e-4 of each leaf's max |value| (f32 sums in other
-    orders, through several layers).
+    falcon-mamba-7b, granite-8b, llama4-scout and pixtral-12b reduced,
+    from JAX's weights and JAX's tokens, within 1e-4 of each leaf's max
+    |value| (f32 sums in other orders, through several layers); the MoE
+    model also with the load-balance aux in the loss (`aux_weight`).
   * `torch.func.vmap` over each Function, one backward, equals a loop
     over the agents; remat changes no gradient.
 """
@@ -50,7 +51,9 @@ pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("one_torch_thread")]
 
 KERNEL_REL = 1e-5
 MODEL_REL = 1e-4
-ARCHS = ["gemma2-2b", "zamba2-7b", "falcon-mamba-7b", "granite-8b"]
+ARCHS = ["gemma2-2b", "zamba2-7b", "falcon-mamba-7b", "granite-8b",
+         "llama4-scout-17b-a16e", "pixtral-12b"]
+MOE = "llama4-scout-17b-a16e"
 
 
 def close(got, want, rel, what=""):
@@ -275,37 +278,58 @@ def test_chunked_lm_loss_matches_jax(lm_inputs, name):
         close(torch.autograd.grad(got, ht)[0], jgrad[1], MODEL_REL, f"dh, chunk {chunk}")
 
 
-@pytest.mark.parametrize("name", ARCHS)
-def test_adversarial_loss_and_gradients_match_jax(lm_inputs, name):
+@pytest.mark.parametrize("name,aux_weight", [(a, 0.0) for a in ARCHS] + [(MOE, 0.01)])
+def test_adversarial_loss_and_gradients_match_jax(lm_inputs, name, aux_weight):
     """Each agent's loss and (gx, gy) through the engine's vmapped
     gradient (remat on, the Functions' CPU path), leaf by leaf."""
     jcfg, cfg, jp, data, y, x, d, yt = lm_inputs[name]
-    jl = jmake_adversarial_loss(jcfg, remat=True)
+    jl = jmake_adversarial_loss(jcfg, remat=True, aux_weight=aux_weight)
     jv, (jgx, jgy) = jax.jit(jax.vmap(jax.value_and_grad(jl, argnums=(0, 1)),
                                       in_axes=(None, None, 0)))(jp, y, data)
-    loss = make_adversarial_loss(cfg, remat=True)
+    loss = make_adversarial_loss(cfg, remat=True, aux_weight=aux_weight)
     with torch.no_grad():
         v = torch.func.vmap(loss, in_dims=(None, None, 0))(x, yt, d)
     close(v, jv, MODEL_REL, "loss")
     g = vmap_grad_xy(loss)(tree_broadcast_agents(x, 2), tree_broadcast_agents(yt, 2), d)
+    # a top-1 router's gate is p / p = 1: without the aux in the loss its
+    # gradient is zero but for rounding, on both sides
+    zero_router = cfg.num_experts and cfg.top_k == 1 and not aux_weight
     for agent in range(2):
         want = model_tree_from_numpy(
             cfg, jax.tree.map(lambda a: np.asarray(a)[agent], jgx), "cpu")
-        for i, (a, b) in enumerate(zip(tree_leaves(g.gx), tree_leaves(want))):
-            close(a[agent], b, MODEL_REL, f"gx leaf {i}, agent {agent}")
+        scale = max(float(u.abs().max()) for u in tree_leaves(want))
+        for path, a, b in zip(_paths(g.gx), tree_leaves(g.gx), tree_leaves(want)):
+            if zero_router and path.endswith("moe.router"):
+                assert max(float(a[agent].abs().max()), float(b.abs().max())) <= 1e-6 * scale
+                continue
+            close(a[agent], b, MODEL_REL, f"gx {path}, agent {agent}")
         close(g.gy["delta"][agent], np.asarray(jgy["delta"])[agent], MODEL_REL, "gy")
 
 
-@pytest.mark.parametrize("name", ["zamba2-7b", "gemma2-2b"])
+def _paths(tree, prefix=""):
+    """Dotted names of a tree's leaves, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in _paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+@pytest.mark.parametrize("name", ["zamba2-7b", "gemma2-2b", MOE])
 def test_remat_changes_no_gradient(lm_inputs, name):
+    """The MoE model with the aux in its loss: remat carries each period's
+    aux out of the checkpoint and its gradient back in."""
     _, cfg, _, _, _, x, d, yt = lm_inputs[name]
     xs, ys = tree_broadcast_agents(x, 2), tree_broadcast_agents(yt, 2)
-    with_remat = vmap_grad_xy(make_adversarial_loss(cfg, remat=True))(xs, ys, d)
-    without = vmap_grad_xy(make_adversarial_loss(cfg, remat=False))(xs, ys, d)
+    aux_weight = 0.01 if cfg.num_experts else 0.0
+    with_remat, without = (
+        vmap_grad_xy(make_adversarial_loss(cfg, remat=r, aux_weight=aux_weight))(xs, ys, d)
+        for r in (True, False))
     for a, b in zip(tree_leaves(with_remat), tree_leaves(without)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8)
     # and the forward alone, with and without remat
     batch = {"tokens": d["tokens"][0]}
     h = embed_inputs(x, cfg, batch)
-    torch.testing.assert_close(forward(x, cfg, h, remat=True)[0],
-                               forward(x, cfg, h)[0], rtol=0, atol=0)
+    for a, b in zip(forward(x, cfg, h, remat=True), forward(x, cfg, h)):
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

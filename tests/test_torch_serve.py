@@ -20,14 +20,16 @@ from repro_torch.models import init_caches
 pytestmark = pytest.mark.torch
 
 
-def _jax_greedy(cfg, params, prompts, decode_tokens):
-    """JAX's serve loop (`repro/launch/serve.py` main) on given prompts."""
-    B, S = prompts.shape
+def _jax_greedy(cfg, params, batch, decode_tokens):
+    """JAX's serve loop (`repro/launch/serve.py` main) on a given prompt
+    batch ({"tokens"}, + "patches" for vision_text, numpy)."""
+    B = len(batch["tokens"])
+    S = sum(v.shape[1] for v in batch.values())  # patches come first
     caches = jtf.init_caches(cfg, B, S + decode_tokens, jnp.float32)
 
     @jax.jit
-    def prefill(params, toks, caches):
-        h = jtf.embed_inputs(params, cfg, {"tokens": toks})
+    def prefill(params, batch, caches):
+        h = jtf.embed_inputs(params, cfg, batch)
         h, caches, _ = jtf.forward(params, cfg, h, caches=caches)
         return jtf.logits_from_hidden(params, cfg, h[:, -1:]), caches
 
@@ -37,7 +39,7 @@ def _jax_greedy(cfg, params, prompts, decode_tokens):
         h, caches, _ = jtf.forward(params, cfg, h, caches=caches, position=pos)
         return jtf.logits_from_hidden(params, cfg, h), caches
 
-    logits, caches = prefill(params, jnp.asarray(prompts), caches)
+    logits, caches = prefill(params, jax.tree.map(jnp.asarray, batch), caches)
     tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
     toks = [tok]
     for i in range(decode_tokens - 1):
@@ -47,7 +49,10 @@ def _jax_greedy(cfg, params, prompts, decode_tokens):
     return np.asarray(jnp.concatenate(toks, axis=1))
 
 
-@pytest.mark.parametrize("arch,prompt_len", [("zamba2-7b", 64), ("gemma2-2b", 128)])
+@pytest.mark.parametrize("arch,prompt_len", [
+    ("zamba2-7b", 64), ("gemma2-2b", 128), ("llama4-scout-17b-a16e", 64),
+    ("pixtral-12b", 40),  # 8 patches, then 32 text tokens
+])
 def test_greedy_tokens_equal_jax(arch, prompt_len):
     jcfg = jget_config(arch).reduced()
     cfg = get_config(arch).reduced()
@@ -55,10 +60,17 @@ def test_greedy_tokens_equal_jax(arch, prompt_len):
     jparams = jtf.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
     params = model_params_from_numpy(cfg, jax.tree.map(np.asarray, jparams), "cpu")
     B, n = 2, 10
-    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, prompt_len))
-    want = _jax_greedy(jcfg, jparams, prompts.astype(np.int32), n)
+    rng = np.random.default_rng(1)
+    n_patches = cfg.num_patches if cfg.frontend == "vision_text" else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, prompt_len - n_patches))}
+    if n_patches:
+        batch["patches"] = rng.standard_normal(
+            (B, n_patches, cfg.frontend_dim)).astype(np.float32)
+    want = _jax_greedy(jcfg, jparams, dict(batch, tokens=batch["tokens"].astype(np.int32)), n)
     caches = init_caches(cfg, B, prompt_len + n, torch.float32, "cpu")
-    out = serve.generate(params, cfg, torch.from_numpy(prompts), caches, n)
+    prompts = {k: torch.from_numpy(v) for k, v in batch.items()}
+    assert serve.prompt_length(prompts) == prompt_len
+    out = serve.generate(params, cfg, prompts, caches, n)
     assert out["tokens"].shape == (B, n)
     assert np.array_equal(out["tokens"].numpy(), want)
     assert out["step_logits"].shape == (B, n, cfg.vocab_size)
@@ -67,9 +79,18 @@ def test_greedy_tokens_equal_jax(arch, prompt_len):
 
 
 def test_main_runs_end_to_end_on_the_cpu(capsys):
-    out = serve.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
-                      "--batch", "2", "--prompt-len", "32", "--decode-tokens", "6",
-                      "--seed", "3"])
+    _main_end_to_end("zamba2-7b", capsys)
+
+
+@pytest.mark.parametrize("arch", ["pixtral-12b", "llama4-scout-17b-a16e"])
+def test_main_serves_vision_text_and_moe_on_the_cpu(arch, capsys):
+    _main_end_to_end(arch, capsys)
+
+
+def _main_end_to_end(arch, capsys):
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "32", "--decode-tokens", "6", "--seed", "3"]
+    out = serve.main(argv)
     printed = capsys.readouterr().out
     assert "prefill [2x32]" in printed and "sample:" in printed
     assert out["tokens"].shape == (2, 6) and out["decode_steps"] == 5
@@ -81,11 +102,12 @@ def test_main_runs_end_to_end_on_the_cpu(capsys):
     assert out["launches"] == {"prefill": zero, "decode": zero}
     # the same seed gives the same tokens; teacher forcing them through the
     # plain versions reproduces the logits
-    again = serve.main(["--arch", "zamba2-7b", "--reduced", "--device", "cpu",
-                        "--batch", "2", "--prompt-len", "32", "--decode-tokens", "6",
-                        "--seed", "3"])
+    again = serve.main(argv)
     assert torch.equal(again["tokens"], out["tokens"])
     cfg = out["cfg"]
+    # the prompt batch fills prompt-len positions: pixtral's patches first
+    assert serve.prompt_length(out["prompts"]) == 32
+    assert ("patches" in out["prompts"]) == (cfg.frontend == "vision_text")
     plain = serve.generate(out["params"], cfg, out["prompts"],
                            init_caches(cfg, 2, 38, torch.float32, "cpu"), 6,
                            use_kernel=False, forced=out["tokens"])

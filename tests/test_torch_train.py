@@ -7,10 +7,13 @@ port's training entry point (`python -m repro_torch.launch.train`).
     none does on these draws); `tests/test_system.py::TestDataPipeline`
     ported.
   * Three FedGDA-GT rounds at K = 2 per architecture (gemma2-2b,
-    zamba2-7b, falcon-mamba-7b, granite-8b reduced, remat on) from JAX's
-    weights on JAX's tokens, against JAX's `make_round`, round by round
-    from JAX's iterates: each leaf of x and y within 1e-4 of its max
-    |value|.
+    zamba2-7b, falcon-mamba-7b, granite-8b, llama4-scout (MoE),
+    pixtral-12b (vision_text) and hubert-xlarge (audio) reduced, remat
+    on) from JAX's weights on JAX's data, against JAX's `make_round`,
+    round by round from JAX's iterates: each leaf of x and y within 1e-4
+    of its max |value|.  The data is JAX's token batches, or for the two
+    frontends JAX's `random_batch` per agent (frames; patches before
+    tokens), as `tests/test_archs_smoke.py` TestTrainRound trains them.
   * `launch.train --reduced --device cpu` through its sync, async,
     population and telemetry routes, and a checkpointed run resumed
     equal to the uninterrupted one, bit for bit.
@@ -31,6 +34,7 @@ from repro.data import partition_among_agents as jpartition
 from repro.data.tokens import synthetic_lm_batch as jsynthetic_lm_batch
 from repro.fed.strategies import resolve_strategy as jresolve_strategy
 from repro.models import init_params as jinit_params
+from repro.models import random_batch as jrandom_batch
 from repro.problems.adversarial import delta_projection as jdelta_projection
 from repro.problems.adversarial import init_delta as jinit_delta
 from repro.problems.adversarial import make_adversarial_loss as jmake_adversarial_loss
@@ -54,7 +58,8 @@ from test_torch_parity import one_torch_thread  # noqa: F401
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("one_torch_thread")]
 
 RTOL = 1e-4  # of each leaf's max |value|, every round
-ARCHS = ["gemma2-2b", "zamba2-7b", "falcon-mamba-7b", "granite-8b"]
+ARCHS = ["gemma2-2b", "zamba2-7b", "falcon-mamba-7b", "granite-8b",
+         "llama4-scout-17b-a16e", "pixtral-12b", "hubert-xlarge"]
 
 
 def close(got, want, what=""):
@@ -129,8 +134,13 @@ def test_fedgda_gt_rounds_match_jax(name):
     K, eta, rounds = 2, 2e-3, 3
     jp = jax.jit(jinit_params, static_argnums=(1, 2))(jax.random.PRNGKey(0), jcfg,
                                                       jnp.float32)
-    jdata = jfederated_token_batches(jax.random.PRNGKey(1), 2, 2, 16,
-                                     jcfg.vocab_size, heterogeneity=7)
+    if jcfg.frontend == "text":
+        jdata = jfederated_token_batches(jax.random.PRNGKey(1), 2, 2, 16,
+                                         jcfg.vocab_size, heterogeneity=7)
+    else:  # tests/test_archs_smoke.py's _stacked_batches
+        bs = [jrandom_batch(k, jcfg, 2, 16, jnp.float32)
+              for k in jax.random.split(jax.random.PRNGKey(1), 2)]
+        jdata = jax.tree.map(lambda *xs: jnp.stack(xs), *bs)
     jrnd = jax.jit(jmake_round(jmake_adversarial_loss(jcfg, remat=True),
                                jresolve_strategy("fedgda_gt"), K, eta,
                                proj_y=jdelta_projection(1.0)))
@@ -169,13 +179,23 @@ def _finite(tree) -> bool:
     ["--arch", "falcon-mamba-7b", "--population", "flaky"],
     ["--arch", "granite-8b", "--population", "flaky", "--no-rebase"],
     ["--arch", "gemma2-2b", "--algorithm", "quantized_gt", "--wire-transport"],
-], ids=["sync", "async", "population", "no-rebase", "quantized-wire"])
+    ["--arch", "llama4-scout-17b-a16e"],
+    ["--arch", "pixtral-12b", "--runtime", "async"],
+], ids=["sync", "async", "population", "no-rebase", "quantized-wire", "moe",
+        "vision-text-async"])
 def test_launch_train_routes(route, capsys):
     out = train.main(TINY + route)
     assert _finite(out["params"]) and _finite(out["delta"])
     assert float(torch.linalg.norm(out["delta"]["delta"])) <= 1.0 + 1e-6
     assert len(out["log"]) == 2 and all(np.isfinite(lv) for _, lv, _ in out["log"])
     assert "done." in capsys.readouterr().out
+
+
+def test_launch_train_refuses_the_audio_frontend():
+    """hubert-xlarge trains on frames; the entry point draws token
+    batches (JAX's train.py fails there with a KeyError)."""
+    with pytest.raises(ValueError, match="audio frontend"):
+        train.main(TINY + ["--arch", "hubert-xlarge"])
 
 
 def test_launch_train_telemetry_route(tmp_path):
