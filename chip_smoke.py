@@ -305,6 +305,25 @@ phases of `--claims` are marked so):
              run's peak memory beside its prediction from the round-0 gate
              (agents cut to 2 before training where the prediction at 4
              passes 72 GB) and the gate's, and one profiled round
+  spmd_serve (after serve_profile, on serve's parameters wrapped as DTensors
+             without a copy) `examples/serve_batched`'s path, the SPMD
+             prefill / decode step builders on `make_host_mesh(1, 1)` over a
+             one-rank NCCL group, serve's prompts and tokens teacher-forced:
+             logits bitwise `launch.serve.generate`'s, 13 flash_attention
+             and 81 ssm_scan launches a prefill, none a decode step;
+             prefill and decode ms (a cold run, then a warm one) beside the
+             plain entry point's in the same run, peak memory
+  spmd_train (after train_main_path) `launch.steps.build_train_step` on the
+             one-rank mesh (m = 1 agent, the fed axes' product), zamba2-7b
+             at full width cut to 6 layers, batch 4 x seq 128, K 8, eta
+             2e-3, remat, one round (then a warm one, timed): iterates
+             bitwise the engine's round without a constraint on the same
+             data, launches exactly `spmd_train_prediction`'s
+  dryrun     (CPU and `meta` only) `launch.dryrun` on a fake world of 256
+             ranks: granite-8b decode_32k on 16x16 (the whole decode step's
+             census) and zamba2-7b train_4k compressed_gt 0.1 over the wire
+             under the async runtime (the gather step alone): one
+             all-gather whose bytes equal `expected_gather_bytes`
   kernels    one entry per ported kernel (launches on its main path, error
              against the plain version, times and bound at the main
              path's shapes; its launches on each stochastic_main_path,
@@ -1438,6 +1457,132 @@ def phase_train_main_path(torch, np, card: str, shared: dict) -> dict:
     return res
 
 
+def spmd_train_prediction(cfg, K: int, leaves: int) -> dict:
+    """Kernel launches of spmd_train's round (written down in PERF.md
+    before its first run).  With m = 1 agent the engine elides the anchor
+    exchange (the correction is identically zero), so there is no fused
+    anchor step: K gradient evaluations (local steps 0..K-1), each a
+    forward, remat's recompute and the backward, and gt_update once a leaf
+    of x and y in each of the K steps."""
+    shared_blocks = cfg.num_layers // cfg.shared_attn_every
+    return {"flash_attention": 2 * K * shared_blocks,
+            "flash_attention_bwd": K * shared_blocks,
+            "ssm_scan": 2 * K * cfg.num_layers, "ssm_scan_bwd": K * cfg.num_layers,
+            "gt_update": K * leaves,
+            "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
+
+
+def phase_spmd_train(torch, card: str) -> dict:
+    """`launch.steps.build_train_step` on a one-rank NCCL mesh (m = 1): one
+    FedGDA-GT round of zamba2-7b at full width cut to TRAIN_LAYERS, batch
+    4 x seq 128, K 8, eta 2e-3, remat, on DTensors through the kernels,
+    against the engine's round without a constraint on the same data."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.engine import make_round
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    K, eta, batch, seq = 8, 2e-3, 4, 128
+    args = train.build_parser().parse_args(
+        ["--arch", TRAIN_ARCH, "--agents", "1", "--per-agent-batch", str(batch),
+         "--seq-len", str(seq), "--local-steps", str(K), "--eta", str(eta),
+         "--device", DEVICE])
+    torch.cuda.empty_cache()
+    run = train.setup(args, cfg, remat=True)
+    mesh = make_host_mesh(1, 1)
+    step_for, _ = build_train_step(cfg, mesh, algorithm="fedgda_gt", num_local_steps=K,
+                                   eta=eta, dtype=torch.float32, remat=True)
+    step = step_for(ShapeConfig("spmd_train", seq, batch, "train"))
+    leaves = len(tree_leaves(run.params)) + len(tree_leaves(run.delta))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    x1, y1 = step(run.params, run.delta, run.data)
+    torch.cuda.synchronize()
+    spmd_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = spmd_train_prediction(cfg, K, leaves)
+    check(launches == want, f"spmd_train: launches {launches}, predicted {want}")
+    got = [u.full_tensor() for u in tree_leaves((x1, y1))]
+    placements = sorted({str(tuple(u.placements)) for u in tree_leaves((x1, y1))})
+    del x1, y1
+    # again, warm: DTensor's sharding propagation caches each op
+    # signature on its first call, which the first round pays
+    t0 = time.perf_counter()
+    x2, y2 = step(run.params, run.delta, run.data)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(all(torch.equal(a.full_tensor(), b) for a, b in zip(tree_leaves((x2, y2)), got)),
+          "spmd_train: a second round differs from the first")
+    del x2, y2
+    rnd = make_round(run.loss, run.strategy, K, eta, proj_y=train.delta_projection(1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xr, yr = rnd(run.params, run.delta, run.data)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ref = tree_leaves((xr, yr))
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, ref)]
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(got, ref))
+    check(all(same), f"spmd_train: {same.count(False)} of {len(same)} leaves differ "
+          f"from the engine's round (worst {worst:.3e} of the leaf's max)")
+    del got, ref, xr, yr, run
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh": "1x1 (nccl)",
+            "agents": 1, "batch": batch, "seq_len": seq, "K": K, "eta": eta,
+            "remat": True, "dtype": "f32", "leaves_x_y": leaves,
+            "round_s": warm_s, "cold_round_s": spmd_s, "plain_round_s": plain_s,
+            "bitwise_leaves": f"{sum(same)} of {len(same)}",
+            "worst_rel_err": worst, "output_placements": placements,
+            "launches": launches, "predicted_launches": want,
+            "peak_memory_bytes": peak, "card": card}
+
+
+def phase_dryrun(card: str) -> dict:
+    """The production-mesh dry-run on a fake world of 256 ranks (CPU and
+    `meta` only): granite-8b decode_32k on 16x16, and the async gather of
+    zamba2-7b train_4k with compressed_gt 0.1 over the wire.  Ends the
+    one-rank NCCL group (`dryrun.fake_world`)."""
+    from repro_torch.launch import dryrun
+
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    decode = dryrun.run_one("granite-8b", "decode_32k", False)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gather = dryrun.run_one("zamba2-7b", "train_4k", False, algorithm="compressed_gt",
+                            compression_ratio=0.1, wire_transport=True,
+                            runtime="async", gather_only=True)
+    gather_s = time.perf_counter() - t0
+    for tag, rec in (("granite-8b__decode_32k__16x16", decode),
+                     ("zamba2-7b__train_4k__16x16__compressed_gt__r0.1__wire__async",
+                      gather)):
+        (out_dir / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+    ag = gather["gather_census"].get("all-gather", {})
+    check(ag == {"count": 1, "bytes": gather["expected_gather_bytes"]},
+          f"dryrun: the gather's census {gather['gather_census']} against "
+          f"{gather['expected_gather_bytes']} expected bytes")
+    check(decode["census"]["executed_dot_flops"] > 0, "dryrun: decode ran no matmul")
+    return {"world": 256, "mesh": "16x16", "decode_32k": {
+                "arch": "granite-8b", "s": decode_s, "trace_s": decode["trace_s"],
+                "argument_bytes_per_rank": decode["argument_bytes_per_rank"],
+                "executed_dot_flops": decode["census"]["executed_dot_flops"],
+                "collectives": decode["collectives"]},
+            "async_gather": {
+                "arch": "zamba2-7b", "s": gather_s, "gather_census": gather["gather_census"],
+                "expected_gather_bytes": gather["expected_gather_bytes"],
+                "wire": gather["wire"]},
+            "records": str(out_dir.relative_to(ROOT)), "card": card}
+
+
 def train_peak_prediction(gate: dict, m: int) -> float:
     """The training run's peak device memory at m agents, predicted from
     the round-0 gate (written down in PERF.md before the first run that
@@ -1765,6 +1910,64 @@ def phase_serve(torch, card: str, shared: dict) -> dict:
         "plain_argmax_equals_tokens": same_argmax,
         "sample": res["tokens"][0].tolist(), "card": card,
     }
+
+
+def phase_spmd_serve(torch, card: str, shared: dict) -> dict:
+    """`examples/serve_batched`'s path on serve's parameters: the SPMD
+    prefill and decode steps on a one-rank NCCL mesh, serve's prompts and
+    tokens teacher-forced, against `serve.generate` in the same run."""
+    from repro_torch.examples.serve_batched import place_params, serve as spmd_serve
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_caches
+
+    res = shared["serve"]
+    cfg, params, prompts = res["cfg"], res["params"], res["prompts"]
+    batch, n = prompts["tokens"].shape[0], res["tokens"].shape[1]
+    mesh = make_host_mesh(1, 1)
+    placed = place_params(params.tree(), cfg, mesh)  # views: no second copy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    zero_counts()
+    got = spmd_serve(cfg, mesh, placed, prompts, n, forced=res["tokens"])
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # again, warm: DTensor's sharding propagation caches each op
+    # signature on its first call, which the first run pays
+    warm = spmd_serve(cfg, mesh, placed, prompts, n, forced=res["tokens"])
+    check(torch.equal(warm["step_logits"], got["step_logits"]),
+          "spmd_serve: a second run's logits differ")
+    want_prefill = {"flash_attention": cfg.num_layers // cfg.shared_attn_every,
+                    "ssm_scan": cfg.num_layers}
+    check(got["launches"]["prefill"] == want_prefill,
+          f"spmd_serve: prefill launched {got['launches']['prefill']}")
+    check(got["launches"]["decode"] == {"flash_attention": 0, "ssm_scan": 0},
+          f"spmd_serve: decode launched {got['launches']['decode']}")
+    # the plain entry point's function, the same tokens, in this run
+    caches = init_caches(cfg, batch, prompts["tokens"].shape[1] + n, torch.float32,
+                         DEVICE)
+    plain = serve.generate(params, cfg, prompts, caches, n, forced=res["tokens"])
+    del caches
+    bitwise = bool(torch.equal(got["step_logits"], plain["step_logits"]))
+    err = float((got["step_logits"] - plain["step_logits"]).abs().max())
+    check(bitwise, f"spmd_serve: logits differ from serve.generate's by {err:.3e}")
+    check(torch.equal(got["step_logits"], res["step_logits"]),
+          "spmd_serve: logits differ from the serve phase's")
+    return {"arch": cfg.name, "mesh": "1x1 (nccl)", "batch": batch,
+            "prompt_len": prompts["tokens"].shape[1], "decode_tokens": n,
+            "prefill_ms": warm["prefill_ms"],
+            "decode_ms_per_step": warm["decode_ms_per_step"],
+            "cold_prefill_ms": got["prefill_ms"],
+            "cold_decode_ms_per_step": got["decode_ms_per_step"],
+            "plain_prefill_ms": plain["prefill_ms"],
+            "plain_decode_ms_per_step": plain["decode_ms_per_step"],
+            "logits_bitwise_generate": bitwise, "max_abs_err": err,
+            "launches_per_prefill": got["launches"]["prefill"],
+            "launches_over_decode": got["launches"]["decode"],
+            "launches_over_run": launches, "peak_memory_bytes": peak,
+            "card": card}
 
 
 def phase_serve_profile(torch, shared: dict) -> dict:
@@ -4444,6 +4647,7 @@ def main(argv: list) -> int:
     served = run("serve", lambda: phase_serve(torch, card, shared))
     if served is not None:
         run("serve_profile", lambda: phase_serve_profile(torch, shared))
+        run("spmd_serve", lambda: phase_spmd_serve(torch, card, shared))
         del shared["serve"]  # the parameters (26 GB)
         torch.cuda.empty_cache()
     # one model at a time: each phase frees its parameters on return
@@ -4454,6 +4658,9 @@ def main(argv: list) -> int:
     run("encode_audio", lambda: phase_encode_audio(torch, card, shared))
     torch.cuda.empty_cache()
     trained = run("train_main_path", lambda: phase_train_main_path(torch, np, card, shared))
+    torch.cuda.empty_cache()
+    run("spmd_train", lambda: phase_spmd_train(torch, card))
+    run("dryrun", lambda: phase_dryrun(card))
     if ("state" in shared and "compressed" in shared and served is not None
             and trained is not None and len(shared.get("timing", {})) == 7):
         kernels = run("kernels", lambda: kernel_entries(

@@ -55,8 +55,11 @@ keys (`sample_noise_keys_ids`), so an agent draws the same stream in either
 layout.  The two-level aggregate (`pod_weighted_sums` -> `pods_total`)
 sums agents into their pods, then pods at the server.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP queue item):
-`constrain_agents` (SPMD sharding).
+SPMD rounds (`launch.steps`): `constrain_agents` re-anchors the placement
+of the agent-stacked iterates where JAX's engine constrains them (after
+broadcast, after the fused anchor step and after every corrected or
+heavy-ball local step); `launch.shardings.make_agent_constraint` builds it
+for DTensors.  Without it the round has no such op.
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, host_to_device, not_ported
+from ..device import DeviceLike, host_to_device
 from .types import (
     LossFn,
     ProjFn,
@@ -339,7 +342,9 @@ def make_phases(
     `update_fn` (the corrected local step) defaults to the kernel-backed
     `kernels.make_gt_update_fn()`: on f64 and f32 leaves its math is
     exactly `default_update`'s (bit for bit); on narrower leaves it
-    follows the Pallas kernel (f32 math, cast back to the leaf dtype)."""
+    follows the Pallas kernel (f32 math, cast back to the leaf dtype).
+    `constrain_agents(xs, ys) -> (xs, ys)` re-anchors the agent-stacked
+    iterates' placement (module docstring)."""
     if eta_y is None:
         eta_y = eta_x
     if update_fn is None:
@@ -347,8 +352,6 @@ def make_phases(
         from ..kernels.ops import make_gt_update_fn
 
         update_fn = make_gt_update_fn()
-    if constrain_agents is not None:
-        raise not_ported("constrain_agents (SPMD sharding)", "Queue 1 item 13")
     vgrad = vmap_grad_xy(loss)
 
     if getattr(strategy, "sync_every_step", False):
@@ -450,8 +453,9 @@ def make_phases(
         if weights is not None:
             # sampled on the host; the aggregates run where the iterates are
             weights = weights.to(tree_leaves(x)[0].device)
-        xs = tree_broadcast_agents(x, m)
-        ys = tree_broadcast_agents(y, m)
+        xs, ys = tree_broadcast_agents(x, m), tree_broadcast_agents(y, m)
+        if constrain_agents is not None:
+            xs, ys = constrain_agents(xs, ys)
         draws = None
         if noise is not None and noise_keys is not None:
             draws = round_draws(noise_keys, chain, xs, ys, agent_data)
@@ -515,6 +519,8 @@ def make_phases(
         if rs.fused:
             xs1 = anchor_step(xs, rs.gbar_x, eta_x, -1.0)
             ys1 = anchor_step(ys, rs.gbar_y, eta_y, +1.0)
+            if constrain_agents is not None:
+                xs1, ys1 = constrain_agents(xs1, ys1)
             if gates is None:
                 xs, ys = xs1, ys1
             else:  # budget >= 1
@@ -539,6 +545,8 @@ def make_phases(
                 vy1 = heavy_ball(vy, eff(g.gy, rs.cy), momentum)
                 xs1 = tree_map(lambda u, v: u - eta_x * v, xs, vx1)
                 ys1 = tree_map(lambda u, v: u + eta_y * v, ys, vy1)
+                if constrain_agents is not None:
+                    xs1, ys1 = constrain_agents(xs1, ys1)
                 if gates is None:
                     xs, ys, vx, vy = xs1, ys1, vx1, vy1
                 else:
@@ -551,6 +559,9 @@ def make_phases(
             if use_corr:
                 xs1 = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
                 ys1 = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
+                if constrain_agents is not None:
+                    # re-anchor the carry's placement every step
+                    xs1, ys1 = constrain_agents(xs1, ys1)
             else:
                 xs1 = tree_map(lambda u, v: u - eta_x * v, xs, g.gx)
                 ys1 = tree_map(lambda u, v: u + eta_y * v, ys, g.gy)

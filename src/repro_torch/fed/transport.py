@@ -246,12 +246,13 @@ class PackedTree:
 # measured bytes (actual packed buffer lengths, not the price)
 # --------------------------------------------------------------------------
 def probe_leaf_bytes(spec: LeafSpec) -> int:
-    """One leaf's payload bytes, measured by encoding a zero leaf of the
-    spec's shape (on the CPU) and summing the buffers `encode_leaf` emits: the
+    """One leaf's payload bytes, measured by running the plain encoder on a
+    leaf of the spec's shape on `meta` (no data, so a production model's
+    leaves cost nothing) and summing the buffers `encode_leaf` emits: the
     empirical check on `LeafSpec.wire_bytes` (the two must agree)."""
-    c = torch.zeros((spec.rows, spec.cols), dtype=spec.dtype)
-    u = torch.zeros((spec.rows, spec.cols), dtype=torch.float64)
-    return encode_leaf(c, None, u, u, spec)[0].nbytes
+    c = torch.zeros((spec.rows, spec.cols), dtype=spec.dtype, device="meta")
+    u = torch.zeros((spec.rows, spec.cols), dtype=torch.float64, device="meta")
+    return encode_leaf(c, None, u, u, spec, use_kernel=False)[0].nbytes
 
 
 def dense_payload_bytes(tree: Pytree) -> int:

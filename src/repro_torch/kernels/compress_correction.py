@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+from ._dtensor import is_dtensor, local_call
 
 #: storage dtype codes of the C launchers (`csrc/row_select.cuh` `DType`)
 DTYPE_CODES = {
@@ -188,7 +189,13 @@ def compress_leaf(
     """Strategy-facing dispatcher: `compress_correction_2d` (the kernel on
     a CUDA tensor, the plain version on a CPU one) unless `use_kernel` is
     off, which runs the plain version on any device.  Both are the same
-    bits."""
+    bits.  On DTensors either runs replicated on every rank (a row's k is
+    chosen over the whole row), beside the draws each rank holds whole."""
+    if is_dtensor(c, e):
+        return local_call(
+            lambda c, e, us, ur: compress_leaf(c, e, us, ur, k=k, bits=bits,
+                                               mode=mode, use_kernel=use_kernel),
+            (c, e, u_sel, u_rnd), ({},) * 4, keep=(), out_maps=({}, {}))
     if use_kernel and fusable_leaf(c):
         return compress_correction_2d(c, e, u_sel, u_rnd, k=k, bits=bits,
                                       mode=mode)

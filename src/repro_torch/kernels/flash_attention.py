@@ -30,6 +30,10 @@ On a CPU tensor every function here runs its plain version
 (`ref.flash_attention_ref`; the backward is `torch.func.vjp` of it); on a
 CUDA tensor it launches the kernel or raises.  `flash_attention.launches`
 and `flash_attention_bwd.launches` count kernel launches only.
+
+On DTensors each function runs on the local shards (`_dtensor`): batch and
+heads may stay sharded (a q-head and its kv-head split alike), sequence
+and head dim are replicated.
 """
 from __future__ import annotations
 
@@ -40,7 +44,11 @@ from typing import Tuple
 import torch
 
 from . import _build, ref
+from ._dtensor import is_dtensor, local_call
 from ._functorch import fold, traced, unfold
+
+#: the dims of [B, H, S, hd] operands a shard may split: batch and heads
+_SHARDED = {0: 0, 1: 1}
 
 #: dtype codes of the C launcher (`csrc/flash_attention.cu` `DType`)
 DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
@@ -158,6 +166,16 @@ def flash_attention(
 def _forward(q, k, v, causal, window, softcap, with_lse: bool):
     """(out, lse or None): the plain version on the CPU, the kernel on a
     card."""
+    if is_dtensor(q, k, v):
+        def local(q, k, v):
+            out, lse = _forward(q, k, v, causal, window, softcap, with_lse)
+            return (out, lse) if with_lse else out
+
+        shapes = (q.shape, q.shape[:3]) if with_lse else (q.shape,)
+        outs = local_call(local, (q, k, v), (_SHARDED,) * 3, keep=(0, 1),
+                          out_maps=(_SHARDED,) * len(shapes), out_shapes=shapes,
+                          gqa=(1, 1))
+        return tuple(outs) if with_lse else (outs, None)
     if q.device.type == "cpu":
         kw = dict(causal=causal, window=window, softcap=softcap)
         out = ref.flash_attention_ref(q, k, v, **kw)
@@ -302,6 +320,13 @@ def flash_attention_bwd(
     if dout.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} and out "
                          f"{tuple(out.shape)} must be q's {tuple(q.shape)}")
+    if is_dtensor(q, k, v, out, lse, dout):
+        return local_call(
+            lambda *ts: flash_attention_bwd(*ts, causal=causal, window=window,
+                                            softcap=softcap),
+            (q, k, v, out, lse, dout), (_SHARDED,) * 6, keep=(0, 1),
+            out_maps=(_SHARDED,) * 3, out_shapes=(q.shape, k.shape, v.shape),
+            gqa=(1, 1))
     if q.device.type == "cpu":
         return plain_flash_attention_bwd(q, k, v, dout, causal=causal,
                                          window=window, softcap=softcap)

@@ -11,7 +11,9 @@ On a CPU tensor `gt_update` runs the plain version (`ref.gt_update_ref`);
 on a CUDA tensor it launches the kernel or raises — there is no fallback.
 `gt_update.launches` counts kernel launches (never plain-version calls),
 so a run can show its main path went through the kernel; set it to 0 to
-start a count.
+start a count.  On DTensors it runs on the local shards (`_dtensor`),
+under z's placements: the update is elementwise, so any placement is
+shard-local, and g and c are brought to z's.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._dtensor import is_dtensor, local_call
 from .ref import gt_update_ref
 
 #: dtype codes of the C launcher (`csrc/gt_update.cu` `DType`)
@@ -86,6 +89,12 @@ def gt_update(
     per `SUPPORTED`.  All three are contiguous, of one shape, on one
     device."""
     _check(z, g, c)
+    if is_dtensor(z, g, c):
+        ident = {d: d for d in range(z.dim())}
+        return local_call(
+            lambda z, g, c: gt_update(z, g, c, eta=eta, sign=sign), (z, g, c),
+            (ident,) * 3, keep=range(z.dim()), out_maps=(ident,),
+            out_shapes=(z.shape,))
     if z.device.type == "cpu":
         return gt_update_ref(z, g, c, eta, sign)
     if z.device.type != "cuda":

@@ -17,7 +17,9 @@ there, a longer one streams) and their plain versions
 (`ref.pack_payload_ref`, `ref.decode_payload_ref`) on CPU tensors; every
 output is bitwise equal between the two.  There is no fallback: a CUDA
 tensor the kernels do not take raises.  `launches` on each wrapper counts
-kernel launches only.
+kernel launches only.  On DTensors (`_dtensor`) `unpack_payload_2d` runs
+on the local shards, rows sharded and columns replicated; `pack_payload_2d`
+runs replicated, as a row's k is chosen over the whole row.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+from ._dtensor import is_dtensor, local_call
 from .compress_correction import (
     DTYPE_CODES,
     UNIFORM_CODES,
@@ -127,6 +130,13 @@ def pack_payload_2d(
     if scale_dtype not in (None, ct):
         raise TypeError(f"pack_payload: the scale is kept in {ct}, "
                         f"not {scale_dtype}")
+    if is_dtensor(c, e):
+        # replicated, as `compress_correction_2d` runs on DTensors
+        return local_call(
+            lambda c, e, us, ur: pack_payload_2d(
+                c, e, us, ur, k=k, bits=bits, mode=mode, encoding=encoding,
+                index_dtype=index_dtype, scale_dtype=scale_dtype),
+            (c, e, u_sel, u_rnd), ({},) * 4, keep=(), out_maps=({},) * 4)
     if c.device.type == "cpu":
         return ref.pack_payload_ref(c, e, u_sel, u_rnd, k=k, bits=bits,
                                     mode=mode, encoding=encoding,
@@ -204,6 +214,13 @@ def unpack_payload_2d(
         raise ValueError("unpack_payload: operands on different devices")
     if not (data.is_contiguous() and idx.is_contiguous() and scale.is_contiguous()):
         raise ValueError("unpack_payload: operands must be contiguous")
+    if is_dtensor(data, idx, scale):
+        rows = {0: 0}
+        return local_call(
+            lambda d, i, s: unpack_payload_2d(d, i, s, cols=cols, dtype=dtype, k=k,
+                                              bits=bits, encoding=encoding),
+            (data, idx, scale), (rows,) * 3, keep=(0,), out_maps=(rows,),
+            out_shapes=((R, cols),))
     if data.device.type == "cpu":
         return ref.decode_payload_ref(data, idx, scale, cols=cols, dtype=dtype,
                                       k=k, bits=bits, encoding=encoding)

@@ -24,6 +24,11 @@ On a CPU tensor every function here runs its plain version
 (`ref.ssm_scan_ref`; the backward is `torch.func.vjp` of it); on a CUDA
 tensor it launches the kernel or raises.  `ssm_scan.launches` and
 `ssm_scan_bwd.launches` count kernel launches only.
+
+On DTensors each function runs on the local shards (`_dtensor`): batch,
+heads and channels may stay sharded, time and states are replicated; a
+gradient that sums over a sharded axis (d c, a broadcast d da) comes back
+`Partial`.
 """
 from __future__ import annotations
 
@@ -33,7 +38,24 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+from ._dtensor import is_dtensor, local_call
 from ._functorch import fold, traced, unfold
+
+#: {dbx [B, S, H, P, N] dim: the operand's dim}: batch, heads and channels
+#: may stay sharded
+_FULL = {d: d for d in range(5)}
+_ROWS = {0: 0, 2: 2, 3: 3}      # y [B, S, H, P], chunk states [B, n, H, P, N]
+_STATE = {0: 0, 2: 1, 3: 2}     # state [B, H, P, N]
+_BATCH = {0: 0}                 # c [B, S, N]
+_KEEP = (0, 2, 3)
+
+
+def _local(fn, dbx, da, rest, rest_maps, out_maps, out_shapes, reduces=None):
+    """fn(da, dbx, *rest) on the local shards of DTensor operands, dbx
+    leading."""
+    return local_call(lambda dbx, da, *rest: fn(da, dbx, *rest), (dbx, da, *rest),
+                      (_FULL, _FULL, *rest_maps), _KEEP, out_maps, out_shapes,
+                      reduces)
 
 MAX_STATE = 256
 _INT32 = 2**31 - 1
@@ -153,7 +175,12 @@ def _in_layout(scan, da, dbx, c_coef, state0):
     shape = dbx.shape
     da5, dbx5, c5, s05 = _as_5d(da, dbx, c_coef, state0)
     _check(da5, dbx5, c5, s05)
-    y, state = scan(da5, dbx5, c5, s05)
+    if is_dtensor(da5, dbx5, c5, s05):
+        B, S, H, P, N = dbx5.shape
+        y, state = _local(scan, dbx5, da5, (c5, s05), (_BATCH, _STATE),
+                          (_ROWS, _STATE), ((B, S, H, P), (B, H, P, N)))
+    else:
+        y, state = scan(da5, dbx5, c5, s05)
     return y.reshape(shape[:-1]), state.reshape(_state_shape(shape))
 
 
@@ -208,6 +235,13 @@ class _SSMScan(torch.autograd.Function):
 
     @staticmethod
     def forward(da, dbx, c, state0):
+        if is_dtensor(da, dbx, c, state0):
+            B, S, H, P, N = dbx.shape
+            on_card = dbx.device.type == "cuda"
+            chunks = (B, -(-S // chunk_len(N)), H, P, N) if on_card else (0,)
+            return _local(_SSMScan.forward, dbx, da, (c, state0), (_BATCH, _STATE),
+                          (_ROWS, _STATE, _ROWS if on_card else {}),
+                          ((B, S, H, P), (B, H, P, N), chunks))
         dae = da.expand(dbx.shape)
         if dbx.device.type == "cpu":
             y, state = ref.ssm_scan_ref(dae, dbx, c, state0)
@@ -304,6 +338,16 @@ def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
     the kernel, which sums in a fixed order (two calls give the same
     bits), or raises.  `chunks` are the forward's chunk states
     (`_launch(..., chunks=True)`), which the kernel needs."""
+    if is_dtensor(da, dbx, c, state0, dy, dstate, chunks):
+        B, S, H, P, N = dbx.shape
+        on_card = chunks is not None and chunks.dim() == 5
+        return _local(
+            lambda *ts: ssm_scan_bwd(*ts[:6], chunks=ts[6]), dbx, da,
+            (c, state0, dy, dstate, chunks),
+            (_BATCH, _STATE, _ROWS, _STATE, _ROWS if on_card else {}),
+            (_FULL, _FULL, _BATCH, _STATE),
+            (da.shape, dbx.shape, (B, S, N), (B, H, P, N)),
+            reduces=(True, False, True, False))
     if dbx.device.type == "cpu":
         return plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate)
     if dbx.device.type != "cuda":

@@ -11,7 +11,7 @@ interconnect.  This module is the launch path where they are shipped:
     the same entry point serves one process and many.  The runner below
     does not use the process group: like the reference's, it is one
     process with its shards on a device list; spanning processes with
-    collectives is the SPMD layer's (ROADMAP Queue 1 item 13);
+    collectives is the SPMD layer's (`launch.steps`);
   * `MultiHostRunner` — each agent shard lives on its own device and CUDA
     stream (`fed.async_runtime.ShardStreams`; a device may repeat, so on
     one card four shards are four streams) with its own strategy-state
@@ -32,9 +32,11 @@ interconnect.  This module is the launch path where they are shipped:
     shapes and dtypes (from running the plain encoder on meta tensors),
     and the payload bytes the gather must move a round.
 
-The reference's `build_gather_decode_step` (the gather lowered as one
-SPMD program for its HLO census) comes with the SPMD layer (ROADMAP Queue
-1 item 13).
+`build_gather_decode_step` is the same gather as one SPMD step on a
+`DeviceMesh`, for the dry-run's census: every agent's packed buffers,
+concatenated as bytes into one row per agent, sharded over the fed axes
+(flattened into one mesh dim), gathered by ONE all-gather whose bytes are
+the packed payload, and decoded replicated through `unpack_payload`.
 
 Unlike `fed.async_runtime` (whose exchange transform runs server-side with
 the sync path's draws), the multi-host path draws per shard: iterates are
@@ -68,11 +70,18 @@ from ..fed.async_runtime import (
     shard_devices,
 )
 from ..fed.strategies import resolve_strategy
-from ..fed.transport import LeafPayload, LeafSpec, PackedTree, encode_leaf
+from ..fed.transport import (
+    LeafPayload,
+    LeafSpec,
+    PackedTree,
+    decode_leaf,
+    encode_leaf,
+)
 from ..obs.telemetry import maybe_span
 
 __all__ = [
     "MultiHostRunner",
+    "build_gather_decode_step",
     "expected_gather_bytes",
     "init_distributed",
     "leaf_specs",
@@ -366,3 +375,83 @@ class MultiHostRunner(ShardStreams):
                                seconds=time.perf_counter() - t0, n_shards=n)
                 tm.end_round(t)
         return x, y
+
+
+# --------------------------------------------------------------------------
+# the gather as one SPMD step (the dry-run's census, --runtime async)
+# --------------------------------------------------------------------------
+def _buffers(payload: LeafPayload) -> List[torch.Tensor]:
+    return [b for b in payload if b is not None]
+
+
+def build_gather_decode_step(strategy, x: Pytree, y: Pytree, mesh,
+                             fed_axes: Tuple[str, ...]):
+    """The multi-host payload gather as one SPMD step on `mesh`: per-agent
+    packed buffers arrive sharded over `fed_axes` (agent i's rows of every
+    buffer on the i-th fed rank), are gathered to every rank and decoded
+    there.  Each rank concatenates its agent's buffers as bytes into one
+    row, so the gather is ONE all-gather over the fed axes (flattened into
+    one mesh dim, `DeviceMesh._flatten`) whose result holds exactly the
+    packed payload.
+
+    Returns (step, arg_structs, expected_bytes): `step(payloads)` takes
+    one `LeafPayload` per leaf (DTensors on the fed mesh, their rows
+    sharded, or plain tensors that every rank holds whole) and returns
+    the decoded dense [m * rows, cols] corrections, replicated DTensors
+    (`use_kernel=False`: decoded by the plain version, as the dry-run on
+    `meta` must); `arg_structs` is `(payload_structs(specs),)` on `meta`."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    m = 1
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for a in fed_axes:
+        m *= sizes[a]
+    m = max(m, 1)
+    specs = leaf_specs(strategy, (x, y), m)
+    structs = payload_structs(specs)
+    if not fed_axes:
+        fed_mesh = mesh[mesh.mesh_dim_names[0]]
+    elif len(fed_axes) == 1:
+        fed_mesh = mesh[fed_axes[0]]
+    else:
+        fed_mesh = mesh[tuple(fed_axes)]._flatten()
+    # per agent: each buffer's rows as bytes, in leaf order
+    widths = [[b.numel() * b.element_size() // m for b in _buffers(s)]
+              for s in structs]
+
+    def local_rows(b: torch.Tensor) -> torch.Tensor:
+        if isinstance(b, DTensor):  # on the fed mesh
+            return b.redistribute(fed_mesh, [Shard(0)]).to_local()
+        n = b.shape[0] // fed_mesh.size()
+        r = fed_mesh.get_local_rank()
+        return b[r * n:(r + 1) * n]
+
+    def rep(u: torch.Tensor) -> torch.Tensor:
+        return DTensor.from_local(u, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    def step(payloads: List[LeafPayload], use_kernel: bool = True
+             ) -> List[torch.Tensor]:
+        rows = [local_rows(b).contiguous() for p in payloads for b in _buffers(p)]
+        per_rank = m // fed_mesh.size()
+        mine = torch.cat([u.view(torch.uint8).reshape(per_rank, -1) for u in rows],
+                         dim=1)
+        wire = DTensor.from_local(mine, fed_mesh, [Shard(0)], run_check=False)
+        gathered = wire.redistribute(fed_mesh, [Replicate()]).to_local()  # [m, bytes]
+        out, at = [], 0
+        for p, spec, ws in zip(structs, specs, widths):
+            bufs = []
+            for b, w in zip(_buffers(p), ws):
+                bufs.append(gathered[:, at:at + w].contiguous().view(b.dtype)
+                            .reshape(b.shape))
+                at += w
+            it = iter([rep(u) for u in bufs] if use_kernel else bufs)
+            full = LeafPayload(*(None if b is None else next(it) for b in p))
+            dense = decode_leaf(full, spec, use_kernel=use_kernel)
+            # the kernel decodes the replicated DTensors on each rank; the
+            # plain version (the dry-run on `meta`) the local buffers
+            out.append(dense if use_kernel else rep(dense))
+        return out
+
+    expected = sum(s.wire_bytes() for s in specs)
+    return step, (structs,), expected

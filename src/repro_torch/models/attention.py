@@ -28,12 +28,12 @@ from torch import nn
 
 from ..kernels.ops import grouped_flash_attention
 from ..kernels.ref import NEG_INF
-from .layers import normal, param
+from .layers import gen_device, normal, param
 
 
 def init_attention(gen: torch.Generator, d: int, heads: int, kv_heads: int,
                    head_dim: int, dtype) -> nn.ParameterDict:
-    dev = gen.device
+    dev = gen_device(gen)
     s = 1.0 / math.sqrt(d)
     so = 1.0 / math.sqrt(heads * head_dim)
     return nn.ParameterDict({
@@ -76,13 +76,14 @@ def _attend(
     scores = scores / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
+    # out of place: an operand may be a DTensor (a placed cache's positions)
     mask = torch.ones(Sq, k.shape[1], dtype=torch.bool, device=q.device)
     if causal:
-        mask &= q_positions[:, None] >= kv_positions[None, :]
+        mask = mask & (q_positions[:, None] >= kv_positions[None, :])
     if window > 0:
-        mask &= q_positions[:, None] - kv_positions[None, :] < window
+        mask = mask & (q_positions[:, None] - kv_positions[None, :] < window)
     if kv_valid is not None:
-        mask &= kv_valid[None, :]
+        mask = mask & kv_valid[None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", p, v)

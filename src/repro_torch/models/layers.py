@@ -19,10 +19,19 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def gen_device(gen) -> torch.device:
+    """Where a model's parameters are built: `gen`'s device, or `meta`
+    without a generator (the abstract shapes of `launch.steps`)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype,
            device) -> torch.Tensor:
     """N(0, 1) * scale drawn in f32 from `gen` on `device`, cast to `dtype`
-    (JAX's inits draw f32 normals, scale, then cast)."""
+    (JAX's inits draw f32 normals, scale, then cast).  Without a generator
+    an empty tensor of the shape on `meta`: no draw."""
+    if gen is None:
+        return torch.empty(*shape, dtype=dtype, device="meta")
     t = torch.randn(*shape, generator=gen, device=device, dtype=torch.float32)
     return (t * scale).to(dtype)
 

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ops import batched_ssm_scan
-from .layers import normal, param
+from .layers import gen_device, normal, param
 
 
 def init_mamba(
@@ -42,7 +42,7 @@ def init_mamba(
     head_p: int = 64,
     dt_rank: Optional[int] = None,
 ) -> nn.ParameterDict:
-    dev = gen.device
+    dev = gen_device(gen)
     s_in = 1.0 / math.sqrt(d)
     s_inner = 1.0 / math.sqrt(d_inner)
     dt_rank = dt_rank or max(1, d // 16)
@@ -83,8 +83,12 @@ def _conv_valid(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv; x [B,S,di], w [W,di]."""
-    return _conv_valid(F.pad(x, (0, 0, w.shape[0] - 1, 0)), w, b)
+    """Depthwise causal conv; x [B,S,di], w [W,di].  The W-1 zero rows
+    ahead of x are concatenated, not padded: the same values, through
+    ops DTensor propagates under `vmap` (its `F.pad` there does not, in
+    some torch releases)."""
+    zero = torch.zeros_like(x[:, :1])
+    return _conv_valid(torch.cat([zero] * (w.shape[0] - 1) + [x], dim=1), w, b)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

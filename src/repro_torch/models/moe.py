@@ -30,13 +30,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import normal, param
+from .layers import gen_device, normal, param
 
 
 def init_moe(gen: torch.Generator, d: int, ff: int, num_experts: int,
              dtype) -> nn.ParameterDict:
     """JAX's distributions and scales; the router stays in f32."""
-    dev = gen.device
+    dev = gen_device(gen)
     s_in, s_ff = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
     E = num_experts
     return nn.ParameterDict({

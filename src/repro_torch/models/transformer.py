@@ -27,8 +27,15 @@ Ported: every layer kind (dense, local, moe, Mamba-1, Mamba-2) and
 every frontend (text; audio: frames through `frontend_proj`, logits
 through `out_head`; vision_text: projected patches before the token
 embeddings), so all ten architectures.  `forward` returns the MoE
-layers' load-balance aux summed in f32, as JAX's scan sums it; it has
-no `h_sharding` (the SPMD layer, ROADMAP Queue 1 item 13).
+layers' load-balance aux summed in f32, as JAX's scan sums it.
+
+`h_sharding`, a pair (DeviceMesh, DTensor placements) that the launch
+layer resolves from its sharding rules, redistributes the residual stream
+at every pattern-period boundary, as JAX constrains its scan carry: the
+stored activations are then sharded (sequence parallelism when it maps S
+to the model axis).  It is an autograd Function whose backward places the
+cotangent alike and whose `vmap` rule keeps the mapped (agent) axis where
+it lies.  On a plain tensor it raises.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from ..core.types import tree_flatten, tree_leaves
 from .attention import init_attention, init_cache, multihead_attention
 from .layers import (
     embed_tokens,
+    gen_device,
     init_rms_norm,
     init_swiglu,
     normal,
@@ -126,7 +134,7 @@ class ModelParams(nn.Module):
 # parameter construction
 # --------------------------------------------------------------------------
 def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype) -> nn.Module:
-    dev = gen.device
+    dev = gen_device(gen)
     if kind in ATTN_KINDS:
         p = {
             "ln1": init_rms_norm(cfg.d_model, dtype, dev),
@@ -151,9 +159,10 @@ def _init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, dtype) -> nn.
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 dtype=torch.float32) -> ModelParams:
     """Random parameters with JAX's distributions (not its numbers), drawn
-    from `gen` on `gen.device`."""
+    from `gen` on `gen.device`; `gen=None` builds them on `meta`, with no
+    draw (the abstract parameters of `launch.steps`)."""
     assert cfg.num_layers % len(cfg.pattern) == 0, (cfg.name, cfg.num_layers)
-    dev = gen.device
+    dev = gen_device(gen)
     layers = [_init_layer(gen, kind, cfg, dtype) for kind in cfg.layer_types]
     final_norm = init_rms_norm(cfg.d_model, dtype, dev)
     embed = frontend_proj = out_head = None
@@ -298,6 +307,7 @@ def forward(
     position: Optional[int] = None,  # decode: current absolute position
     remat: bool = False,
     use_kernel: bool = True,
+    h_sharding=None,  # placement of h at each period boundary (DTensors)
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (final hidden [B,S,d], updated caches, aux loss: an f32
     scalar, the sum over the MoE layers, 0 without them).
@@ -307,7 +317,7 @@ def forward(
     each pattern period in the backward (JAX's `jax.checkpoint(body)`);
     it applies to a forward without caches, the training path.
     use_kernel=False runs the flash-attention and scan kernels' plain
-    versions instead."""
+    versions instead.  h_sharding: module docstring."""
     if remat and caches is not None:
         raise ValueError("forward: remat is for the cacheless (training) path")
     tree = _tree(params)
@@ -364,6 +374,8 @@ def forward(
     aux = None
     for i_per in range(cfg.num_layers // per):
         layer_ps = tree["layers"][i_per * per:(i_per + 1) * per]
+        if h_sharding is not None:
+            h = constrain(h, h_sharding)
         if not remat:
             h, a, new_cs = period(h, layer_ps, shared_p, i_per)
             aux = _add(aux, a)
@@ -437,7 +449,12 @@ def chunked_lm_loss(
         logits = _logits(cfg, head, hb)
         logz = torch.logsumexp(logits, dim=-1)
         safe = torch.clamp_min(lb, 0).long()
-        gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+        # the gold logit as a masked sum: exactly the one kept term, and
+        # clean on vocab-sharded DTensor logits under vmap, where a gather
+        # is not
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(safe[..., None] == vocab, logits,
+                                     torch.zeros_like(logits)), dim=-1)
         return torch.sum(torch.where(lb >= 0, logz - gold, torch.zeros_like(logz)))
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -447,6 +464,48 @@ def chunked_lm_loss(
         tot = tot + checkpoint(one, h[:, c0:c0 + chunk], lb, head)
         cnt = cnt + torch.sum(lb >= 0).float()
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+# --------------------------------------------------------------------------
+# the SPMD constraint on h
+# --------------------------------------------------------------------------
+def constrain(h: torch.Tensor, sharding) -> torch.Tensor:
+    """h (a DTensor, or a `torch.func.vmap` over one) redistributed to
+    `sharding` = (mesh, placements) (JAX's `with_sharding_constraint`)."""
+    mesh, pl = sharding
+    return _Constrain.apply(h, mesh, tuple(pl))
+
+
+class _Constrain(torch.autograd.Function):
+    @staticmethod
+    def forward(h, mesh, pl):
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(h, DTensor):
+            raise TypeError("h_sharding: h is a plain tensor, so it cannot be "
+                            "placed; the SPMD steps take DTensors")
+        return h.redistribute(mesh, pl).view_as(h)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh, ctx.pl = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.pl), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, h, mesh, pl):
+        from torch.distributed.tensor import Replicate, Shard
+
+        if in_dims[0] is None:
+            return _Constrain.apply(h, mesh, pl), None
+        h = h.movedim(in_dims[0], 0)
+        # the spec's dims move up by one; the mapped axis keeps its shards
+        pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else
+                   (old if isinstance(old, Shard) and old.dim == 0 else Replicate())
+                   for p, old in zip(pl, h.placements))
+        return _Constrain.apply(h, mesh, pl), 0
 
 
 # --------------------------------------------------------------------------

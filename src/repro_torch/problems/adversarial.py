@@ -26,15 +26,18 @@ def make_adversarial_loss(
     remat: bool = True,
     aux_weight: float = 0.0,
     use_kernel: bool = True,
+    h_sharding=None,
 ):
     """Returns loss(params, y, batch) -> scalar for one agent's batch.
     use_kernel=False runs the flash-attention and scan kernels' plain
-    versions (the yardstick the kernels' gradients are held to)."""
+    versions (the yardstick the kernels' gradients are held to);
+    h_sharding places h at every layer boundary (`forward`)."""
 
     def loss(params: Pytree, y: Dict, batch: Dict) -> torch.Tensor:
         h = embed_inputs(params, cfg, batch)
         h = h + y["delta"].to(h.dtype)
-        h, _, aux = forward(params, cfg, h, remat=remat, use_kernel=use_kernel)
+        h, _, aux = forward(params, cfg, h, remat=remat, use_kernel=use_kernel,
+                            h_sharding=h_sharding)
         # labels are already next-token aligned by the data pipeline
         out = chunked_lm_loss(params, cfg, h, batch["labels"])
         if aux_weight:

@@ -1522,3 +1522,144 @@ def test_cuda_ssm_scan_function_under_vmap_equals_a_loop(cuda_device):
         want = torch.autograd.grad(loss(*one, w[i]), one)
         for g, wv in zip(got, want):
             _grad_close(g[i], wv)
+
+
+# ------------------------------- the SPMD layer: the kernels on DTensors
+@pytest.fixture(scope="module")
+def one_rank_mesh():
+    """A (1, 1) mesh over a one-process NCCL group (`make_host_mesh`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only there)")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return make_host_mesh(1, 1)
+
+
+def _on_mesh(t, mesh, *pl):
+    """t as this rank's shard of a DTensor (default: replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, list(pl) or [Replicate(), Replicate()],
+                              run_check=False)
+
+
+def _kernel_calls(name, device):
+    """(the kernel wrapper, a call on given operands, the operands, which
+    placements the operands take): each kernel at a small shape."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels.flash_attention import _forward, flash_attention_bwd
+    from repro_torch.kernels.ssm_scan import _launch, ssm_scan_bwd
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=device)
+    batch_and_heads = [Shard(0), Shard(1)]
+    if name == "gt_update":
+        ops = (rn(64, 48), rn(64, 48), rn(64, 48))
+        return gt_update, lambda z, g, c: gt_update(z, g, c, eta=ETA, sign=-1.0), ops, \
+            [Shard(0), Shard(1)]
+    if name == "flash_attention":
+        ops = (rn(2, 4, 96, 64), rn(2, 2, 96, 64), rn(2, 2, 96, 64))
+        return flash_attention, lambda q, k, v: flash_attention(q, k, v, causal=True), \
+            ops, batch_and_heads
+    if name == "flash_attention_bwd":
+        q, k, v, dout = rn(2, 4, 96, 64), rn(2, 2, 96, 64), rn(2, 2, 96, 64), rn(2, 4, 96, 64)
+        out, lse = _forward(q, k, v, True, 0, 0.0, True)
+        return flash_attention_bwd, lambda *ts: flash_attention_bwd(*ts, causal=True), \
+            (q, k, v, out, lse, dout), batch_and_heads
+    da = torch.sigmoid(rn(2, 40, 6, 1, 1)) * 0.95
+    dbx, c, s0 = rn(2, 40, 6, 8, 16) * 0.1, rn(2, 40, 16), rn(2, 6, 8, 16)
+    if name == "ssm_scan":
+        return ssm_scan, ssm_scan, (da, dbx, c, s0), [Shard(0), Replicate()]
+    if name == "ssm_scan_bwd":
+        _, _, chunks = _launch(da.expand(dbx.shape), dbx, c, s0, chunks=True)
+        dy, ds = rn(2, 40, 6, 8), rn(2, 6, 8, 16)
+        return ssm_scan_bwd, lambda *ts: ssm_scan_bwd(*ts[:6], chunks=ts[6]), \
+            (da, dbx, c, s0, dy, ds, chunks), [Shard(0), Replicate()]
+    spec = dict(cols=40, dtype=torch.float32, k=10, bits=32, encoding="sparse")
+    data, idx, scale, _ = pack_payload_2d(rn(24, 40), None, None, None, k=10, bits=32,
+                                          encoding="sparse")
+    return unpack_payload_2d, lambda d, i, s: unpack_payload_2d(d, i, s, **spec), \
+        (data, idx, scale), [Shard(0), Replicate()]
+
+
+@pytest.mark.parametrize("name", ["gt_update", "flash_attention", "flash_attention_bwd",
+                                  "ssm_scan", "ssm_scan_bwd", "unpack_payload"])
+@pytest.mark.parametrize("placed", ["replicated", "sharded"])
+def test_cuda_kernels_on_dtensors_equal_plain_tensors(one_rank_mesh, name, placed):
+    """Each kernel's entry on DTensors of a one-rank NCCL mesh runs the
+    kernel on the local shard (one launch, no plain version) and gives the
+    bits of the kernel on the plain tensors, which the tests above hold
+    against the plain versions."""
+    from torch.distributed.tensor import DTensor
+
+    wrapper, call, ops, pl = _kernel_calls(name, one_rank_mesh.device_type)
+    want = call(*ops)
+    wrapper.launches = 0
+    got = call(*(_on_mesh(t, one_rank_mesh, *(pl if placed == "sharded" else ()))
+                 for t in ops))
+    torch.cuda.synchronize()
+    assert wrapper.launches == 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert isinstance(g, DTensor)
+        assert torch.equal(g.full_tensor(), w)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "gemma2-2b"])
+def test_cuda_spmd_serve_equals_the_serving_path(one_rank_mesh, arch):
+    """`examples.serve_batched` through the step builders on the one-rank
+    mesh: logits bitwise the plain serving path's (`serve.generate`), the
+    same launches."""
+    from repro_torch.examples.serve_batched import place_params
+    from repro_torch.examples.serve_batched import serve as spmd_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config(arch).reduced()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg).tree()
+    prompts = {"tokens": random_batch(torch.Generator(device=dev).manual_seed(1), cfg, 2,
+                                      64)["tokens"]}
+    want = serve.generate(params, cfg, prompts, init_caches(cfg, 2, 70, torch.float32, dev), 6)
+    got = spmd_serve(cfg, one_rank_mesh, place_params(params, cfg, one_rank_mesh), prompts,
+                     6, forced=want["tokens"])
+    assert torch.equal(got["step_logits"], want["step_logits"])
+    assert got["launches"]["prefill"] == want["launches"]["prefill"]
+    assert got["launches"]["decode"]["flash_attention"] == 0
+
+
+def test_cuda_spmd_train_step_equals_the_round(one_rank_mesh):
+    """`build_train_step` on the one-rank mesh (m = 1 agent): one round's
+    iterates bitwise the engine's round without a constraint, through the
+    kernels."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import flash_attention_bwd, ssm_scan_bwd
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.problems.adversarial import (
+        delta_projection,
+        init_delta,
+        make_adversarial_loss,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("zamba2-7b").reduced()
+    x = init_params(torch.Generator(device=dev).manual_seed(0), cfg).tree()
+    y = init_delta(cfg, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (1, 2, 32),
+                        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, -1)}
+    step_for, _ = build_train_step(cfg, one_rank_mesh, num_local_steps=3, eta=2e-3,
+                                   dtype=torch.float32, remat=True)
+    for fn in (gt_update, flash_attention, flash_attention_bwd, ssm_scan, ssm_scan_bwd):
+        fn.launches = 0
+    x1, y1 = step_for(ShapeConfig("t", 32, 2, "train"))(x, y, batch)
+    launched = [fn.launches for fn in (gt_update, flash_attention, flash_attention_bwd,
+                                        ssm_scan, ssm_scan_bwd)]
+    assert all(n > 0 for n in launched), launched
+    rnd = core.make_round(make_adversarial_loss(cfg, remat=True), GradientTracking(), 3,
+                          2e-3, proj_y=delta_projection(1.0))
+    xr, yr = rnd(x, y, batch)
+    for a, b in zip(core.tree_leaves((x1, y1)), core.tree_leaves((xr, yr))):
+        assert torch.equal(a.full_tensor(), b)

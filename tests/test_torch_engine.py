@@ -429,9 +429,24 @@ class TestPackageRules:
 
     def test_unported_engine_features_raise(self, probs):
         _, tp = probs
-        with pytest.raises(NotImplementedError, match="item 13"):
-            core.make_round(tp.loss, GradientTracking(), 2, ETA,
-                            constrain_agents=lambda a, b: (a, b))
+        # constrain_agents is ported (launch.shardings): on plain tensors
+        # an identity hook leaves the round bit for bit, and it runs where
+        # JAX's engine runs it (broadcast, the fused anchor step, each of
+        # the K - 1 corrected steps after it)
+        calls = []
+
+        def hook(xs, ys):
+            calls.append(1)
+            return xs, ys
+
+        x0 = torch.ones(20, dtype=torch.float64)
+        K = 3
+        with_hook = core.make_round(tp.loss, GradientTracking(), K, ETA,
+                                    constrain_agents=hook)(x0, -x0, tp.agent_data)
+        plain = core.make_round(tp.loss, GradientTracking(), K, ETA)(x0, -x0,
+                                                                      tp.agent_data)
+        assert all(torch.equal(a, b) for a, b in zip(with_hook, plain))
+        assert len(calls) == 1 + 1 + (K - 1)
         ph = core.make_phases(tp.loss, GradientTracking(), 2, ETA)
         x = torch.zeros(20, dtype=torch.float64)
         # elastic budgets and masks are ported (sim): broadcast carries them
