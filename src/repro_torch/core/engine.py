@@ -100,12 +100,47 @@ def default_update(z: Pytree, g: Pytree, c: Pytree, eta, sign: float) -> Pytree:
 
 def agent_mean(tree: Pytree, weights) -> Pytree:
     """Uniform mean over the agent axis (weights None) or a weighted sum
-    with participation weights."""
+    with participation weights.  A DTensor leaf is reduced on each rank's
+    own agents and the partial results combined across the ranks
+    (`_agent_reduce`)."""
     if weights is None:
-        return tree_map(lambda u: torch.mean(u, dim=0), tree)
-    return tree_map(
-        lambda u: torch.tensordot(weights.to(u.dtype), u, dims=1), tree
-    )
+        return tree_map(lambda u: _agent_reduce(
+            lambda v: torch.mean(v, dim=0), u, None), tree)
+    return tree_map(lambda u: _agent_reduce(
+        lambda v, w: torch.tensordot(w.to(v.dtype), v, dims=1), u, weights), tree)
+
+
+def _agent_reduce(fn, u, weights):
+    """fn(u[, weights]) over the agent axis (dim 0).  On a DTensor, fn runs
+    on each rank's local shard (its own agents, and the weights' slice for
+    them) and the result is a `Partial` over the mesh dims that split the
+    agents (an average for the mean, a sum for the weighted sum), keeping
+    the leaf's other placements: a reduction, where DTensor would gather
+    the agents of a leaf that is a partial sum elsewhere.  On a mesh whose
+    dims are all replicated, fn runs on the whole tensor as it does on a
+    plain one."""
+    from ..kernels._dtensor import is_dtensor
+
+    if not is_dtensor(u):
+        return fn(u) if weights is None else fn(u, weights)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = u.device_mesh
+    agents = [isinstance(p, Shard) and p.dim == 0 for p in u.placements]
+    out = [Partial("avg" if weights is None else "sum") if a else
+           Shard(p.dim - 1) if isinstance(p, Shard) else p
+           for p, a in zip(u.placements, agents)]
+    in_pl = (tuple(u.placements),)
+    args = (u,)
+    if weights is not None:
+        if not isinstance(weights, DTensor):
+            weights = DTensor.from_local(weights, mesh, [Replicate()] * mesh.ndim,
+                                         run_check=False)
+        in_pl += (tuple(Shard(0) if a else Replicate() for a in agents),)
+        args += (weights,)
+    return local_map(fn, out_placements=out, in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def agent_weighted_sum(tree: Pytree, weights) -> Pytree:

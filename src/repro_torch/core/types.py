@@ -10,7 +10,7 @@ below (the counterpart of `jax.tree`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, List, NamedTuple
 
 import torch
 from torch.func import grad, vmap
@@ -77,6 +77,32 @@ def tree_flatten(tree: Pytree):
         return tree_map(lambda i: new_leaves[i], skeleton)
 
     return leaves, unflatten
+
+
+def leaf_groups(tree: Pytree, period: int = 0) -> List[List[int]]:
+    """JAX's leaves of `tree`, in JAX's order, each as the indices of the
+    `tree_flatten(tree)` leaves it holds.  A plain tree maps leaf for
+    leaf.  A model tree ({"layers": [one dict per layer], ...}) of a
+    config whose pattern has `period` slots is held by JAX with each
+    slot's layers stacked ([n_per, ...] under "blocks/{j}_{kind}", the
+    map of `convert.model_tree_from_numpy`): one group per (slot, path),
+    the slot's layers in order, the slots in JAX's key order, all before
+    the other top-level leaves (`"blocks"` sorts first)."""
+    leaves, unflatten = tree_flatten(tree)
+    layers = tree.get("layers") if isinstance(tree, dict) else None
+    if not period or not isinstance(layers, list) or not layers:
+        return [[i] for i in range(len(leaves))]
+    if len(layers) % period:
+        raise ValueError(f"{len(layers)} layers do not fill a pattern of {period}")
+    ids = unflatten(list(range(len(leaves))))
+    groups = []
+    for j in sorted(range(period), key=lambda j: f"{j}_"):  # "{j}_{kind}" keys
+        per_layer = [tree_flatten(ids["layers"][i])[0]
+                     for i in range(j, len(layers), period)]
+        groups.extend(list(g) for g in zip(*per_layer))
+    rest = {k: v for k, v in ids.items() if k != "layers"}
+    groups.extend([i] for i in tree_flatten(rest)[0])
+    return groups
 
 
 def tree_reduce(fn: Callable, tree: Pytree):

@@ -22,11 +22,11 @@ from __future__ import annotations
 
 from ..core.types import Pytree, tree_flatten, tree_leaves
 from .transport import (
-    HEADER_BYTES,
     LeafSpec,
     PackedTree,
     encode_leaf,
     probe_leaf_bytes,
+    wire_header_overhead,
 )
 
 
@@ -65,18 +65,20 @@ def encode_pod_partials(partials: Pytree, *, use_kernel: bool = True) -> PackedT
     return PackedTree(payloads, specs, unflatten, shapes, use_kernel=use_kernel)
 
 
-def pod_payload_bytes(x: Pytree, y: Pytree, *, measured: bool = True) -> int:
+def pod_payload_bytes(x: Pytree, y: Pytree, *, measured: bool = True,
+                      period: int = 0) -> int:
     """Wire bytes of ONE live pod a round on the pod <-> server edge: the
     pod's partial aggregate up and the server's broadcast down, two dense
-    (x, y) copies in packed framing (headers included).  `measured=True`
+    (x, y) copies in packed framing (headers included, one per JAX leaf:
+    `period`, a model x's pattern length, as `wire_header_overhead`).
+    `measured=True`
     sums the buffers the encoder emits (`transport.probe_leaf_bytes`),
     False the spec's arithmetic; the two agree."""
     total = 0
     for u in tree_leaves((x, y)):
         spec = LeafSpec.build(tuple(u.shape), u.dtype, 1.0, 32)
-        total += (probe_leaf_bytes(spec) if measured
-                  else spec.wire_bytes()) + HEADER_BYTES
-    return 2 * total
+        total += probe_leaf_bytes(spec) if measured else spec.wire_bytes()
+    return 2 * total + wire_header_overhead(x, y, period)
 
 
 def decode_pod_partials(tree: PackedTree) -> Pytree:

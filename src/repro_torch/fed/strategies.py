@@ -52,7 +52,7 @@ import torch
 
 from .. import prng
 from ..core.engine import agent_where, fixed_size_mask, renormalized_weights
-from ..core.types import Pytree, tree_flatten, tree_leaves, tree_map
+from ..core.types import Pytree, leaf_groups, tree_flatten, tree_leaves, tree_map
 from ..device import host_to_device
 from ..kernels.compress_correction import compress_leaf
 from .noise import noise_key as _noise_stream_key
@@ -302,6 +302,10 @@ class _CorrectionCompressor(CommStrategy):
     `fold_in(sub, 2*i + tag)` for leaf i of x (tag 0) or y (tag 1), and
     f64 `uniform`s from `fold_in(leaf_key, 0)` (rand-k scores) and
     `fold_in(leaf_key, 1)` (rounding), with leaves numbered in JAX's order.
+    On a model tree x (`layer_period`, the config's pattern length, set),
+    JAX's leaves are its stacked pattern slots (`core.types.leaf_groups`):
+    a slot's layers share the stacked leaf's number and each takes its rows
+    of the stacked leaf's draws, so kept indices and levels are JAX's.
 
     `use_kernel` (default True) runs the hand-written kernels:
     `compress_correction_2d`, or with `wire_transport` `pack_payload_2d` /
@@ -314,6 +318,7 @@ class _CorrectionCompressor(CommStrategy):
 
     use_kernel: bool = True       # the CUDA kernels (plain versions on CPU)
     wire_transport: bool = False  # emit packed payloads, not dense trees
+    layer_period: int = 0         # a model x's pattern length (0: plain x)
     use_correction = True
     # knob defaults, overridden by the subclasses' dataclass fields
     mode = "topk"
@@ -405,43 +410,58 @@ class _CorrectionCompressor(CommStrategy):
             leaves, unflatten = tree_flatten(tree)
             eleaves = (tree_flatten(err)[0] if err is not None
                        else [None] * len(leaves))
-            chats, resids, specs = [], [], []
-            for i, (c, e) in enumerate(zip(leaves, eleaves)):
-                m = c.shape[0]
-                spec = LeafSpec.build(tuple(c.shape[1:]), c.dtype, self._ratio,
-                                      self._bits, self.mode)
-                flat = c.reshape(m * spec.rows, spec.cols)
-                k, n = spec.k, spec.cols
+            chats, resids, specs = ([None] * len(leaves) for _ in range(3))
+            groups = leaf_groups(tree, self.layer_period if tag == 0 else 0)
+            for i, group in enumerate(groups):
                 leaf_key = None if sub is None else prng.fold_in(sub, 2 * i + tag)
-                u_sel = u_rnd = None
-                if self.mode == "randk" and k < n:
-                    u_sel = prng.uniform(prng.fold_in(leaf_key, 0), flat.shape,
-                                         device=flat.device)
-                if self._quantizing:
-                    u_rnd = prng.uniform(prng.fold_in(leaf_key, 1), flat.shape,
-                                         device=flat.device)
-                e_flat = None if e is None else e.reshape(flat.shape)
-                if self.wire_transport:
-                    specs.append(spec.stacked(m))
-                    chat, resid = encode_leaf(flat, e_flat, u_sel, u_rnd,
-                                              specs[-1],
-                                              use_kernel=self.use_kernel)
-                else:
-                    chat, resid = compress_leaf(
-                        flat, e_flat, u_sel, u_rnd, k=k, bits=self._bits,
-                        mode=self.mode, use_kernel=self.use_kernel,
-                    )
-                    chat = chat.reshape(c.shape)
-                chats.append(chat)
-                resids.append(None if e is None else resid.reshape(c.shape))
+                for j, li in enumerate(group):
+                    chats[li], resids[li], specs[li] = one(
+                        leaves[li], eleaves[li], j, len(group), leaf_key)
             resid = unflatten(resids) if err is not None else None
             if self.wire_transport:
                 out = PackedTree(chats, specs, unflatten,
                                  [tuple(c.shape) for c in leaves],
-                                 use_kernel=self.use_kernel)
+                                 use_kernel=self.use_kernel, headers=len(groups))
             else:
                 out = unflatten(chats)
             return out, resid
+
+        def one(c, e, j, n_stack, leaf_key):
+            """(ĉ, residual or None, wire spec or None) of one leaf, layer j
+            of the n_stack that JAX stacks as one leaf: its draws are rows
+            of the stacked leaf's."""
+            m = c.shape[0]
+            spec = LeafSpec.build(tuple(c.shape[1:]), c.dtype, self._ratio,
+                                  self._bits, self.mode)
+            if n_stack > 1 and c.dim() < 2:
+                raise ValueError("a stacked leaf of scalars has no rows to slice")
+            flat = c.reshape(m * spec.rows, spec.cols)
+            k, n = spec.k, spec.cols
+            index = None
+            if n_stack > 1 and leaf_key is not None:
+                # [m, n_stack, rows, cols] of JAX's stacked draw, layer j
+                per = spec.rows * spec.cols
+                index = (torch.arange(m)[:, None] * (n_stack * per) + j * per
+                         + torch.arange(per)[None, :]).reshape(flat.shape)
+            u_sel = u_rnd = None
+            if self.mode == "randk" and k < n:
+                u_sel = prng.uniform(prng.fold_in(leaf_key, 0), flat.shape,
+                                     device=flat.device, index=index)
+            if self._quantizing:
+                u_rnd = prng.uniform(prng.fold_in(leaf_key, 1), flat.shape,
+                                     device=flat.device, index=index)
+            e_flat = None if e is None else e.reshape(flat.shape)
+            wire = spec.stacked(m) if self.wire_transport else None
+            if wire is not None:
+                chat, resid = encode_leaf(flat, e_flat, u_sel, u_rnd, wire,
+                                          use_kernel=self.use_kernel)
+            else:
+                chat, resid = compress_leaf(
+                    flat, e_flat, u_sel, u_rnd, k=k, bits=self._bits,
+                    mode=self.mode, use_kernel=self.use_kernel,
+                )
+                chat = chat.reshape(c.shape)
+            return chat, None if e is None else resid.reshape(c.shape), wire
 
         ex = state.get("ex") if self.error_feedback else None
         ey = state.get("ey") if self.error_feedback else None
@@ -595,6 +615,7 @@ def _compressed(kw) -> dict:
         seed=kw.get("seed", 0),
         use_kernel=kw.get("use_kernel", True),
         wire_transport=kw.get("wire_transport", False),
+        layer_period=kw.get("layer_period", 0),
         **_noise_kwargs(kw),
     )
 
@@ -648,7 +669,7 @@ def resolve_strategy(spec, **kwargs) -> CommStrategy:
     "local_sgda_plus" (momentum), "partial_gt" / "partial_participation"
     (participation, correction_dtype, seed), "compressed_gt"
     (compression_ratio, compression_mode, error_feedback, correction_dtype,
-    seed, use_kernel, wire_transport) and "quantized_gt" (the same plus
+    seed, use_kernel, wire_transport, layer_period) and "quantized_gt" (the same plus
     quantization_bits; compression_ratio defaults to 1).  Every name but
     the baselines takes the noise knobs noise / noise_sigma /
     noise_fraction / noise_seed (`fed.noise.resolve_noise`).  The port's

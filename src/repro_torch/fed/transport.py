@@ -37,7 +37,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core.types import tree_leaves
+from ..core.types import leaf_groups, tree_leaves
 from ..kernels import ref
 from ..kernels.pack_payload import pack_payload_2d, unpack_payload_2d
 
@@ -221,12 +221,15 @@ class PackedTree:
 
     def __init__(self, payloads: List[LeafPayload], specs: List[LeafSpec],
                  unflatten: Callable, shapes: List[Tuple[int, ...]],
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, headers: Optional[int] = None):
         self.payloads = payloads
         self.specs = specs
         self.unflatten = unflatten  # rebuilds the tree from its leaves
         self.shapes = shapes        # original [m, *leaf_shape] shapes
         self.use_kernel = use_kernel
+        #: JAX's leaves, one header each: a model tree's layers of one
+        #: pattern slot share their stacked leaf's (`core.types.leaf_groups`)
+        self.headers = len(payloads) if headers is None else headers
 
     def decode(self) -> Pytree:
         return self.unflatten([
@@ -239,7 +242,7 @@ class PackedTree:
         return sum(p.nbytes for p in self.payloads)
 
     def total_bytes(self) -> int:
-        return self.wire_bytes() + HEADER_BYTES * len(self.payloads)
+        return self.wire_bytes() + HEADER_BYTES * self.headers
 
 
 # --------------------------------------------------------------------------
@@ -284,11 +287,12 @@ def measured_bytes_per_round(
                    for u in leaves)
         return 2 * dense_payload_bytes((x, y)) + 2 * corr
     mode = getattr(strategy, "mode", "topk")
-    payload = header = 0
+    payload = 0
     for u in leaves:
         spec = LeafSpec.build(tuple(u.shape), cdt or u.dtype, ratio, bits, mode)
         payload += probe_leaf_bytes(spec)
-        header += HEADER_BYTES
+    header = wire_header_overhead(
+        x, y, getattr(strategy, "layer_period", 0)) // 2
     # up: compressed correction + dense local model; down: compressed
     # global correction + dense averaged model
     total = 2 * dense_payload_bytes((x, y)) + 2 * payload
@@ -297,6 +301,8 @@ def measured_bytes_per_round(
     return int(total)
 
 
-def wire_header_overhead(x: Pytree, y: Pytree) -> int:
-    """Fixed per-round header bytes: HEADER_BYTES per leaf per direction."""
-    return 2 * HEADER_BYTES * len(tree_leaves((x, y)))
+def wire_header_overhead(x: Pytree, y: Pytree, period: int = 0) -> int:
+    """Fixed per-round header bytes: HEADER_BYTES per leaf per direction,
+    JAX's leaves (a model x of a pattern of `period` slots holds one per
+    stacked slot leaf, `core.types.leaf_groups`)."""
+    return 2 * HEADER_BYTES * (len(leaf_groups(x, period)) + len(tree_leaves(y)))

@@ -67,13 +67,19 @@ def grouped_flash_attention(
     reads the [B, S, heads, hd] tensors through transposed views and
     takes the KV heads as they are (JAX's adapter transposes and repeats
     them)."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if use_kernel:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         out = flash_attention(qt, kt, vt, causal=causal, window=window,
                               softcap=softcap)
-    else:
-        out = ref.flash_attention_ref(qt, kt, vt, causal=causal,
-                                      window=window, softcap=softcap)
+        return out.transpose(1, 2)
+    # on DTensors: query rows sharded, keys whole, so that no score is a
+    # partial sum (the kernel's wrapper places its own operands)
+    from ..models.placement import queries_local
+
+    q, k, v = queries_local(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    out = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                  softcap=softcap)
     return out.transpose(1, 2)
 
 

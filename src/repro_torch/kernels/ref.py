@@ -385,8 +385,14 @@ def ssm_scan_ref(
     (zeros).  Returns (y [B, S, H, P], final state [B, H, P, N]).
 
     JAX's `ref.ssm_scan_ref` is the same recurrence over one sequence
-    ([S, D, N], `lax.scan`)."""
+    ([S, D, N], `lax.scan`).  On `meta` (shapes only, the dry-run's) the
+    outputs' shapes come back without stepping through S positions: there
+    is no value to compute, and the recurrence has no product a census
+    counts."""
     B, S, H, P, N = dbx.shape
+    if dbx.device.type == "meta":
+        return (torch.empty(B, S, H, P, dtype=torch.float32, device="meta"),
+                torch.empty(B, H, P, N, dtype=torch.float32, device="meta"))
     h = (torch.zeros(B, H, P, N, dtype=torch.float32, device=dbx.device)
          if state0 is None else state0.float())
     da, dbx, c = da.float(), dbx.float(), c_coef.float()

@@ -165,7 +165,17 @@ def plain_ssm_scan(
     state0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version (`ref.ssm_scan_ref`) in `ssm_scan`'s layouts, on
-    any device."""
+    any device.  On `meta` under `torch.func` (the dry-run's training
+    step) it runs as `ssm_scan`'s autograd Function does: the agent axis
+    folded into the batch and, on DTensors, the recurrence and its vjp on
+    the local shards, not op by op through DTensor's dispatch at every
+    position."""
+    operands = [t for t in (da, dbx, c_coef, state0) if t is not None]
+    if dbx.device.type == "meta" and traced(*operands):
+        shape = dbx.shape
+        da5, dbx5, c5, s05 = _as_5d(da, dbx, c_coef, state0, expand=False)
+        y, state, _ = _SSMScan.apply(da5, dbx5, c5, s05)
+        return y.reshape(shape[:-1]), state.reshape(_state_shape(shape))
     return _in_layout(ref.ssm_scan_ref, da, dbx, c_coef, state0)
 
 
@@ -243,9 +253,9 @@ class _SSMScan(torch.autograd.Function):
                           (_ROWS, _STATE, _ROWS if on_card else {}),
                           ((B, S, H, P), (B, H, P, N), chunks))
         dae = da.expand(dbx.shape)
-        if dbx.device.type == "cpu":
+        if dbx.device.type in ("cpu", "meta"):
             y, state = ref.ssm_scan_ref(dae, dbx, c, state0)
-            return y, state, torch.empty(0)
+            return y, state, torch.empty(0, device=dbx.device)
         return _launch(dae, dbx, c, state0, chunks=True)
 
     @staticmethod
@@ -319,6 +329,9 @@ def plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None):
     when state0 is None."""
     s0 = torch.zeros(dbx.shape[0], *dbx.shape[2:], dtype=torch.float32,
                      device=dbx.device) if state0 is None else state0
+    if dbx.device.type == "meta":  # shapes only (`ref.ssm_scan_ref`)
+        return tuple(torch.empty(t.shape, dtype=torch.float32, device="meta")
+                     for t in (da, dbx, c, s0))
 
     def fwd(da, dbx, c, s0):
         return ref.ssm_scan_ref(da.expand(dbx.shape), dbx, c, s0)
@@ -348,7 +361,7 @@ def ssm_scan_bwd(da, dbx, c, state0, dy, dstate=None, *, chunks=None):
             (_FULL, _FULL, _BATCH, _STATE),
             (da.shape, dbx.shape, (B, S, N), (B, H, P, N)),
             reduces=(True, False, True, False))
-    if dbx.device.type == "cpu":
+    if dbx.device.type in ("cpu", "meta"):
         return plain_ssm_scan_bwd(da, dbx, c, state0, dy, dstate)
     if dbx.device.type != "cuda":
         raise ValueError(f"ssm_scan_bwd: no kernel for device {dbx.device}")

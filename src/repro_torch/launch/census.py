@@ -19,14 +19,25 @@ propagation through while bodies, fusions and calls that `HloCensus`
 needs for XLA's static HLO has no counterpart, nor has its upper bound on
 conditionals (the zamba2 shared block is a plain `if` here).  Elementwise
 FLOPs are ignored, as there.
+
+Only what this rank executes counts.  DTensor's sharding propagation runs
+each new op signature once on `FakeTensor`s at the global shapes, under a
+fake mode; those ops pass through the mode too and count toward nothing
+(no FLOPs, no collectives, no duplicate shapes), so an op's first call
+counts as its cached calls do.  On a CPU mesh DTensor stands in an
+all-gather and a chunk for the all-to-all of a shard-to-shard
+redistribution (gloo has no all-to-all); the census counts it as the
+all-to-all it is on a device mesh, with its result's bytes.
 """
 from __future__ import annotations
 
 import math
+import sys
 from collections import defaultdict
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 _MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
@@ -59,6 +70,28 @@ def _nbytes(out) -> int:
     return 0
 
 
+def _alltoall_fallback() -> bool:
+    """The all-gather runs inside DTensor's `shard_dim_alltoall`, which on
+    a CPU mesh gathers and keeps its own chunk (gloo has no all-to-all)."""
+    f = sys._getframe(2)
+    for _ in range(60):
+        if f is None:
+            return False
+        if f.f_code.co_name == "shard_dim_alltoall":
+            return True
+        f = f.f_back
+    return False
+
+
+def _propagating(types) -> bool:
+    """The op runs on `FakeTensor`s, or under a fake mode: DTensor's
+    sharding propagation tracing an op's global shapes (once per new op
+    signature), which this rank never executes."""
+    return (any(issubclass(t, FakeTensor) for t in types)
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE)
+            is not None)
+
+
 class Census(TorchDispatchMode):
     """Counts what runs inside `with Census() as c:`; `c.summary()` gives
     JAX's keys: executed_dot_flops, collectives_executed
@@ -79,6 +112,8 @@ class Census(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if _propagating(types):
+            return out
         name = func._overloadpacket.__name__
         if name in _MATMULS:
             a, b = args[_MATMULS[name]], args[_MATMULS[name] + 1]
@@ -87,10 +122,14 @@ class Census(TorchDispatchMode):
             key = f"{_dtype_str(out.dtype)}[{','.join(str(d) for d in out.shape)}]"
             self.shape_counts[key] += 1
         elif name in _COLLECTIVES:
-            s = self.collectives.setdefault(_COLLECTIVES[name],
-                                            {"count": 0, "bytes": 0})
+            kind, nbytes = _COLLECTIVES[name], _nbytes(out)
+            if kind == "all-gather" and _alltoall_fallback():
+                # DTensor's stand-in on a CPU mesh for the all-to-all of a
+                # shard-to-shard redistribution: counted as that all-to-all
+                kind, nbytes = "all-to-all", _nbytes(args[0])
+            s = self.collectives.setdefault(kind, {"count": 0, "bytes": 0})
             s["count"] += 1
-            s["bytes"] += _nbytes(out)
+            s["bytes"] += nbytes
         return out
 
     def summary(self) -> Dict:

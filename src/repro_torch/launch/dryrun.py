@@ -2,7 +2,8 @@
 executed-op census (port of `repro/launch/dryrun.py`).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
-        --shape decode_32k [--multi-pod | --both-meshes | --all] ...
+        --shape decode_32k [--multi-pod | --both-meshes | --all] \\
+        [--telemetry DIR] ...
 
 JAX lowers and compiles each step for 256 or 512 emulated host devices
 and reads its HLO.  Here the production mesh (`mesh.make_production_mesh`)
@@ -302,6 +303,11 @@ def parse_args(argv=None):
     ap.add_argument("--q-block", type=int, default=None)
     ap.add_argument("--moe-dispatch", default=None, choices=["einsum", "scatter"])
     ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--telemetry", default=None, metavar="DIR",
+                    help="write a run ledger (repro_torch.obs.RunLedger) under "
+                         "DIR: a manifest of the resolved flags and one "
+                         "'dryrun' event a tag (trace seconds, collectives, "
+                         "argument bytes a rank)")
     args = ap.parse_args(argv)
     # an unset knob falls back to the strategy's active default, as JAX's
     if args.algorithm == "quantized_gt" and args.quantization_bits is None:
@@ -329,6 +335,12 @@ def main(argv=None) -> Dict[str, Dict]:
             raise SystemExit("--arch and --shape (or --all)")
         pairs = [(args.arch, args.shape)]
     meshes = [False, True] if (args.both_meshes or args.all) else [args.multi_pod]
+    ledger = None
+    if args.telemetry:
+        from ..obs import RunLedger, run_manifest
+
+        ledger = RunLedger(args.telemetry)
+        ledger.write_manifest(run_manifest(config=vars(args)))
     out, failures = {}, 0
     for arch, shape in pairs:
         for mp in meshes:
@@ -352,6 +364,15 @@ def main(argv=None) -> Dict[str, Dict]:
                     pods=args.pods, gather_only=args.gather_only)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1)
+                if ledger is not None:
+                    # JAX's event, its lower / compile seconds and memory
+                    # analysis as the eager trace's seconds and the inputs'
+                    # bytes a rank
+                    ledger.write({"kind": "event", "name": "dryrun", "tag": tag,
+                                  "trace_s": rec["trace_s"],
+                                  "collectives": rec["collectives"],
+                                  "argument_bytes_per_rank":
+                                      rec["argument_bytes_per_rank"]})
                 out[tag] = rec
                 print(f"  ok trace={rec['trace_s']:.1f}s "
                       f"args={rec['argument_bytes_per_rank'] / 2**30:.2f}GiB "
@@ -363,6 +384,8 @@ def main(argv=None) -> Dict[str, Dict]:
             except Exception:
                 failures += 1
                 print(f"  FAILED {tag}\n{traceback.format_exc()}", flush=True)
+    if ledger is not None:
+        ledger.close()
     if failures:
         raise SystemExit(f"{failures} dry-run failures")
     return out

@@ -81,6 +81,30 @@ def fed_axes(mesh, fed_mode: str) -> Tuple[str, ...]:
     raise ValueError(fed_mode)
 
 
+def agents_mesh(mesh, fed_mode: str):
+    """The mesh a train step runs on: `mesh` itself, or where the agents
+    lie over two mesh dims (mode A on the multi-pod mesh: ("pod",
+    "data")), a 2-D mesh over the same ranks whose first dim, named
+    "data", is those two flattened pod-major (JAX's order of the entries
+    of a ("pod", "data") spec), beside "model".  The agent axis is then
+    sharded on one mesh dim, as DTensor propagates it (a tensor dim split
+    over two mesh dims defeats its view rules), and `pod_device_groups`
+    gives the same contiguous rank groups.  A mesh description (no
+    `DeviceMesh`) is returned as it is."""
+    axes = fed_axes(mesh, fed_mode)
+    if len(axes) < 2 or not hasattr(mesh, "mesh"):
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = axis_names(mesh)
+    rest = [a for a in names if a not in axes]
+    ranks = mesh_ranks(mesh).permute([names.index(a) for a in axes + tuple(rest)])
+    sizes = axis_sizes(mesh)
+    shape = (num_agents(mesh, fed_mode),) + tuple(sizes[a] for a in rest)
+    return DeviceMesh(mesh.device_type, ranks.reshape(shape),
+                      mesh_dim_names=("data",) + tuple(rest))
+
+
 def num_agents(mesh, fed_mode: str) -> int:
     sizes = axis_sizes(mesh)
     return max(math.prod(sizes[a] for a in fed_axes(mesh, fed_mode)), 1)

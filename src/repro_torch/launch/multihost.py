@@ -289,7 +289,7 @@ class MultiHostRunner(ShardStreams):
         for i, t in enumerate(trees):
             tree = PackedTree(list(self._up([t.payloads], [i])), self._specs[which],
                               self._unflatten[which], self._shapes[which],
-                              use_kernel=self._use_kernel)
+                              use_kernel=self._use_kernel, headers=t.headers)
             payload_bytes += tree.wire_bytes()
             total_bytes += tree.total_bytes()
             parts.append(tree.decode())

@@ -41,7 +41,7 @@ from ..fed.strategies import CommStrategy, resolve_strategy
 from ..models import batch_struct, init_caches, init_params
 from ..models.transformer import embed_inputs, forward, logits_from_hidden
 from ..problems.adversarial import delta_projection, make_adversarial_loss
-from .mesh import fed_axes, num_agents
+from .mesh import agents_mesh, fed_axes, num_agents
 from .shardings import (
     agent_pspec,
     cache_pspec,
@@ -138,7 +138,13 @@ def _resolve_cfg_strategy(cfg: ModelConfig, algorithm,
                           use_kernel: bool = True) -> CommStrategy:
     """One owner for the cfg-knob -> strategy resolution, shared by the
     train step and the gather-census step (`use_kernel=False`: the
-    compressors' plain versions)."""
+    compressors' plain versions).  The strategy numbers the model's leaves
+    per stacked pattern slot, as JAX's (`layer_period`), a ready one too
+    where it has not been told otherwise."""
+    if isinstance(algorithm, CommStrategy):
+        if getattr(algorithm, "layer_period", None) == 0:
+            return dataclasses.replace(algorithm, layer_period=len(cfg.pattern))
+        return algorithm
     kw = dict(
         use_kernel=use_kernel,
         correction_dtype=_CORRECTION_DTYPES.get(cfg.correction_dtype),
@@ -147,6 +153,7 @@ def _resolve_cfg_strategy(cfg: ModelConfig, algorithm,
         quantization_bits=cfg.quantization_bits,
         wire_transport=cfg.wire_transport,
         momentum=cfg.momentum,
+        layer_period=len(cfg.pattern),
     )
     # gate on the cfg knob, not on sigma/fraction: a bare nonzero sigma
     # would make every config stochastic
@@ -183,7 +190,9 @@ def build_train_step(
     """Returns (step_for(shape), specs_fn): step(x, y, batch[, state]) ->
     (x, y[, state]), the state for stateful strategies.  use_kernel=False
     runs every kernel's plain version (the dry-run on `meta`, whose
-    tensors have no device)."""
+    tensors have no device).  The step runs on `agents_mesh(mesh)`, where
+    its DTensor inputs must lie (plain ones are cut to their shards)."""
+    mesh = agents_mesh(mesh, cfg.fed_mode)
     cfg, loss = _train_loss(cfg, mesh, remat, sequence_parallel, h_shard,
                             q_block, use_kernel)
     strategy = _resolve_cfg_strategy(cfg, algorithm, use_kernel)
@@ -247,9 +256,11 @@ def build_elastic_train_step(
     table (per-agent anchor gradients, agent axis over the fed axes like
     the batch) and the [m] weights / budgets / active / prev_active
     (replicated).  step(x, y, batch, state, tracker, weights, budgets,
-    active, prev_active) -> (x, y, state, tracker)."""
+    active, prev_active) -> (x, y, state, tracker).  It runs on
+    `agents_mesh(mesh)`, as `build_train_step`."""
     from ..sim.elastic import make_elastic_round
 
+    mesh = agents_mesh(mesh, cfg.fed_mode)
     cfg, loss = _train_loss(cfg, mesh, remat, sequence_parallel, h_shard,
                             q_block, use_kernel)
     strategy = _resolve_cfg_strategy(cfg, algorithm, use_kernel)
@@ -318,7 +329,8 @@ def pod_aggregation_plan(cfg: ModelConfig, mesh, num_pods: int) -> Dict:
         "num_pods": num_pods,
         "agents_per_pod": m // num_pods,
         "devices_per_pod": len(groups[0]),
-        "pod_payload_bytes": pod_payload_bytes(x, y, measured=False),
+        "pod_payload_bytes": pod_payload_bytes(x, y, measured=False,
+                                               period=len(cfg.pattern)),
         "groups": groups,
     }
 

@@ -143,6 +143,8 @@ def resolve(args) -> Any:
         "noise_fraction": args.noise_fraction,
         "noise_seed": args.noise_seed,
         "momentum": args.momentum,
+        # a model's leaves are numbered per stacked pattern slot, as JAX's
+        "layer_period": len(config_of(args).pattern),
     }
     return resolve_strategy(
         args.algorithm, **{k: v for k, v in knobs.items() if v is not None})

@@ -29,6 +29,7 @@ from torch import nn
 from ..kernels.ops import grouped_flash_attention
 from ..kernels.ref import NEG_INF
 from .layers import gen_device, normal, param
+from .placement import reduced, rows_proj
 
 
 def init_attention(gen: torch.Generator, d: int, heads: int, kv_heads: int,
@@ -72,7 +73,9 @@ def _attend(
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    # a sum over a sharded head dim is reduced here, once (GSPMD's
+    # all-reduce), not scattered and gathered again for the softmax
+    scores = reduced(torch.einsum("bskgh,btkh->bkgst", qg, k).float())
     scores = scores / torch.sqrt(torch.tensor(float(hd), dtype=torch.float32))
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
@@ -156,7 +159,7 @@ def multihead_attention(
     else:
         out = _attend(q, k, v, q_positions, kv_positions, kv_valid, causal,
                       window, softcap)
-    out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+    out = rows_proj("bsnh,nhd->bsd", out, params["wo"])
     return out, new_cache
 
 

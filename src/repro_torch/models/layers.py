@@ -10,6 +10,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._C._functorch import is_functorch_wrapped_tensor
+
+from .placement import lookup, rows_scattered, sharded, split_dims
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -63,7 +66,21 @@ def init_swiglu(gen: torch.Generator, d: int, ff: int, dtype, device) -> nn.Para
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, scale: bool = True) -> torch.Tensor:
-    h = table[tokens]
+    """table[tokens] (scaled by sqrt(d)).  A vocab-sharded DTensor table is
+    read through `F.embedding`, whose sharding rule looks the tokens up on
+    each vocab shard and sums the masked rows (a reduction of the
+    embeddings), where indexing would gather the whole table; under
+    `torch.func` (a table per agent, the train step's) each rank looks its
+    agents' tokens up in their tables (`placement.lookup`)."""
+    split = split_dims(table)
+    if split and 0 in split and not is_functorch_wrapped_tensor(table):
+        # its masked partial sum is reduced at once, and once: a reduction
+        # applies the shards' masks and drops them
+        h = rows_scattered(F.embedding(tokens, table))
+    elif is_functorch_wrapped_tensor(table) and sharded(table):
+        h = lookup(table, tokens)
+    else:
+        h = table[tokens]
     if scale:
         h = h * torch.tensor(math.sqrt(table.shape[-1]), dtype=h.dtype)
     return h

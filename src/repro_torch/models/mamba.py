@@ -29,6 +29,7 @@ from torch import nn
 
 from ..kernels.ops import batched_ssm_scan
 from .layers import gen_device, normal, param
+from .placement import pinned
 
 
 def init_mamba(
@@ -115,7 +116,7 @@ def mamba_block(
     nh = d_inner if variant == "mamba1" else d_inner // head_p
     p_dim = 1 if variant == "mamba1" else head_p
 
-    xz = u @ params["in_proj"]
+    xz = pinned(u @ params["in_proj"])
     x, z = xz[..., :d_inner], xz[..., d_inner:]
 
     W = params["conv_w"].shape[0]

@@ -61,6 +61,7 @@ from .layers import (
 )
 from .mamba import init_mamba, init_mamba_cache, mamba_block
 from .moe import init_moe, moe_ffn
+from .placement import batch_only, constrain, contracting, logsumexp, rows_scattered
 
 SSM_KINDS = ("mamba1", "mamba2")
 ATTN_KINDS = ("attn", "local", "moe")
@@ -239,7 +240,7 @@ def _apply_layer(
     """(h, the layer's new cache, its aux loss or None: MoE layers only)."""
     aux = None
     if kind in ATTN_KINDS:
-        hn = rms_norm(h, p["ln1"]["scale"])
+        hn = contracting(rms_norm(h, p["ln1"]["scale"]), p["attn"]["wq"])
         out, new_c = multihead_attention(
             p["attn"],
             hn,
@@ -253,16 +254,16 @@ def _apply_layer(
             use_kernel=use_kernel,
         )
         h = h + out
-        hn2 = rms_norm(h, p["ln2"]["scale"])
+        hn2 = batch_only(rms_norm(h, p["ln2"]["scale"]))
         if kind == "moe":
             mo, aux = moe_ffn(p["moe"], hn2, top_k=cfg.top_k,
                               capacity_factor=cfg.capacity_factor,
                               dispatch=cfg.moe_dispatch)
         else:
-            mo = swiglu(hn2, p["mlp"])
+            mo = rows_scattered(swiglu(hn2, p["mlp"]))
         return h + mo, new_c, aux
     if kind in SSM_KINDS:
-        hn = rms_norm(h, p["ln1"]["scale"])
+        hn = batch_only(rms_norm(h, p["ln1"]["scale"]))
         out, new_c = mamba_block(
             p["mamba"],
             hn,
@@ -336,7 +337,7 @@ def forward(
     new_layers = []
 
     def apply_shared(h, sp, cache):
-        hn = rms_norm(h, sp["ln"]["scale"])
+        hn = contracting(rms_norm(h, sp["ln"]["scale"]), sp["attn"]["wq"])
         out, new_cs = multihead_attention(
             sp["attn"],
             hn,
@@ -444,10 +445,11 @@ def chunked_lm_loss(
     chunk = min(chunk, S)
     assert S % chunk == 0, (S, chunk)
     head = _head(params, cfg)
+    h = batch_only(h)  # gathered once, not once a chunk
 
     def one(hb, lb, head):
         logits = _logits(cfg, head, hb)
-        logz = torch.logsumexp(logits, dim=-1)
+        logz = logsumexp(logits)
         safe = torch.clamp_min(lb, 0).long()
         # the gold logit as a masked sum: exactly the one kept term, and
         # clean on vocab-sharded DTensor logits under vmap, where a gather
@@ -464,48 +466,6 @@ def chunked_lm_loss(
         tot = tot + checkpoint(one, h[:, c0:c0 + chunk], lb, head)
         cnt = cnt + torch.sum(lb >= 0).float()
     return tot / torch.clamp_min(cnt, 1.0)
-
-
-# --------------------------------------------------------------------------
-# the SPMD constraint on h
-# --------------------------------------------------------------------------
-def constrain(h: torch.Tensor, sharding) -> torch.Tensor:
-    """h (a DTensor, or a `torch.func.vmap` over one) redistributed to
-    `sharding` = (mesh, placements) (JAX's `with_sharding_constraint`)."""
-    mesh, pl = sharding
-    return _Constrain.apply(h, mesh, tuple(pl))
-
-
-class _Constrain(torch.autograd.Function):
-    @staticmethod
-    def forward(h, mesh, pl):
-        from torch.distributed.tensor import DTensor
-
-        if not isinstance(h, DTensor):
-            raise TypeError("h_sharding: h is a plain tensor, so it cannot be "
-                            "placed; the SPMD steps take DTensors")
-        return h.redistribute(mesh, pl).view_as(h)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.mesh, ctx.pl = inputs[1], inputs[2]
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.redistribute(ctx.mesh, ctx.pl), None, None
-
-    @staticmethod
-    def vmap(info, in_dims, h, mesh, pl):
-        from torch.distributed.tensor import Replicate, Shard
-
-        if in_dims[0] is None:
-            return _Constrain.apply(h, mesh, pl), None
-        h = h.movedim(in_dims[0], 0)
-        # the spec's dims move up by one; the mapped axis keeps its shards
-        pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else
-                   (old if isinstance(old, Shard) and old.dim == 0 else Replicate())
-                   for p, old in zip(pl, h.placements))
-        return _Constrain.apply(h, mesh, pl), 0
 
 
 # --------------------------------------------------------------------------

@@ -157,12 +157,19 @@ def _device_words(key: torch.Tensor, device: torch.device):
     return w[:, 0:1], w[:, 1:2]
 
 
-def _bits_pair(key: torch.Tensor, shape: Sequence[int], device: torch.device):
+def _bits_pair(key: torch.Tensor, shape: Sequence[int], device: torch.device,
+               index: Optional[torch.Tensor] = None):
     """The two threefry output words of every counter of `shape`, each of
-    shape [B..., *shape] for a key batch [B..., 2] (a single key: shape)."""
+    shape [B..., *shape] for a key batch [B..., 2] (a single key: shape);
+    with `index`, of the counters it holds (shape: its shape)."""
     _check_key(key)
-    shape = tuple(int(d) for d in shape)
-    hi, lo = _counters(shape, device)
+    if index is None:
+        shape = tuple(int(d) for d in shape)
+        hi, lo = _counters(shape, device)
+    else:
+        shape = tuple(index.shape)
+        idx = index.to(device=device, dtype=torch.int64).reshape(-1)
+        hi, lo = idx >> 32, idx & MASK32
     if key.dim() == 1:
         k1, k2 = _words(key)
         b1, b2 = threefry2x32(k1, k2, hi, lo)
@@ -192,7 +199,7 @@ def random_bits(
 def uniform(
     key: torch.Tensor, shape: Sequence[int] = (),
     dtype: torch.dtype = torch.float64, device: DeviceLike = None,
-    minval: float = 0.0, maxval: float = 1.0,
+    minval: float = 0.0, maxval: float = 1.0, index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """`jax.random.uniform(key, shape, dtype, minval, maxval)`, bit for bit,
     in f64 or f32 (a key batch [B..., 2] prepends B...): the [0, 1) draw f,
@@ -201,11 +208,14 @@ def uniform(
     computes it (`torch.addcmul`; the default [0, 1) skips that step: it is
     the identity).  JAX draws f64 when
     `jax_enable_x64` is on and no dtype is given, which is how every
-    strategy of the repository draws."""
+    strategy of the repository draws.  `index` (int64, any shape) draws
+    only the elements at those flat positions of a draw of `shape`, bit for
+    bit its entries (each element hashes its own counter): a slice of a
+    large draw without the rest of it."""
     if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"uniform draws float64 or float32, got {dtype}")
     device = resolve_device(device)
-    b1, b2 = _bits_pair(key, shape, device)
+    b1, b2 = _bits_pair(key, shape, device, index)
     if dtype == torch.float64:
         # the top 52 of the 64 bits (b1 << 32 | b2) >> 12, from the words
         mant = (b1 << 20) | (b2 >> 12)

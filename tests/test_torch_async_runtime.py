@@ -1,7 +1,7 @@
 """The port's asynchronous runtime (`repro_torch.fed.async_runtime`),
 tests/test_async_runtime.py's `TestAsyncRunnerParity` ported (the
-multi-host gather is in tests/test_torch_multihost.py; its census waits
-for ROADMAP Queue 1 item 13), on JAX's data (CPU; the port's shards on `devices=["cpu"] * 8`,
+multi-host gather is in tests/test_torch_multihost.py, its census in
+tests/test_torch_dryrun.py), on JAX's data (CPU; the port's shards on `devices=["cpu"] * 8`,
 JAX's on the 8 emulated host devices of `fed_devices`):
 
   * for the six scenario strategies the async runner's iterates equal the

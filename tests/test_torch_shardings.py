@@ -322,14 +322,8 @@ def test_pod_aggregation_plan_equals_jax(fed_devices, name, num_pods):
     want = jax_plan(jcfg, jmesh, num_pods)
     want["groups"] = [[d - fed_devices[0].id for d in g] for g in want["groups"]]
     got = pod_aggregation_plan(cfg, _DataMesh(), num_pods)
-    # the same payload; the port's per-layer leaves carry a header each
-    # per direction where JAX's stacked leaves carry one per pattern slot
-    from repro_torch.fed.transport import HEADER_BYTES
-
-    extra = len(_port_leaves(abstract_params(cfg, torch.bfloat16))) - len(
-        _jax_leaves(jax.eval_shape(lambda: jax_init_params(jax.random.PRNGKey(0), jcfg,
-                                                           jnp.bfloat16))))
-    want["pod_payload_bytes"] += 2 * HEADER_BYTES * extra
+    # the port's per-layer leaves are priced as JAX's stacked slot leaves:
+    # one header per JAX leaf and direction
     assert got == want
 
 

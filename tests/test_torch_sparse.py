@@ -1,8 +1,9 @@
 """The O(active) sparse elastic engine and the two-level pod tree of the
 port (`repro_torch.sim.sparse`, `core.engine.pod_weighted_sums` /
 `pods_total`, `fed.pods`), tests/test_sparse_elastic.py ported
-(`TestPodDeviceGroups` needs the SPMD launch layer, ROADMAP Queue 1 item
-13), each case on the same seeded inputs through JAX and the port (CPU):
+(`TestPodDeviceGroups`, on the SPMD launch layer, is in
+tests/test_torch_shardings.py), each case on the same seeded inputs
+through JAX and the port (CPU):
 
   * for the six strategy families at m=8 the dense fallback equals the
     dense elastic runner bit for bit, forced sparse matches it to rtol

@@ -5,12 +5,12 @@ One `torch.multiprocessing.spawn`ed world of 8 ranks, a (2, 2, 2) mesh
 over ("pod", "data", "model"), runs every step of this module once,
 module-scoped.  Each pod's (2, 2) submesh over ("data", "model") runs
 half of the steps, the two halves at once; then all 8 ranks run the pod
-case: the async gather over the fed axes ("pod", "data") as one
+cases: a FedGDA-GT round of 4 agents on the whole mesh (the train step
+runs it on `agents_mesh`, ("pod", "data") flattened into one agents'
+dim), and the async gather over the fed axes ("pod", "data") as one
 flattened mesh dim, a real all-gather of the packed payloads, decoded
 against JAX's `build_gather_decode_step` bit for bit, its census one
-all-gather of `expected_gather_bytes`.  A train round on the pod mesh is
-the dry-run's: DTensor's strategy search for a 5-D vmapped einsum over
-three mesh dims takes minutes a signature.  The ranks meet on a
+all-gather of `expected_gather_bytes`.  The ranks meet on a
 `FileStore` under the test's tmp_path, never on a TCP port, so
 concurrent test workers cannot collide, and they import no JAX: the
 parent hands them JAX's weights (`convert.model_tree_from_numpy`) and
@@ -29,8 +29,9 @@ Held against:
 
 Steps: FedGDA-GT rounds of reduced granite-8b and zamba2-7b (a Mamba-2
 hybrid with its shared attention block), QuantizedGT's stateful round,
-the elastic round (tracker table, budgets, weights), and prefill plus two
-decode steps of granite-8b and zamba2-7b.
+CompressedGT's top-k and rand-k rounds, the elastic round (tracker table,
+budgets, weights), and prefill plus two decode steps of granite-8b and
+zamba2-7b.
 """
 import dataclasses
 import time
@@ -51,19 +52,21 @@ RTOL = 1e-4  # of each leaf's max |value| (tests/test_torch_train.py's)
 K, ETA, B_LOCAL, SEQ = 2, 2e-3, 1, 8
 REMAT = False  # the chip's spmd_train runs remat; here fewer ops, a faster world
 SERVE_B, SERVE_S, SERVE_N = 2, 16, 3
+#: key -> (config, algorithm: a name or a strategy made from the module
+#: `F` (the JAX package's `repro.fed` or the port's `repro_torch.fed`),
+#: config knobs)
 TRAIN = {"train_granite": ("granite-8b", "fedgda_gt", {}),
          "train_zamba2": ("zamba2-7b", "fedgda_gt", {}),
          "train_quantized": ("granite-8b", "quantized_gt", {"quantization_bits": 8}),
          "train_compressed": ("granite-8b", "compressed_gt", {"compression_ratio": 0.25}),
+         "train_randk": ("granite-8b", lambda F: F.CompressedGT(
+             compression_ratio=0.25, mode="randk", seed=2), {}),
          "elastic_granite": ("granite-8b", "fedgda_gt", {})}
-#: the rounds held to JAX's iterates.  QuantizedGT draws its rounding per
-#: leaf by the leaf's index in the tree, and JAX's stacked tree numbers
-#: leaves otherwise than the port's per-layer one, so its draws differ
-#: (its key chain does not: held bit for bit); CompressedGT's top-k with
-#: error feedback draws nothing and is held to JAX's iterates, feedback
-#: buffers and kept entries
-JAX_ROUNDS = ("train_granite", "train_zamba2", "train_compressed", "elastic_granite")
-STATEFUL = ("train_quantized",)  # its state alone is held to JAX's
+#: the rounds held to JAX's iterates: the port numbers a model tree's
+#: leaves as JAX's stacked tree does, so QuantizedGT's rounding and
+#: rand-k's kept indices are JAX's draws
+JAX_ROUNDS = ("train_granite", "train_zamba2", "train_compressed", "train_quantized",
+              "train_randk", "elastic_granite")
 #: top-k picks by magnitude, so an f32 difference can swap a near-tie; in
 #: f64 none of these rows' ties falls within rounding noise.  The flash
 #: kernel takes f32 / bf16, so the f64 round runs the plain versions
@@ -74,12 +77,24 @@ SERVE = {"serve_granite": "granite-8b", "serve_zamba2": "zamba2-7b"}
 #: about as long (each pod's first round of a dtype pays DTensor's
 #: sharding propagation for its ops)
 POD_STEPS = (("train_granite", "train_quantized", "elastic_granite", "serve_granite"),
-             ("train_compressed", "train_zamba2", "serve_zamba2"))
+             ("train_compressed", "train_randk", "train_zamba2", "serve_zamba2"))
 POD_M = 4  # agents: the ("pod", "data") product of the (2, 2, 2) mesh
+#: the round all 8 ranks run on the (2, 2, 2) mesh, POD_M agents
+POD_TRAIN = ("granite-8b", "fedgda_gt", {})
 
 
 def _cfg(name, knobs):
     return dataclasses.replace(get_config(name).reduced(), **knobs)
+
+
+def _spec(key):
+    """A train key's (config, algorithm, knobs); "train_pod" is POD_TRAIN."""
+    return POD_TRAIN if key == "train_pod" else TRAIN[key]
+
+
+def _alg(algorithm, F):
+    """A TRAIN algorithm for the fed module F: a name, or the strategy."""
+    return algorithm(F) if callable(algorithm) else algorithm
 
 
 def _cfgs(name, knobs):
@@ -100,10 +115,12 @@ def _train_inputs(name, m, knobs, algorithm, dtype="float32"):
     import jax
     import jax.numpy as jnp
 
+    import repro.fed as jfed
     from repro.launch import steps as jsteps
     from repro.models import init_params as jinit_params
 
     _, jcfg = _cfgs(name, knobs)
+    algorithm = _alg(algorithm, jfed)
     x = _np(jinit_params(jax.random.PRNGKey(0), jcfg, getattr(jnp, dtype)))
     rng = np.random.default_rng(5)
     tok = rng.integers(0, jcfg.vocab_size, (m, B_LOCAL, SEQ)).astype(np.int32)
@@ -172,7 +189,7 @@ def _rank_inputs(key, inp):
                 for p in inp["payloads"]]
     if key in SERVE:
         return {"x": _port_tree(_cfg(SERVE[key], {}), inp["x"]), "tokens": _t(inp["tokens"])}
-    name, _, knobs = TRAIN[key]
+    name, _, knobs = _spec(key)
     cfg = _cfg(name, knobs)
     out = {"x": _port_tree(cfg, inp["x"]), "y": tree_map(_t, inp["y"]),
            "batch": tree_map(_t, inp["batch"])}
@@ -209,6 +226,10 @@ def _run_world(rank, world, store_path, inputs, out_path):
             results[key] = full(_train_on(steps, key, sub, inp))
         if tuple(sub.get_coordinate()) == (0, 0):
             print(f"[spmd] pod {pod} {key} {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    results["train_pod"] = full(_train_on(steps, "train_pod", mesh, inputs["train_pod"]))
+    if mesh.get_rank() == 0:
+        print(f"[spmd] (2, 2, 2) train_pod {time.perf_counter() - t0:.1f}s", flush=True)
     results["gather_pod"] = _gather_on(mesh, inputs["gather_pod"])
     if tuple(sub.get_coordinate()) == (0, 0):  # one rank of each pod writes its half
         torch.save(results, f"{out_path}.{pod}")
@@ -217,9 +238,11 @@ def _run_world(rank, world, store_path, inputs, out_path):
 
 
 def _train_on(steps, key, mesh, inp):
-    name, algorithm, knobs = TRAIN[key]
+    from repro_torch import fed
+
+    name, algorithm, knobs = _spec(key)
     cfg = _cfg(name, knobs)
-    kw = dict(algorithm=algorithm, num_local_steps=K, eta=ETA,
+    kw = dict(algorithm=_alg(algorithm, fed), num_local_steps=K, eta=ETA,
               dtype=getattr(torch, DTYPES.get(key, "float32")), remat=REMAT,
               use_kernel=key not in DTYPES)
     if key.startswith("elastic"):
@@ -313,6 +336,7 @@ def worlds(tmp_path_factory):
     inputs = {}
     for key, (name, algorithm, knobs) in TRAIN.items():
         inputs[key] = _train_inputs(name, 2, knobs, algorithm, DTYPES.get(key, "float32"))
+    inputs["train_pod"] = _train_inputs(POD_TRAIN[0], POD_M, POD_TRAIN[2], POD_TRAIN[1])
     m = 2
     x = inputs["elastic_granite"]["x"]
     # a nonzero tracker table: the agents' anchor gradients of an earlier round
@@ -330,7 +354,7 @@ def worlds(tmp_path_factory):
     world = mp.start_processes(_run_world, nprocs=8, join=False, start_method="spawn",
                                args=(8, str(tmp / "world8.store"), rank_inputs, out_path))
     try:  # JAX's builders run here while the ranks run theirs
-        want = {key: _jax_round(key, inputs[key]) for key in (*JAX_ROUNDS, *STATEFUL)}
+        want = {key: _jax_round(key, inputs[key]) for key in JAX_ROUNDS}
         want.update({key: _jax_serve(SERVE[key], inputs[key]) for key in SERVE})
     finally:
         while not world.join():
@@ -352,11 +376,12 @@ def _close(got, want, what):
 
 
 def _port_round(key, inp):
-    name, algorithm, knobs = TRAIN[key]
-    cfg, _ = _cfgs(name, knobs)
+    from repro_torch import fed
     from repro_torch.launch.steps import _resolve_cfg_strategy
 
-    strategy = _resolve_cfg_strategy(cfg, algorithm, use_kernel=key not in DTYPES)
+    name, algorithm, knobs = _spec(key)
+    cfg, _ = _cfgs(name, knobs)
+    strategy = _resolve_cfg_strategy(cfg, _alg(algorithm, fed), use_kernel=key not in DTYPES)
     loss = make_adversarial_loss(cfg, remat=REMAT, use_kernel=key not in DTYPES)
     x, y = _port_tree(cfg, inp["x"]), tree_map(_t, inp["y"])
     batch = tree_map(_t, inp["batch"])
@@ -381,6 +406,7 @@ def _jax_round(key, inp):
     import jax
     import jax.numpy as jnp
 
+    import repro.fed as jfed
     from repro.configs import ShapeConfig as JShapeConfig
     from repro.launch import steps as jsteps
     from repro.launch.mesh import make_host_mesh as jmake_host_mesh
@@ -389,7 +415,7 @@ def _jax_round(key, inp):
     _, jcfg = _cfgs(name, knobs)
     mesh = jmake_host_mesh(2, 2)
     shape = JShapeConfig("t", SEQ, B_LOCAL * inp["batch"]["tokens"].shape[0], "train")
-    kw = dict(algorithm=algorithm, num_local_steps=K, eta=ETA,
+    kw = dict(algorithm=_alg(algorithm, jfed), num_local_steps=K, eta=ETA,
               dtype=getattr(jnp, DTYPES.get(key, "float32")), remat=REMAT)
     arr = lambda t: jax.tree.map(jnp.asarray, t)
     with jax.set_mesh(mesh):
@@ -416,8 +442,11 @@ def _jax_x_leaves(key, jx):
     return tree_leaves(_port_tree(cfg, jx))
 
 
-@pytest.mark.parametrize("key", list(TRAIN))
+@pytest.mark.parametrize("key", [*TRAIN, "train_pod"])
 def test_train_step_equals_the_unsharded_round(worlds, key):
+    """Each round on a pod's (2, 2) mesh, and train_pod's on the (2, 2, 2)
+    mesh (its agents over the flattened ("pod", "data")), against the
+    port's round on the same inputs without sharding."""
     got = worlds["out"][key]
     want = _port_round(key, worlds["inputs"][key])
     for i, (g, w) in enumerate(zip(tree_leaves(got[:2]), tree_leaves(want[:2]))):
@@ -446,19 +475,24 @@ def test_train_step_equals_jax_builders(worlds, key):
             _close(g, w, f"{key} tracker leaf {i}")
 
 
-def test_stateful_step_state_equals_jax(worlds):
+@pytest.mark.parametrize("key", ["train_compressed", "train_randk"])
+def test_stateful_step_state_equals_jax(worlds, key):
     """The stateful rounds' state after the sharded round: QuantizedGT's
-    key bit for bit; CompressedGT's error-feedback buffers within RTOL and
-    its kept entries (where the feedback is zero) bit for bit."""
+    and rand-k's keys bit for bit; CompressedGT's error-feedback buffers
+    within RTOL and its kept entries (where the feedback is zero) bit for
+    bit, for rand-k the positions of JAX's draws."""
     cfg, _ = _cfgs("granite-8b", {"quantization_bits": 8})
     got = worlds["out"]["train_quantized"][2]
     want = _state_to_port(cfg, worlds["jax"]["train_quantized"][2])
     assert set(got) == set(want)
     assert torch.equal(got["key"], want["key"])
-    cfg, _ = _cfgs("granite-8b", {"compression_ratio": 0.25})
-    got = worlds["out"]["train_compressed"][2]
-    want = _state_to_port(cfg, worlds["jax"]["train_compressed"][2])
-    assert set(got) == set(want) == {"ex", "ey"}
+    name, _, knobs = TRAIN[key]
+    cfg, _ = _cfgs(name, knobs)
+    got = worlds["out"][key][2]
+    want = _state_to_port(cfg, worlds["jax"][key][2])
+    assert set(got) == set(want) >= {"ex", "ey"}
+    if "key" in want:
+        assert torch.equal(got["key"], want["key"])
     for name in ("ex", "ey"):
         for i, (g, w) in enumerate(zip(tree_leaves(got[name]), tree_leaves(want[name]))):
             _close(g, w, f"{name} leaf {i}")

@@ -179,16 +179,35 @@ def _finite(tree) -> bool:
     ["--arch", "falcon-mamba-7b", "--population", "flaky"],
     ["--arch", "granite-8b", "--population", "flaky", "--no-rebase"],
     ["--arch", "gemma2-2b", "--algorithm", "quantized_gt", "--wire-transport"],
+    # two layers in one pattern slot: one stacked leaf each in JAX's tree
+    ["--arch", "granite-8b", "--algorithm", "quantized_gt", "--wire-transport"],
     ["--arch", "llama4-scout-17b-a16e"],
     ["--arch", "pixtral-12b", "--runtime", "async"],
-], ids=["sync", "async", "population", "no-rebase", "quantized-wire", "moe",
-        "vision-text-async"])
-def test_launch_train_routes(route, capsys):
-    out = train.main(TINY + route)
+], ids=["sync", "async", "population", "no-rebase", "quantized-wire",
+        "quantized-wire-stacked", "moe", "vision-text-async"])
+def test_launch_train_routes(route, capsys, tmp_path):
+    """Each route trains two finite rounds; the wire route's `wire_bytes`
+    counter equals JAX's train.py's (`measured_bytes_per_round` over JAX's
+    stacked parameters, one header per JAX leaf, times the agents)."""
+    wire = "--wire-transport" in route
+    tel = ["--telemetry", str(tmp_path / "tel")] if wire else []
+    out = train.main(TINY + route + tel)
     assert _finite(out["params"]) and _finite(out["delta"])
     assert float(torch.linalg.norm(out["delta"]["delta"])) <= 1.0 + 1e-6
     assert len(out["log"]) == 2 and all(np.isfinite(lv) for _, lv, _ in out["log"])
     assert "done." in capsys.readouterr().out
+    if wire:
+        from repro.fed.transport import measured_bytes_per_round as jmeasured
+
+        events = [json.loads(ln) for ln in open(tmp_path / "tel" / "events.jsonl")]
+        got = [e["value"] for e in events if e.get("name") == "wire_bytes"]
+        jcfg = jget_config(route[1]).reduced()
+        jstrategy = jresolve_strategy("quantized_gt", wire_transport=True)
+        params = jinit_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
+        per_agent = int(jmeasured(jstrategy, params, jinit_delta(jcfg),
+                                  int(TINY[TINY.index("--local-steps") + 1])))
+        agents = int(TINY[TINY.index("--agents") + 1])
+        assert got == [per_agent * agents] * 2
 
 
 def test_launch_train_refuses_the_audio_frontend():
