@@ -49,8 +49,11 @@ right after setup, before any profiler session slows the host; the
 phases of `--claims 1` and `--claims 2` are marked so):
   setup      card, power limit, torch / CUDA versions, kernel build time
   gt_update  kernel vs plain version, bit for bit, at 2^27-2^28 elements
-             (every dtype pair, both signs) and a ragged 2^20+17; times
-             with CUDA events against the HBM bound
+             (every dtype pair, both signs) and a ragged 2^20+17; the main
+             path's step (x and y [16, 4096] f64 in one `pair` launch, and
+             as two one-leaf calls) and zamba2-7b's training step (its 68
+             leaves in one launch, and as 68 calls); wall times with CUDA
+             events against the HBM bound
   compress_correction, pack_payload, unpack_payload
              each kernel vs its plain version, bit for bit: every
              correction dtype, top-k and rand-k, bits 2-32, every
@@ -62,7 +65,15 @@ phases of `--claims 1` and `--claims 2` are marked so):
              8-bit) against the HBM bound and `torch.topk` of the scores
              (the library yardstick); pack's main-shape device time per
              call (profiler) beside its wall time, and each `pack_kernel`
-             instantiation's registers, spills and shared memory
+             instantiation's registers, spills and shared memory.
+             compress_correction's matrix runs at the launcher's cluster
+             size and again at one CTA a row, and its main shape is timed
+             both ways
+  kernel_device_times
+             device time per call (profiler) of gt_update's main and
+             training steps and compress_correction's main shape (cluster
+             and one CTA a row) beside their wall times; the cluster must
+             take less device time than one CTA a row
   flash_attention
              kernel vs plain version (tolerance 1e-5 in f32; in bf16 one
              rounding, 2^-7 of the largest |output|), and both vs an f64
@@ -116,7 +127,8 @@ phases of `--claims 1` and `--claims 2` are marked so):
   main_path  d=4096, n=8192, m=16 in f64 (G is 2.1 GB), K=10, 10 rounds,
              eta = 1/lambda_max: iterates through the kernel equal those
              through the plain default_update bit for bit, and the kernel
-             launches exactly rounds*(K-1)*2 times
+             launches exactly rounds*(K-1) times (x and y in one launch a
+             local step), updating rounds*(K-1)*2 leaves
   profile    device time by kernel over one main-path round, and the
              device's busy share of it
   compressed_main_path
@@ -136,7 +148,8 @@ phases of `--claims 1` and `--claims 2` are marked so):
              (K=1, T*K rounds); x every 10th round and the robust losses against
              JAX's (ROBUST_X_RTOL, ROBUST_LOSS_RTOL), the claims of
              tests/test_paper_claims.py:260 and :286, gt_update launches
-             T*(K-1)*2 an alpha; prints the reference's table
+             T*(K-1) an alpha (T*(K-1)*2 leaf updates); prints the
+             reference's table
   agnostic   [--claims 2] Appendix A.2 on JAX's data (M=5, dim 8, n=80, shift 4, K=5,
              eta=2e-3, 1500 rounds): lambda on the simplex, the worst
              agent's risk below uniform FL's, lambda and risks within
@@ -171,7 +184,8 @@ phases of `--claims 1` and `--claims 2` are marked so):
              PartialParticipation 0.5 and QuantizedGT 8-bit top-k 0.25
              over the wire with sigma 0.1: iterates and state through the
              kernels equal the plain path's bit for bit; gt_update
-             launches 200 (noisy: no fused anchor step) and 180 (partial),
+             100 launches over 200 leaves (noisy: no fused anchor step)
+             and 90 over 180 (partial), x and y in one launch a step,
              pack / unpack 20; ms per round, the device's busy share and
              launches of a round under the profiler, and the draws' share
              of them and of the device time (one broadcast draws several
@@ -208,8 +222,9 @@ phases of `--claims 1` and `--claims 2` are marked so):
   elastic_main_path
              the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
              under a flaky schedule (seed 0) through `FederatedRunner`:
-             FedGDA-GT with rebasing (gt_update, 180 launches) and
-             CompressedGT top-k 0.1 over the wire (gt_update 200, pack /
+             FedGDA-GT with rebasing (gt_update, 90 launches over 180
+             leaves) and CompressedGT top-k 0.1 over the wire (gt_update
+             100 over 200, pack /
              unpack 20), each bitwise equal to the plain path (iterates,
              state, tracker); ms and kernel launches per round beside the
              static FedGDA-GT round's, one round of each under the
@@ -219,9 +234,10 @@ phases of `--claims 1` and `--claims 2` are marked so):
              the main path's problem (G as an `ArrayDataSource`) through
              the O(active) engine, forced sparse: 8 of 16 active a round,
              uniform stragglers (0.3, 0.5), 4 pods, seed 0, 10 rounds of
-             FedGDA-GT with the pod partials packed (gt_update 180,
-             pack_payload 20) and CompressedGT top-k 0.1 with EF rows
-             realigned (gt_update 200, compress_correction 20): bitwise
+             FedGDA-GT with the pod partials packed (gt_update 90 over
+             180 leaves, pack_payload 20) and CompressedGT top-k 0.1 with
+             EF rows realigned (gt_update 100 over 200, compress_correction
+             20): bitwise
              equal to the plain path (iterates, state, tracker), within
              rtol 1e-8 / atol 1e-10 of the dense elastic runner on the
              densified schedule; ms a round beside that runner's, launches
@@ -230,8 +246,9 @@ phases of `--claims 1` and `--claims 2` are marked so):
   async_main_path
              the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
              through `AsyncFederatedRunner(devices=[cuda] * 4)`: 4 shards,
-             one CUDA stream each, for FedGDA-GT (gt_update 720: 4 shards x
-             9 x 2 x 10), CompressedGT top-k 0.1 over the wire (800, pack /
+             one CUDA stream each, for FedGDA-GT (gt_update 360 launches:
+             4 shards x 9 x 10, over 720 leaves), CompressedGT top-k 0.1
+             over the wire (400 over 800, pack /
              unpack 20), FullSync, and FedGDA-GT under a flaky schedule
              (MarkovChurn 0.6 / 0.4, stragglers 0.3 / 0.5, seed 0) that
              skips whole shards (the shard_skipped events as the host mask
@@ -254,7 +271,8 @@ phases of `--claims 1` and `--claims 2` are marked so):
              m=16, alpha 5, f64 (a is 2.15 GB), FedGDA-GT K=10 for 10
              rounds through `FederatedRunner`, eta = 0.1/lambda_max:
              iterates through the kernel equal default_update's bit for
-             bit, 180 gt_update launches; ms per round, peak memory and
+             bit, 90 gt_update launches over 180 leaves; ms per round,
+             peak memory and
              the device's busy share under the profiler
   serve      zamba2-7b at full width and depth in f32 (6.48 B parameters):
              seed 0, batch 4, prompt 512, 32 tokens (a prefill and 31
@@ -518,8 +536,20 @@ def phase_setup(torch, card: str) -> dict:
     }
 
 
-def phase_gt_update(torch, card: str, cases) -> list:
-    from repro_torch.kernels import gt_update, ref
+def phase_gt_update(torch, card: str, cases, shared: dict) -> dict:
+    """gt_update against its plain version, bit for bit, and its wall time
+    (CUDA events over back-to-back calls) against the bytes bound: the
+    large single leaves of `cases`; the main path's local step, x and y
+    [16, 4096] f64 with f64 corrections, as one `pair` launch and as the
+    two one-leaf calls it replaced; and zamba2-7b's training step, its 68
+    leaves (TRAIN_LAYERS layers, 4 agents, f32, built on the card from
+    the config) as one `gt_update_many` call and as 68 one-leaf calls.
+    The main step's and the training step's calls are kept in
+    shared["device_time_runs"] for `phase_kernel_device_times`."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import tree_leaves
+    from repro_torch.kernels import gt_update, gt_update_many, make_gt_update_fn, ref
+    from repro_torch.models import init_params
 
     dt = {"f64": torch.float64, "f32": torch.float32, "bf16": torch.bfloat16,
           "fp8": torch.float8_e4m3fn}
@@ -555,7 +585,109 @@ def phase_gt_update(torch, card: str, cases) -> list:
         })
         del z, g, c
         torch.cuda.empty_cache()
-    return rows
+
+    def bitwise_all(got, want):
+        return all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, want))
+
+    def counted(run) -> dict:
+        zero_counts()
+        run()
+        torch.cuda.synchronize()
+        return {k: kernel_counts()[k] for k in ("gt_update", "gt_update_leaves")}
+
+    # the main path's local step (Sec 5.1: m = 16, d = 4096, f64)
+    fn = make_gt_update_fn()
+    x, gx, cx, y, gy, cy = (torch.randn(16, 4096, generator=gen, device=DEVICE,
+                                        dtype=torch.float64) for _ in range(6))
+    pair = lambda: fn.pair(x, gx, cx, eta, y, gy, cy, eta)
+    two = lambda: (gt_update(x, gx, cx, eta=eta, sign=-1.0),
+                   gt_update(y, gy, cy, eta=eta, sign=1.0))
+    plain = lambda: (ref.gt_update_ref(x, gx, cx, eta, -1.0),
+                     ref.gt_update_ref(y, gy, cy, eta, 1.0))
+    want = plain()
+    check(bitwise_all(pair(), want) and bitwise_all(two(), want),
+          "gt_update main step: the kernel differs from the plain version")
+    check(counted(pair) == gt_counts(1) and counted(two) == gt_counts(2, 1),
+          "gt_update main step: not one launch for x and y")
+    nbytes = gt_update_bytes(x, cx) + gt_update_bytes(y, cy)
+    main = {"shape": [16, 4096], "dtype": "f64", "leaves": 2, "max_abs_err": 0.0,
+            "pair_ms": time_ms(torch, pair, reps=200),
+            "two_calls_ms": time_ms(torch, two, reps=200),
+            "plain_ms": time_ms(torch, plain, reps=200), "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card}
+    # zamba2-7b's training step: every leaf of x (the model) and y (delta)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    shapes = [tuple(t.shape) for t in tree_leaves(init_params(None, cfg).tree())]
+    agents = 4  # train.py's default
+    mk = lambda sh: torch.randn(agents, *sh, generator=gen, device=DEVICE)
+    xs = [mk(sh) for sh in shapes]
+    ys = [mk((cfg.d_model,))]
+    gxs, gys = [mk(t.shape[1:]) for t in xs], [mk(t.shape[1:]) for t in ys]
+    cxs, cys = [mk(t.shape[1:]) for t in xs], [mk(t.shape[1:]) for t in ys]
+    eta_t = 2e-3
+    step = lambda: fn.pair(xs, gxs, cxs, eta_t, ys, gys, cys, eta_t)
+    per_leaf = lambda: [gt_update(z, g, c, eta=eta_t, sign=sign)
+                        for zz, gg, cc, sign in ((xs, gxs, cxs, -1.0), (ys, gys, cys, 1.0))
+                        for z, g, c in zip(zz, gg, cc)]
+    leaves = len(xs) + len(ys)
+    got = step()
+    want = ([ref.gt_update_ref(z, g, c, eta_t, -1.0) for z, g, c in zip(xs, gxs, cxs)]
+            + [ref.gt_update_ref(z, g, c, eta_t, 1.0) for z, g, c in zip(ys, gys, cys)])
+    check(bitwise_all(got[0] + got[1], want) and bitwise_all(per_leaf(), want),
+          "gt_update zamba2-7b step: the kernel differs from the plain version")
+    del got, want
+    check(counted(step) == gt_counts(1, leaves) and counted(per_leaf) == gt_counts(leaves, 1),
+          f"gt_update zamba2-7b step: not one launch for its {leaves} leaves")
+    nbytes = sum(gt_update_bytes(z, c) for z, c in zip(xs + ys, cxs + cys))
+    train_step = {"arch": TRAIN_ARCH, "layers": TRAIN_LAYERS, "agents": agents,
+                  "leaves": leaves, "dtype": "f32", "numel": sum(t.numel() for t in xs + ys),
+                  "max_abs_err": 0.0, "one_call_ms": time_ms(torch, step, reps=10),
+                  "per_leaf_calls_ms": time_ms(torch, per_leaf, reps=10),
+                  "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "card": card}
+    for t in (main, train_step):
+        fast = t.get("pair_ms", t.get("one_call_ms"))
+        t["share_of_3.35TB_s"] = t["bound_ms"] / fast
+    shared.setdefault("timing", {})["gt_update"] = {"main": main, "train_step": train_step}
+    shared["device_time_runs"] = {
+        "gt_update_main_pair": ("gt_update_kernel", pair, main["pair_ms"]),
+        "gt_update_main_two_calls": ("gt_update_kernel", two, main["two_calls_ms"]),
+        "gt_update_train_step": ("gt_update_kernel", step, train_step["one_call_ms"]),
+        "gt_update_train_per_leaf_calls": ("gt_update_kernel", per_leaf,
+                                           train_step["per_leaf_calls_ms"]),
+    }
+    return {"large": rows, "main": main, "train_step": train_step}
+
+
+def phase_kernel_device_times(torch, shared: dict) -> dict:
+    """Device time per call (the profiler, `device_ms_per_call`) of the
+    calls gt_update's and compress_correction's phases kept, beside their
+    wall time per call (CUDA events, measured there before any profiler
+    session): the difference is the host's.  Gate: compress_correction's
+    cluster at [16, 4096] f64 takes less device time than one CTA a row."""
+    out = {}
+    for name, (kernel, run, wall_ms) in shared.pop("device_time_runs").items():
+        dev = device_ms_per_call(torch, run, kernel, calls=20)
+        out[name] = {"kernel": kernel, "wall_ms_per_call": wall_ms,
+                     "device_ms_per_call": dev,
+                     "host_ms_per_call": None if dev is None else wall_ms - dev}
+    torch.cuda.empty_cache()
+    timing = shared.get("timing", {})
+    if "gt_update" in timing:
+        timing["gt_update"]["main"]["device_ms_per_call"] = \
+            out["gt_update_main_pair"]["device_ms_per_call"]
+    for name in ("main", "main_cluster1", "main_cluster4"):
+        if f"compress_{name}" in out and "compress_correction" in timing:
+            timing["compress_correction"][name]["device_ms_per_call"] = \
+                out[f"compress_{name}"]["device_ms_per_call"]
+    cl, one = (out.get(k, {}).get("device_ms_per_call")
+               for k in ("compress_main", "compress_main_cluster1"))
+    if cl is not None and one is not None:
+        check(cl < one, f"compress_correction main: the cluster's device time {cl} ms "
+                        f"is not below one CTA a row's {one} ms")
+        out["compress_main_cluster_over_cluster1"] = cl / one
+    return out
 
 
 # ------------------------------------------ compressed-correction kernels
@@ -691,53 +823,79 @@ def time_case(torch, run, plain, library, nbytes_moved, reps, plain_reps, card):
 
 
 def phase_compress_correction(torch, card: str, shared: dict) -> dict:
+    """compress_correction against its plain version, bit for bit, over
+    `compress_cases` at the cluster size the launcher takes and again at
+    one CTA a row; wall times (CUDA events) at the main path's [16, 4096]
+    f64 with the launcher's cluster, with one CTA a row and with 4 CTAs a
+    row, and at the large f32 leaf, beside the bytes bound and torch.topk of the select's
+    scores (|c + e| for top-k, u_sel for rand-k).  The main-shape calls are
+    kept in shared["device_time_runs"]."""
     from repro_torch.kernels import compress_correction_2d, ref
-    from repro_torch.kernels.compress_correction import staged_in_shared_memory
+    from repro_torch.kernels.compress_correction import auto_cluster, staged_in_shared_memory
 
-    n = 0
-    for tag, args, k, bits, mode in compress_cases(torch):
-        c, e, us, ur = _leaf_from(torch, args)
-        got = compress_correction_2d(c, e, us, ur, k=k, bits=bits, mode=mode)
-        want = ref.compress_correction_ref(c, e, us, ur, k=k, bits=bits, mode=mode)
-        torch.cuda.synchronize()
-        for g, w, name in zip(got, want, ("chat", "resid")):
-            check(bitwise(torch, g, w), f"compress_correction {tag}: {name} differs "
-                                        "from the plain version")
-        n += 1
+    n, plans = 0, collections.Counter()
+    for cluster in (None, 1):
+        for tag, args, k, bits, mode in compress_cases(torch):
+            c, e, us, ur = _leaf_from(torch, args)
+            got = compress_correction_2d(c, e, us, ur, k=k, bits=bits, mode=mode,
+                                         cluster=cluster)
+            plan = compress_correction_2d.last_plan
+            plans[f"{plan['route']} x{plan['cluster']} {plan['threads']} threads"] += 1
+            want = ref.compress_correction_ref(c, e, us, ur, k=k, bits=bits, mode=mode)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("chat", "resid")):
+                check(bitwise(torch, g, w), f"compress_correction {tag} cluster={cluster}: "
+                                            f"{name} differs from the plain version")
+            n += 1
     check(not staged_in_shared_memory(40000, torch.float64, True)
           and staged_in_shared_memory(4096, torch.float64, True),
           "compress_correction: shared-memory staging not as expected")
+    check(auto_cluster(16, 4096) == 8, "compress_correction: the strategies' 16 rows "
+                                       f"take {auto_cluster(16, 4096)} CTAs a row, not 8")
     timing = {}
-    # (a)'s shape: [16, 4096] f64, top-k 0.1, error feedback, no quantization;
-    # and a large f32 leaf, top-k and rand-k 8-bit
-    for name, (R, C, dt), k, bits, mode, reps in [
-            ("main", (16, 4096, "f64"), 410, 32, "topk", 200),
-            ("large_topk", (*LARGE, "f32"), 410, 32, "topk", 10),
-            ("large_randk8", (*LARGE, "f32"), 410, 8, "randk", 10)]:
+    # (a)'s shape: [16, 4096] f64, top-k 0.1, error feedback, no quantization,
+    # with the launcher's cluster and with one CTA a row; and a large f32
+    # leaf, top-k and rand-k 8-bit
+    for name, (R, C, dt), k, bits, mode, reps, cluster in [
+            ("main", (16, 4096, "f64"), 410, 32, "topk", 200, None),
+            ("main_cluster1", (16, 4096, "f64"), 410, 32, "topk", 200, 1),
+            ("main_cluster4", (16, 4096, "f64"), 410, 32, "topk", 200, 4),
+            ("large_topk", (*LARGE, "f32"), 410, 32, "topk", 10, None),
+            ("large_randk8", (*LARGE, "f32"), 410, 8, "randk", 10, None)]:
         c, e, us, ur = make_leaf(torch, R, C, dt, True, 10)
         us_k = us if mode == "randk" else None
         ur_k = ur if bits < 32 else None
-        ceff_abs = (c.to(ref.compute_dtype(c.dtype)) + e.to(ref.compute_dtype(c.dtype))).abs()
-        got = compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits, mode=mode)
+        ct = ref.compute_dtype(c.dtype)
+        score = us.to(ct) if mode == "randk" else (c.to(ct) + e.to(ct)).abs()
+        got = compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits, mode=mode,
+                                     cluster=cluster)
+        plan = compress_correction_2d.last_plan
         want = ref.compress_correction_ref(c, e, us_k, ur_k, k=k, bits=bits, mode=mode)
         err = max_abs_err(torch, got, want)
         check(err == 0.0, f"compress_correction {name}: max |err| {err}")
+        run = (lambda c=c, e=e, us_k=us_k, ur_k=ur_k, k=k, bits=bits, mode=mode,
+               cluster=cluster: compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits,
+                                                       mode=mode, cluster=cluster))
         timing[name] = {
             "shape": [R, C], "dtype": dt, "k": k, "bits": bits, "mode": mode,
-            "max_abs_err": err,
+            "plan": plan, "max_abs_err": err,
             **time_case(
-                torch,
-                lambda: compress_correction_2d(c, e, us_k, ur_k, k=k, bits=bits, mode=mode),
+                torch, run,
                 lambda: ref.compress_correction_ref(c, e, us_k, ur_k, k=k, bits=bits, mode=mode),
-                lambda: torch.topk(ceff_abs, k, dim=-1),
+                lambda: torch.topk(score, k, dim=-1),
                 nbytes(c, e, us_k, ur_k) + 2 * nbytes(c), reps,
                 20 if R == 16 else 3, card),
         }
-        del c, e, us, ur, ceff_abs, got, want
+        if R == 16:
+            shared.setdefault("device_time_runs", {})[f"compress_{name}"] = (
+                "compress_staged_kernel", run, timing[name]["ms"])
+        else:
+            del c, e, us, ur, score, got, want, run
         torch.cuda.empty_cache()
     shared.setdefault("timing", {})["compress_correction"] = timing
-    return {"cases_bitwise": n, "timing": timing,
-            "library": "torch.topk(|c + e|, k) (the select alone)"}
+    return {"cases_bitwise": n, "plans": dict(plans), "timing": timing,
+            "library": "torch.topk(score, k) (the select alone; score = |c + e| for "
+                       "top-k, u_sel for rand-k)"}
 
 
 def select_rows(torch, R, C, dt, seed):
@@ -968,12 +1126,26 @@ def _kernel_fns() -> dict:
 
 
 def kernel_counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_fns().items()}
+    """Each kernel's launches, and gt_update's leaf updates (one launch
+    updates every leaf of x and y) as "gt_update_leaves"."""
+    from repro_torch import kernels
+
+    return {**{name: fn.launches for name, fn in _kernel_fns().items()},
+            "gt_update_leaves": kernels.gt_update.leaf_updates}
 
 
 def zero_counts() -> None:
+    from repro_torch import kernels
+
     for fn in _kernel_fns().values():
         fn.launches = 0
+    kernels.gt_update.leaf_updates = 0
+
+
+def gt_counts(steps: int, leaves: int = 2) -> dict:
+    """gt_update's counts over `steps` corrected local steps: one launch a
+    step (every leaf of x and y in one table), `leaves` leaves a step."""
+    return {"gt_update": steps, "gt_update_leaves": steps * leaves}
 
 
 # ------------------------------------------------- the model kernels
@@ -1407,14 +1579,15 @@ def train_launch_prediction(cfg, K: int, leaves: int) -> dict:
     evaluations (the anchor exchange and local steps 1..K-1; the fused
     anchor step needs none), each a forward, remat's recompute and the
     backward, plus one forward of the logged global loss; gt_update once
-    a leaf of x and y in each of the K - 1 local steps after the anchor
-    step."""
+    in each of the K - 1 local steps after the anchor step, over every
+    leaf of x and y (one table: the leaves share f32 and fit
+    `gt_update.TABLE_CAP`)."""
     shared_blocks = cfg.num_layers // cfg.shared_attn_every
     return {"flash_attention": (2 * K + 1) * shared_blocks,
             "flash_attention_bwd": K * shared_blocks,
             "ssm_scan": (2 * K + 1) * cfg.num_layers,
             "ssm_scan_bwd": K * cfg.num_layers,
-            "gt_update": (K - 1) * leaves,
+            **gt_counts(K - 1, leaves),
             "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
 
 
@@ -1468,13 +1641,13 @@ def spmd_train_prediction(cfg, K: int, leaves: int) -> dict:
     before its first run).  With m = 1 agent the engine elides the anchor
     exchange (the correction is identically zero), so there is no fused
     anchor step: K gradient evaluations (local steps 0..K-1), each a
-    forward, remat's recompute and the backward, and gt_update once a leaf
-    of x and y in each of the K steps."""
+    forward, remat's recompute and the backward, and gt_update once in
+    each of the K steps, over every leaf of x and y."""
     shared_blocks = cfg.num_layers // cfg.shared_attn_every
     return {"flash_attention": 2 * K * shared_blocks,
             "flash_attention_bwd": K * shared_blocks,
             "ssm_scan": 2 * K * cfg.num_layers, "ssm_scan_bwd": K * cfg.num_layers,
-            "gt_update": K * leaves,
+            **gt_counts(K, leaves),
             "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
 
 
@@ -2482,16 +2655,17 @@ def phase_theorem1(torch, np, fix: dict) -> dict:
 
     prob = fixture_problem("thm1", DEVICE)[0]
     rnd = core.make_fedgda_gt_round(prob.loss, 10, 2e-4)
-    gt_update.launches = 0
+    gt_update.launches = gt_update.leaf_updates = 0
     t0 = time.perf_counter()
     gap = run_gaps(torch, core, prob, rnd, THEOREM1_ROUNDS)
     wall = time.perf_counter() - t0
-    launches = gt_update.launches
+    launches, leaf_updates = gt_update.launches, gt_update.leaf_updates
     seg = gap[(gap > 1e-14) & (gap < 1e2)]
     rates = np.diff(np.log(seg))
     want = fix["thm1_gap"][: len(gap)]
     err = trajectory_error(np, gap, want)
-    check(launches == THEOREM1_ROUNDS * 9 * 2, f"theorem1: {launches} kernel launches")
+    check((launches, leaf_updates) == (THEOREM1_ROUNDS * 9, THEOREM1_ROUNDS * 9 * 2),
+          f"theorem1: {launches} kernel launches, {leaf_updates} leaf updates")
     check(gap[-1] < 1e-18, f"theorem1: final gap {gap[-1]:.3e} >= 1e-18")
     check(bool(np.all(rates < 0)), "theorem1: a log-gap rate is not negative")
     check(np.std(rates) < 0.25 * abs(np.mean(rates)), "theorem1: rate not steady")
@@ -2501,7 +2675,8 @@ def phase_theorem1(torch, np, fix: dict) -> dict:
         "final_gap": float(gap[-1]), "jax_final_gap": float(want[-1]),
         "mean_log_rate": float(np.mean(rates)), "rate_std": float(np.std(rates)),
         "max_rel_err_vs_jax": err, "tolerance": TOL_GAP_RTOL,
-        "gt_update_launches": launches, "wall_s": wall,
+        "gt_update_launches": launches, "gt_update_leaf_updates": leaf_updates,
+        "wall_s": wall,
         "ms_per_round": wall / THEOREM1_ROUNDS * 1e3,
     }
 
@@ -2608,12 +2783,12 @@ def phase_main_path(torch, card: str, shared: dict, dim: int, samples: int,
     plain_round(x0, x0, prob.agent_data)
     # the main path: counts at 0 just before, read just after
     torch.cuda.synchronize()
-    gt_update.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     _, got = core.run_rounds(kernel_round, x0, x0, prob.agent_data, rounds, record)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t0
-    launches = {"gt_update": gt_update.launches}
+    launches = {k: kernel_counts()[k] for k in ("gt_update", "gt_update_leaves")}
     shared.update(launches=launches, round=kernel_round,
                   data=prob.agent_data, x0=x0, problem=prob, eta=eta,
                   minimax=(xs, ys), K=K)
@@ -2626,9 +2801,9 @@ def phase_main_path(torch, card: str, shared: dict, dim: int, samples: int,
     gap = got["gap"].cpu().numpy()
     bitwise = all(torch.equal(got[k], want[k]) for k in ("x", "y"))
     check(bitwise, "main_path: kernel iterates differ from default_update's")
-    check(launches["gt_update"] == rounds * (K - 1) * 2,
-          f"main_path: {launches['gt_update']} gt_update launches, "
-          f"expected {rounds * (K - 1) * 2}")
+    check(launches == gt_counts(rounds * (K - 1)),
+          f"main_path: gt_update {launches}, expected {gt_counts(rounds * (K - 1))} "
+          "(x and y in one launch a local step)")
     check(bool(torch.isfinite(got["x"]).all() and torch.isfinite(got["y"]).all()),
           "main_path: non-finite iterates")
     check(gap[-1] < gap[0], f"main_path: gap {gap[0]:.3e} -> {gap[-1]:.3e}")
@@ -2954,13 +3129,13 @@ def phase_stochastic_main_path(torch, card: str, shared: dict, rounds: int) -> d
     data, m = prob.agent_data, prob.num_agents
     noise = GaussianNoise(sigma=0.1)
     runs = {
-        "sagda_gaussian": (SAGDA(noise=noise), {"gt_update": 2 * K * rounds}),
+        "sagda_gaussian": (SAGDA(noise=noise), gt_counts(K * rounds)),
         "partial_gt_50": (PartialParticipation(participation=0.5, seed=0),
-                          {"gt_update": 2 * (K - 1) * rounds}),
+                          gt_counts((K - 1) * rounds)),
         "quantized_wire_gaussian": (
             QuantizedGT(bits=8, ratio=0.25, mode="topk", wire_transport=True,
                         noise=noise),
-            {"gt_update": 2 * K * rounds, "pack_payload": 2 * rounds,
+            {**gt_counts(K * rounds), "pack_payload": 2 * rounds,
              "unpack_payload": 2 * rounds}),
     }
 
@@ -3199,13 +3374,12 @@ def phase_elastic_main_path(torch, np, card: str, shared: dict, rounds: int) -> 
     draw_s = time.perf_counter() - t0
     check(not sched.is_static_full, "elastic_main_path: the flaky schedule is full")
     runs = {
-        "gt_rebase": (GradientTracking(), None,
-                      {"gt_update": 2 * (K - 1) * rounds}),
+        "gt_rebase": (GradientTracking(), None, gt_counts((K - 1) * rounds)),
         "compressed_wire": (
             CompressedGT(compression_ratio=0.1, mode="topk", wire_transport=True),
             CompressedGT(compression_ratio=0.1, mode="topk", wire_transport=True,
                          use_kernel=False),
-            {"gt_update": 2 * K * rounds, "pack_payload": 2 * rounds,
+            {**gt_counts(K * rounds), "pack_payload": 2 * rounds,
              "unpack_payload": 2 * rounds}),
     }
     out = {"schedule": {"n_active": sched.active.sum(axis=1).tolist(),
@@ -3517,11 +3691,11 @@ def phase_sparse_main_path(torch, np, card: str, shared: dict, rounds: int) -> d
     src = sim.ArrayDataSource(data)
     runs = {
         "gt_wire_pods": (GradientTracking(), GradientTracking(), True,
-                         {"gt_update": 2 * (K - 1) * rounds, "pack_payload": 2 * rounds}),
+                         {**gt_counts((K - 1) * rounds), "pack_payload": 2 * rounds}),
         "compressed_topk": (
             CompressedGT(compression_ratio=0.1, mode="topk"),
             CompressedGT(compression_ratio=0.1, mode="topk", use_kernel=False), False,
-            {"gt_update": 2 * K * rounds, "compress_correction": 2 * rounds}),
+            {**gt_counts(K * rounds), "compress_correction": 2 * rounds}),
     }
     out = {"schedule": {"ids": [ev.active_ids.tolist() for ev in events],
                         "live_pods": [len(pop.pod_map().live_pods(ev.active_ids))
@@ -3595,7 +3769,7 @@ def phase_sparse_main_path(torch, np, card: str, shared: dict, rounds: int) -> d
         prof = profile_round(torch, lambda: init.run(
             x1, y1, sched.tail(1), num_rounds=1, resume=True),
             {"gt_update": "gt_update_kernel", "pack_payload": "pack_kernel",
-             "compress_correction": "compress_kernel"})
+             "compress_correction": "compress_"})
         info = {"strategy": repr(strategy), "rounds": rounds, "K": K,
                 "ms_per_round": [h["seconds"] * 1e3 for h in ke.history],
                 "ms_per_round_wall": wall / rounds * 1e3,
@@ -3669,8 +3843,9 @@ def kernel_streams_by(torch, run, matchers: dict) -> dict:
 
 #: the launch sites the round engine and the strategies call, by kernel:
 #: (module, attribute), patched with a spy that reads the current stream
-#: (the callers' names: a wrapper counts its launches through its own)
-LAUNCH_SITES = {"gt_update": ("repro_torch.kernels.ops", "gt_update"),
+#: (the callers' names: a wrapper counts its launches through its own;
+#: the engine's local step is one `gt_update_many` call over x and y)
+LAUNCH_SITES = {"gt_update": ("repro_torch.kernels.ops", "gt_update_many"),
                 "pack_payload": ("repro_torch.fed.transport", "pack_payload_2d"),
                 "compress_correction": ("repro_torch.fed.strategies", "compress_leaf")}
 #: the kernels' names in the profiler's trace (unpack_kernel also holds
@@ -3679,7 +3854,7 @@ TRACE_NAMES = {
     "gt_update": lambda n: "gt_update_kernel" in n,
     "pack_payload": lambda n: ("pack_kernel" in n or "pack_stream_kernel" in n)
     and "unpack" not in n,
-    "compress_correction": lambda n: "compress_kernel" in n,
+    "compress_correction": lambda n: "compress_kernel" in n or "compress_staged_kernel" in n,
 }
 
 
@@ -3696,7 +3871,8 @@ def launch_streams(torch, run, names) -> dict:
         real = getattr(mod, attr)
 
         def spy(z, *a, _real=real, _name=name, **kw):
-            seen[_name][torch.cuda.current_stream(z.device).cuda_stream] += 1
+            lead = z[0] if isinstance(z, (list, tuple)) else z
+            seen[_name][torch.cuda.current_stream(lead.device).cuda_stream] += 1
             return _real(z, *a, **kw)
 
         saved.append((mod, attr, real))
@@ -3747,14 +3923,14 @@ def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> di
           "async_main_path: the flaky schedule skips no shard")
     S = ASYNC_SHARDS
     runs = {
-        "gt": (GradientTracking, None, {"gt_update": S * (K - 1) * 2 * rounds}),
+        "gt": (GradientTracking, None, gt_counts(S * (K - 1) * rounds)),
         "compressed_wire": (
             lambda: CompressedGT(compression_ratio=0.1, mode="topk",
                                  wire_transport=True), None,
-            {"gt_update": S * K * 2 * rounds, "pack_payload": 2 * rounds,
+            {**gt_counts(S * K * rounds), "pack_payload": 2 * rounds,
              "unpack_payload": 2 * rounds}),
-        "full_sync": (FullSync, None, {"gt_update": 0}),
-        "gt_flaky": (GradientTracking, sched, {"gt_update": n_live * (K - 1) * 2}),
+        "full_sync": (FullSync, None, gt_counts(0)),
+        "gt_flaky": (GradientTracking, sched, gt_counts(n_live * (K - 1))),
     }
     gap = lambda x, y: core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)
     out = {"shards": S, "devices": [str(d) for d in devices],
@@ -3924,8 +4100,9 @@ def phase_telemetry_main_path(torch, np, card: str, shared: dict, rounds: int) -
     ledger.close()
     pin = torch.equal(xa, xb) and torch.equal(ya, yb)
     check(pin, "telemetry_main_path: the sink moved the iterates")
-    check(launches["gt_update"] == rounds * (K - 1) * 2,
-          f"telemetry_main_path: {launches['gt_update']} gt_update launches")
+    gt_launches = {k: launches[k] for k in ("gt_update", "gt_update_leaves")}
+    check(gt_launches == gt_counts(rounds * (K - 1)),
+          f"telemetry_main_path: gt_update {gt_launches}")
     events = RunLedger.events(str(out_dir / "ledger"))
     check(events == json.loads(json.dumps(full.events, default=str)),
           "telemetry_main_path: the ledger does not read back the sink's events")
@@ -4012,22 +4189,22 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
     S = MULTIHOST_SHARDS
     devices = [torch.device(DEVICE, 0)] * S
     dense = 2 * m * dim * x0.element_size()
-    steps = S * K * 2 * rounds
+    steps = gt_counts(S * K * rounds)
     runs = {
-        "a_gt": (GradientTracking, {"gt_update": S * (K - 1) * 2 * rounds}),
+        "a_gt": (GradientTracking, gt_counts(S * (K - 1) * rounds)),
         "b_compressed_wire": (
             lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk",
                                       wire_transport=True, **kw),
-            {"gt_update": steps, "pack_payload": 2 * S * rounds,
+            {**steps, "pack_payload": 2 * S * rounds,
              "unpack_payload": 2 * S * rounds}),
         "c_quantized_randk_wire": (
             lambda **kw: QuantizedGT(bits=8, ratio=0.25, mode="randk",
                                      wire_transport=True, **kw),
-            {"gt_update": steps, "pack_payload": 2 * S * rounds,
+            {**steps, "pack_payload": 2 * S * rounds,
              "unpack_payload": 2 * S * rounds}),
         "d_compressed_dense": (
             lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk", **kw),
-            {"gt_update": steps, "compress_correction": 2 * S * rounds}),
+            {**steps, "compress_correction": 2 * S * rounds}),
     }
     gap = lambda x, y: core.tree_sq_dist(x, xs) + core.tree_sq_dist(y, ys)
     out = {"shards": S, "devices": [str(d) for d in devices]}
@@ -4065,8 +4242,8 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
         zero_counts()
         xm, ym, mh_ms = timed(mr)
         launches = kernel_counts()
-        for name in ("gt_update", "compress_correction", "pack_payload",
-                     "unpack_payload", "flash_attention", "ssm_scan"):
+        for name in ("gt_update", "gt_update_leaves", "compress_correction",
+                     "pack_payload", "unpack_payload", "flash_attention", "ssm_scan"):
             want = expected.get(name, 0)
             check(launches[name] == want, f"multihost_main_path {tag}: "
                   f"{launches[name]} {name} launches, expected {want}")
@@ -4133,7 +4310,7 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
         sync_syncs = count_syncs(torch, lambda: s2.run(x0, x0, 2)) - count_syncs(
             torch, lambda: s1.run(x0, x0, 1))
         names = {"gt_update": "gt_update_kernel", "gemv": "gemv",
-                 "compress_correction": "compress_kernel", "unpack": "unpack_kernel"}
+                 "compress_correction": "compress_", "unpack": "unpack_kernel"}
         prof = profile_round(torch, lambda: make_mh(make).run(x0, x0, 1), names)
         sync_prof = profile_round(torch, lambda: make_sync(make).run(x0, x0, 1), names)
         # the shards' kernels: the current stream at the launch site and the
@@ -4232,9 +4409,10 @@ def phase_fig2(np, card: str) -> dict:
                          "rounds": rounds, "run_s": r["run_s"],
                          "ms_per_round": r["run_s"] / rounds * 1e3,
                          "robust_loss_s": r["robust_loss_s"]}
-        check(launches["gt_update"] == T * (K - 1) * 2,
-              f"fig2 alpha={alpha}: {launches['gt_update']} gt_update launches, "
-              f"expected {T * (K - 1) * 2}")
+        gt_launches = {k: launches[k] for k in ("gt_update", "gt_update_leaves")}
+        check(gt_launches == gt_counts(T * (K - 1)),
+              f"fig2 alpha={alpha}: gt_update {gt_launches}, expected "
+              f"{gt_counts(T * (K - 1))}")
         xg, xl, xc = (res[k]["x"].cpu().numpy() for k in ("gt", "ls", "c"))
         info.update(d_gt=float(np.linalg.norm(xg - xc)),
                     d_ls=float(np.linalg.norm(xl - xc)))
@@ -4281,8 +4459,9 @@ def phase_agnostic(torch, np, card: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernel_counts()
-        check(launches["gt_update"] == T * (K - 1) * 2,
-              f"agnostic {run}: {launches['gt_update']} gt_update launches")
+        gt_launches = {k: launches[k] for k in ("gt_update", "gt_update_leaves")}
+        check(gt_launches == gt_counts(T * (K - 1)),
+              f"agnostic {run}: gt_update {gt_launches}")
         got = {"lambda": lam.cpu().numpy(), "risks": risks.cpu().numpy(),
                "x": x.cpu().numpy()}
         errs = {k: float(np.max(np.abs(got[k] - fix[f"{run}_{k}"]))
@@ -4422,9 +4601,10 @@ def phase_robust_main_path(torch, card: str, dim: int, samples: int,
                for u, v in zip(pk, pp))
     xk, yk = iterates["kernel"][-1]
     check(same, "robust_main_path: kernel iterates differ from default_update's")
-    check(launches["kernel"]["gt_update"] == rounds * (K - 1) * 2,
-          f"robust_main_path: {launches['kernel']['gt_update']} gt_update launches, "
-          f"expected {rounds * (K - 1) * 2}")
+    gt_launches = {k: launches["kernel"][k] for k in ("gt_update", "gt_update_leaves")}
+    check(gt_launches == gt_counts(rounds * (K - 1)),
+          f"robust_main_path: gt_update {gt_launches}, expected "
+          f"{gt_counts(rounds * (K - 1))}")
     check(launches["plain"]["gt_update"] == 0, "robust_main_path: plain run launched")
     check(bool(torch.isfinite(xk).all() and torch.isfinite(yk).all()),
           "robust_main_path: non-finite iterates")
@@ -4463,26 +4643,29 @@ COMPRESSED_KERNELS = {
 
 def kernel_entries(torch, launches: dict, state: dict, card: str,
                    shared: dict) -> list:
-    from repro_torch.kernels import gt_update, ref
+    from repro_torch.kernels import make_gt_update_fn, ref
 
     z, g, c, eta = state["z"], state["g"], state["c"], state["eta"]
-    got = gt_update(z, g, c, eta=eta, sign=-1.0)
-    want = ref.gt_update_ref(z, g, c, eta, -1.0)
+    xy = make_gt_update_fn().pair(z, g, c, eta, z, c, g, eta)
+    want = (ref.gt_update_ref(z, g, c, eta, -1.0), ref.gt_update_ref(z, c, g, eta, 1.0))
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = max(float((a - b).abs().max()) for a, b in zip(xy, want))
     check(err == 0.0, f"gt_update at the main path's shape: max |err| {err}")
-    ms = time_ms(torch, lambda: gt_update(z, g, c, eta=eta, sign=-1.0), reps=200)
-    plain_ms = time_ms(torch, lambda: ref.gt_update_ref(z, g, c, eta, -1.0), reps=200)
+    # times of the main path's step (x and y [16, 4096] f64, one launch),
+    # measured in gt_update's phase before any profiler session
+    t = shared["timing"]["gt_update"]["main"]
     entries = [{
         "name": "gt_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gt_update.cu",
         "replaces": "src/repro/kernels/gt_update.py:26",
-        "launches": launches["gt_update"], "max_abs_err": err,
+        "launches": launches["gt_update"],
+        "leaf_updates": launches["gt_update_leaves"], "max_abs_err": err,
         "tolerance": 0.0, "bitwise_vs_plain": err == 0.0,
-        "shape": list(z.shape), "dtypes": [str(z.dtype), str(c.dtype)],
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": gt_update_bytes(z, c) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "shape": [2] + t["shape"], "dtypes": [str(z.dtype), str(c.dtype)],
+        "ms": t["pair_ms"], "plain_ms": t["plain_ms"],
+        "two_one_leaf_calls_ms": t["two_calls_ms"],
+        "device_ms_per_call": t.get("device_ms_per_call"),
+        "bound_ms": t["bound_ms"], "bound_by": "bytes",
         # no single PyTorch call computes z + s*(g + c)
         "library_ms": None, "library": "null: no single PyTorch call computes "
                                        "z + s*(g + c)", "card": card,
@@ -4640,11 +4823,13 @@ def main(argv: list) -> int:
     # every later launch ~20% slower on the host (PERF.md §6)
     run("runner_resume", lambda: phase_runner_resume(torch, card))
     run("device_draws", lambda: phase_device_draws(torch, np, card))
-    run("gt_update", lambda: phase_gt_update(torch, card, cases))
+    run("gt_update", lambda: phase_gt_update(torch, card, cases, shared))
     run("compress_correction", lambda: phase_compress_correction(torch, card, shared))
     run("pack_payload", lambda: phase_pack_payload(torch, card, shared))
     if "payloads" in shared:
         run("unpack_payload", lambda: phase_unpack_payload(torch, card, shared))
+    if "device_time_runs" in shared:
+        run("kernel_device_times", lambda: phase_kernel_device_times(torch, shared))
     run("flash_attention", lambda: phase_flash_attention(torch, np, card, shared))
     run("flash_attention_bwd", lambda: phase_flash_attention_bwd(torch, np, card, shared))
     run("ssm_scan", lambda: phase_ssm_scan(torch, card, shared))
@@ -4705,7 +4890,7 @@ def main(argv: list) -> int:
     run("spmd_train", lambda: phase_spmd_train(torch, card))
     run("dryrun", lambda: phase_dryrun(card))
     if ("state" in shared and "compressed" in shared and served is not None
-            and trained is not None and len(shared.get("timing", {})) == 7):
+            and trained is not None and len(shared.get("timing", {})) == 8):
         kernels = run("kernels", lambda: kernel_entries(
             torch, shared["launches"], shared["state"], card, shared))
         if kernels is not None:

@@ -387,6 +387,9 @@ def make_phases(
         from ..kernels.ops import make_gt_update_fn
 
         update_fn = make_gt_update_fn()
+    # the kernel-backed default updates x and y together (one launch a
+    # local step); a caller's own update_fn keeps its two calls
+    pair = getattr(update_fn, "pair", None)
     vgrad = vmap_grad_xy(loss)
 
     if getattr(strategy, "sync_every_step", False):
@@ -592,8 +595,11 @@ def make_phases(
         for k in range(start, num_local_steps):
             g = grads(xs, ys, k)
             if use_corr:
-                xs1 = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
-                ys1 = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
+                if pair is not None:  # x and y in one launch
+                    xs1, ys1 = pair(xs, g.gx, rs.cx, eta_x, ys, g.gy, rs.cy, eta_y)
+                else:
+                    xs1 = update_fn(xs, g.gx, rs.cx, eta_x, -1.0)
+                    ys1 = update_fn(ys, g.gy, rs.cy, eta_y, +1.0)
                 if constrain_agents is not None:
                     # re-anchor the carry's placement every step
                     xs1, ys1 = constrain_agents(xs1, ys1)

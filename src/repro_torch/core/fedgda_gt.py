@@ -11,7 +11,8 @@ One communication round t:
 
 Theorem 1: linear convergence to the exact minimax point with constant eta.
 Local steps 2..K go through `update_fn`, by default the hand-written CUDA
-`gt_update` kernel (`kernels.make_gt_update_fn`).
+`gt_update` kernel (`kernels.make_gt_update_fn`), x and y in one launch
+a step (its `pair`).
 """
 from __future__ import annotations
 
@@ -77,6 +78,8 @@ def make_fedgda_gt_round_reference(
     engine's GradientTracking path with the same `update_fn` reproduces
     its iterates BITWISE."""
     vgrad = vmap(grad_xy(loss), in_dims=(0, 0, 0))
+    # the kernel-backed update_fn updates x and y in one launch
+    pair = getattr(update_fn, "pair", None)
 
     def round(x: Pytree, y: Pytree, agent_data: Pytree):
         m = tree_leaves(agent_data)[0].shape[0]
@@ -116,8 +119,11 @@ def make_fedgda_gt_round_reference(
 
         for _ in range(inner_steps):
             g = vgrad(xs, ys, agent_data)
-            xs = update_fn(xs, g.gx, cx, eta, -1.0)
-            ys = update_fn(ys, g.gy, cy, eta, +1.0)
+            if pair is not None:  # x and y in one launch
+                xs, ys = pair(xs, g.gx, cx, eta, ys, g.gy, cy, eta)
+            else:
+                xs = update_fn(xs, g.gx, cx, eta, -1.0)
+                ys = update_fn(ys, g.gy, cy, eta, +1.0)
         return proj_x(tree_mean_over_agents(xs)), proj_y(tree_mean_over_agents(ys))
 
     return round

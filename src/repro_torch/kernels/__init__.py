@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (`ref`):
 
-  * gt_update — fused FedGDA-GT inner update (CUDA C++, `csrc/gt_update.cu`)
+  * gt_update / gt_update_many — fused FedGDA-GT inner update, every leaf
+    of a tree in one launch (CUDA C++, `csrc/gt_update.cu`)
   * compress_correction_2d — feedback + exact-k select + QSGD + residual
     (CUDA C++, `csrc/compress_correction.cu`)
   * pack_payload_2d / unpack_payload_2d — the same select and quantize
@@ -20,7 +21,7 @@ backward kernels have none (JAX differentiates its plain model path)."""
 from . import ref
 from .compress_correction import compress_correction_2d, compress_leaf, fusable_leaf
 from .flash_attention import flash_attention, flash_attention_bwd
-from .gt_update import gt_update
+from .gt_update import gt_update, gt_update_many
 from .ops import batched_ssm_scan, grouped_flash_attention, make_gt_update_fn
 from .pack_payload import pack_payload_2d, unpack_payload_2d
 from .ssm_scan import ssm_scan, ssm_scan_bwd
@@ -34,6 +35,7 @@ __all__ = [
     "fusable_leaf",
     "grouped_flash_attention",
     "gt_update",
+    "gt_update_many",
     "make_gt_update_fn",
     "pack_payload_2d",
     "ref",

@@ -6,12 +6,14 @@ to [R, C], a row per agent and quantization group) per round: inject the
 feedback residual (ceff = c + e), keep exactly k entries (the largest
 |ceff|, or a random k through the largest u_sel), quantize the kept values
 stochastically to `bits` bits with a per-row scale, and hand back the
-dropped mass as the new residual.  The CUDA kernel
-(`csrc/compress_correction.cu`) does it in one pass per row, one CTA per
-row; `ref.compress_correction_ref` is its plain version.
+dropped mass as the new residual.  The CUDA kernels
+(`csrc/compress_correction.cu`) stage a row in shared memory and select
+there: a few rows each over a cluster of up to 8 CTAs (the strategies'
+leaves have R = 16 rows), many rows one CTA a row;
+`ref.compress_correction_ref` is their plain version.
 
 The TPU kernel needed C % 128 == 0 (`fusable_leaf`) and tiled rows in
-blocks; neither rule applies here: the kernel takes every row length
+blocks; neither rule applies here: the kernels take every row length
 (rows too long for shared memory stream from global memory).
 
 Randomness arrives as U[0,1) inputs, as in the reference: the strategies
@@ -43,19 +45,35 @@ DTYPE_CODES = {
 UNIFORM_CODES = {torch.float64: 0, torch.float32: 1}
 
 
+#: the routes of the C launcher's plan (`csrc/compress_correction.cu` `Route`)
+ROUTES = ("streaming", "staged", "cluster")
+#: cluster sizes a caller may ask for (1: one CTA a row)
+CLUSTER_SIZES = (1, 2, 4, 8)
+_ERRORS = {
+    -2: "the card admits no cluster of {cs} CTAs for this row "
+        "(cudaOccupancyMaxActiveClusters = 0)",
+    -3: "a row of {C} split over {cs} CTAs does not fit their shared memory",
+}
+_lib = None
+
+
 def _library() -> ctypes.CDLL:
-    lib = _build.load("compress_correction")
-    fn = lib.compress_correction_launch
-    if fn.argtypes is None:
+    global _lib
+    if _lib is None:
+        lib = _build.load("compress_correction")
+        fn = lib.compress_correction_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i,
-                       ctypes.c_double, ctypes.c_double, p]
+                       ctypes.c_double, ctypes.c_double, i, p, ctypes.POINTER(i)]
         fn.restype = i
         lib.compress_correction_staged.argtypes = [i, i, i]
         lib.compress_correction_staged.restype = i
+        lib.compress_correction_auto_cluster.argtypes = [ctypes.c_longlong, i]
+        lib.compress_correction_auto_cluster.restype = i
         lib.compress_correction_error_string.argtypes = [i]
         lib.compress_correction_error_string.restype = ctypes.c_char_p
-    return lib
+        _lib = lib
+    return _lib
 
 
 def check_leaf(name: str, c, e, u_sel, u_rnd, *, k: int, bits: int,
@@ -121,14 +139,25 @@ def compress_correction_2d(
     k: int,
     bits: int = 32,
     mode: str = "topk",
+    cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(chat, resid), both in c's dtype, of one [R, C] leaf (see the module
     docstring); bitwise equal to `ref.compress_correction_ref` on the same
     inputs.  c is f64 / f32 / bf16 / fp8 e4m3; e (or None) matches it; the
-    uniforms are f64 or f32."""
+    uniforms are f64 or f32.
+
+    `cluster` (CUDA only): None lets the launcher choose (`auto_cluster`),
+    1 runs one CTA a row, 2 / 4 / 8 a cluster of that many CTAs a row,
+    which raises where the card admits no such cluster or the row's
+    slices do not fit their shared memory.  The route a launch took is
+    in `compress_correction_2d.last_plan` (route, CTAs a row, threads a
+    CTA)."""
     k, bits = int(k), int(bits)
     us, ur = check_leaf("compress_correction", c, e, u_sel, u_rnd,
                         k=k, bits=bits, mode=mode)
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError(f"compress_correction: cluster must be one of "
+                         f"{CLUSTER_SIZES}, got {cluster}")
     if c.device.type == "cpu":
         return ref.compress_correction_ref(c, e, u_sel, u_rnd, k=k, bits=bits,
                                            mode=mode)
@@ -143,27 +172,40 @@ def compress_correction_2d(
     s, inv_s = quant_constants(bits)
     lib = _library()
     ptr = lambda t: None if t is None else t.data_ptr()
+    plan = (ctypes.c_int * 3)()
     with torch.cuda.device(c.device):
         err = lib.compress_correction_launch(
             c.data_ptr(), ptr(e), ptr(us), ptr(ur), chat.data_ptr(),
             resid.data_ptr(), R, C, k, bits, int(mode == "topk"),
             DTYPE_CODES[c.dtype], UNIFORM_CODES[u.dtype] if u is not None else 0,
-            s, inv_s, stream_of(c),
+            s, inv_s, int(cluster or 0), stream_of(c), plan,
         )
     if err != 0:
+        msg = _ERRORS.get(err)
         raise RuntimeError(
             "compress_correction kernel launch failed: "
-            + lib.compress_correction_error_string(err).decode()
+            + (msg.format(cs=cluster or auto_cluster(R, C), C=C) if msg
+               else lib.compress_correction_error_string(err).decode())
         )
     compress_correction_2d.launches += 1
+    compress_correction_2d.last_plan = {"route": ROUTES[plan[0]], "cluster": plan[1],
+                                        "threads": plan[2]}
     return chat, resid
 
 
 compress_correction_2d.launches = 0
+compress_correction_2d.last_plan = None
+
+
+def auto_cluster(R: int, C: int) -> int:
+    """The cluster size the launcher takes for R rows of C on this card:
+    the largest of 8, 4, 2 with R x size <= SMs and C >= 128 x size, else
+    1.  Needs the card."""
+    return int(_library().compress_correction_auto_cluster(int(R), int(C)))
 
 
 def staged_in_shared_memory(C: int, dtype: torch.dtype, randk: bool) -> bool:
-    """Whether a row of C entries runs staged in shared memory on this
+    """Whether one CTA stages a row of C entries in shared memory on this
     card (longer rows stream from global memory).  Needs the card."""
     return bool(_library().compress_correction_staged(
         int(C), int(randk), DTYPE_CODES[dtype]))

@@ -36,24 +36,11 @@
 // Pack has two routes, chosen at launch from the row's shared-memory
 // footprint:
 //
-// * staged (`pack_kernel`, every row that fits): the row is read once, in
-//   16-byte vectors, into shared memory as ceff (and the rand-k scores),
-//   and everything after runs there.  A warp owns a contiguous run of the
-//   row, a lane 4 consecutive columns at a time, so a count "before
-//   column i" is a block scan over warps plus a warp scan per step.
-//     select  an exact radix select on d = max key - key (IEEE
-//             total-order keys, so NaN ranks above +inf as in
-//             jax.lax.top_k), starting at d's top bit: the first digit
-//             sorts the row by binade instead of piling it into the few
-//             bins of its sign and top exponent bits.  Once a digit has
-//             narrowed the candidates, they are compacted into a list in
-//             shared memory and later digits read only that list; at 32
-//             or fewer, one warp ranks them directly.
-//     count   one pass counts each warp's gt (score > thr) and tie
-//             columns and their max |ceff|, and keeps each group's flags
-//             for the write: the row's scale (max |kept|) is the max over
-//             gt joined with the kept ties (thr itself for top-k; rand-k
-//             walks the ties only when some are dropped).
+// * staged (`pack_kernel`, every row that fits): `row_select.cuh`'s
+//   staged front end (`Staged`, one CTA per row: the row read once in
+//   16-byte vectors into shared memory, the compacted radix select on
+//   d = max key - key from d's top bit, one counting pass with each
+//   group's gt / tie flags, the scale), then the write:
 //     write   column i is kept when gt, or tie with fewer than need =
 //             k - #gt ties before it; its slot is #gt before i +
 //             min(#ties before i, need), and a NaN row's padding slots
@@ -68,8 +55,8 @@
 //   that some CTAs stream their rows while others select; fewer rows run
 //   512-thread CTAs, which finish one row sooner.
 // * streaming (`pack_stream_kernel`, rows too long for shared memory):
-//   `row_select.cuh`'s front end recomputes ceff from global memory on
-//   every pass and stages the levels in a global scratch row.
+//   `row_select.cuh`'s streaming front end recomputes ceff from global
+//   memory on every pass and stages the levels in a global scratch row.
 #include "row_select.cuh"
 
 using namespace rowsel;
@@ -90,26 +77,6 @@ __device__ __forceinline__ void put_index(void* idx, bool u16, int64_t at, int v
 // ------------------------------------------------------------ staged route
 constexpr int kSmall = 256;  // threads per CTA when the rows fill the card
 constexpr int kBig = 512;    // threads per CTA for a few rows
-constexpr int kGroup = 4;    // consecutive columns a lane takes at once
-constexpr int kRank = 32;    // candidates one warp ranks directly
-
-// kGroup values of X, loaded or stored as one (or two) vector accesses
-template <typename X>
-struct alignas(sizeof(X) * kGroup < 16 ? sizeof(X) * kGroup : 16) Group {
-  X v[kGroup];
-};
-
-// shared-memory positions of a row: column i sits at i + o, o < kGroup,
-// so that position groups are global vector groups; padded to a group
-__host__ __device__ __forceinline__ int padded(int n) {
-  return (n + 2 * kGroup - 2) / kGroup * kGroup;
-}
-// capacity of each of the two candidate lists
-__host__ __device__ __forceinline__ int list_cap(int n) {
-  const int c = (padded(n) / 4 + 3) / 4 * 4;
-  return c < kRank ? kRank : c;
-}
-
 // bytes of the region that holds the two candidate lists during the
 // select and the row's indices after it
 template <typename Acc>
@@ -129,130 +96,10 @@ size_t staged_bytes(int n, int k, int topk, int enc, int idx_u16, int words) {
   return b + padded(n) / kGroup;  // a gt / tie flag byte per group
 }
 
-// columns [i0, i0 + kGroup) of a row, those inside [0, n); one vector
-// access when `vec` (the group is aligned) and the group is whole
-template <typename X>
-__device__ __forceinline__ void load_group(const X* row, int i0, int n, bool vec,
-                                           X (&v)[kGroup]) {
-  if (vec && i0 >= 0 && i0 + kGroup <= n) {
-    const Group<X> g = *reinterpret_cast<const Group<X>*>(row + i0);
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) v[j] = g.v[j];
-  } else {
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int i = i0 + j;
-      if (i >= 0 && i < n) v[j] = row[i];
-    }
-  }
-}
-
-template <typename X>
-__device__ __forceinline__ void store_group(X* row, int i0, int n, bool vec,
-                                            const X (&v)[kGroup]) {
-  if (vec && i0 >= 0 && i0 + kGroup <= n) {
-    Group<X> g;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) g.v[j] = v[j];
-    *reinterpret_cast<Group<X>*>(row + i0) = g;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const int i = i0 + j;
-      if (i >= 0 && i < n) row[i] = v[j];
-    }
-  }
-}
-
-// bit j set: column i0 + j lies in [0, n)
-__device__ __forceinline__ int group_mask(int i0, int n) {
-  if (i0 >= 0 && i0 + kGroup <= n) return (1 << kGroup) - 1;
-  int m = 0;
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) m |= (i0 + j >= 0 && i0 + j < n) << j;
-  return m;
-}
-
 template <int E>
 struct EncodingTag {
   static constexpr int value = E;
 };
-
-__device__ __forceinline__ int top_bit(uint32_t v) { return 31 - __clz((int)v); }
-__device__ __forceinline__ int top_bit(uint64_t v) { return 63 - __clzll((long long)v); }
-
-// exclusive warp prefix of cnt; *total = the warp's sum
-__device__ __forceinline__ int warp_scan(int cnt, int* total) {
-  const int lane = threadIdx.x & 31;
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += t;
-  }
-  *total = __shfl_sync(kFull, incl, 31);
-  return incl - cnt;
-}
-
-// first of `cnt` consecutive places the lane takes in a list whose length
-// is *len (the whole warp calls it)
-__device__ __forceinline__ int warp_reserve(int cnt, int* len) {
-  int total;
-  const int before = warp_scan(cnt, &total);
-  int base = 0;
-  if ((threadIdx.x & 31) == 31 && total) base = atomicAdd(len, total);
-  return __shfl_sync(kFull, base, 31) + before;
-}
-
-template <typename Acc>
-__device__ __forceinline__ Acc warp_max_nan(Acc v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = max_nan(v, (Acc)__shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-template <int TH>
-struct StagedShared {
-  unsigned long long ans;            // d of the k-th largest score
-  unsigned long long kmax[TH / 32];  // per-warp max / min score key
-  unsigned long long kmin[TH / 32];
-  double mg[TH / 32];                // per-warp max |ceff| over gt columns,
-  double mt[TH / 32];                //   over tie columns,
-  double mk[TH / 32];                //   over kept tie columns
-  int ng[TH / 32], nt[TH / 32];      // per-warp gt / tie counts
-  int hist[256];
-  int misc[4];                       // bin, rank in it, its count; list length
-};
-
-// warp 0: the bin b (ascending) holding the kk-th smallest d, kk's rank
-// inside it and its count; resets the list length
-__device__ __forceinline__ void choose_bin(const int* hist, int* misc, int kk) {
-  const int lane = threadIdx.x & 31;
-  int local = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) local += hist[8 * lane + j];
-  int total;
-  const int incl = warp_scan(local, &total) + local;
-  const unsigned ball = __ballot_sync(kFull, incl >= kk);
-  if (lane == __ffs(ball) - 1) {
-    int below = incl - local, b = 8 * lane;
-    for (int j = 0; j < 8; ++j, ++b) {
-      const int h = hist[b];
-      if (below + h >= kk) break;
-      below += h;
-    }
-    misc[0] = b;
-    misc[1] = kk - below;
-    misc[2] = hist[b];
-  }
-  if (lane == 0) misc[3] = 0;
-}
 
 template <typename T, typename Acc, typename U, int TH>
 __global__ void __launch_bounds__(TH, TH == kSmall ? (sizeof(Acc) == 4 ? 4 : 2) : 1)
@@ -263,11 +110,8 @@ pack_kernel(const T* __restrict__ c, const T* __restrict__ e,
             int bits, int topk, int enc, int idx_u16, int words, int vec_in,
             double s_host, double inv_s_host) {
   using Key = typename KeyOf<Acc>::type;
-  constexpr int W = TH / 32;
-  constexpr int kKeyBits = (int)sizeof(Key) * 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ StagedShared<TH> sh;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __shared__ StagedShared<TH, false> sh;
   const int64_t r = blockIdx.x;
   const int64_t off = r * n;
   const bool vec = vec_in != 0;
@@ -278,11 +122,7 @@ pack_kernel(const T* __restrict__ c, const T* __restrict__ e,
   // position p = column + o; group q = positions [4q, 4q + 4)
   const int o = vec ? (int)(off & (kGroup - 1)) : 0;
   const int groups = (o + n + kGroup - 1) / kGroup;
-  const int per = (groups + W - 1) / W;
-  const int q0 = wid * per;
-  const int q1 = min(groups, q0 + per);
   const int pn = padded(n);
-  const int cap = list_cap(n);
   Acc* s_ce = reinterpret_cast<Acc*>(smem);
   Acc* s_sel = s_ce + pn;
   Key* lists = reinterpret_cast<Key*>(s_ce + (size_t)pn * (randk ? 2 : 1));
@@ -294,295 +134,15 @@ pack_kernel(const T* __restrict__ c, const T* __restrict__ e,
   const T* er = e ? e + off : nullptr;
   const U* usr = randk ? us + off : nullptr;
   const U* urr = qon ? ur + off : nullptr;
-
-  auto scores = [&](int q, const Group<Acc>& ce) {
-    Group<Acc> sc;
-    if (randk) {
-      sc = *reinterpret_cast<const Group<Acc>*>(s_sel + kGroup * q);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) sc.v[j] = absv(ce.v[j]);
-    }
-    return sc;
-  };
-
-  // ---- stage ceff (and the rand-k scores); min / max score keys
+  Staged<T, Acc, U, TH, false> st(cr, er, usr, n, k, select, randk, vec, o, 0, groups,
+                                  list_cap(n), s_ce, s_sel, lists, s_flag, sh);
   for (int w = threadIdx.x; w < (wordy ? words : 0); w += TH) s_words[w] = 0;
-  if (threadIdx.x == 0) sh.misc[3] = 0;
-  Key kmax = 0, kmin = ~(Key)0;
-#pragma unroll 4
-  for (int q = q0 + lane; q < q1; q += 32) {
-    const int i0 = kGroup * q - o;
-    const int vm = group_mask(i0, n);
-    T cv[kGroup], ev[kGroup];
-    load_group(cr, i0, n, vec, cv);
-    if (er) load_group(er, i0, n, vec, ev);
-    Group<Acc> ce;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      Acc v = (Acc)0;
-      if (vm >> j & 1) {
-        v = to_ct(cv[j], Acc());
-        if (er) v = add_rn(v, to_ct(ev[j], Acc()));
-      }
-      ce.v[j] = v;
-    }
-    *reinterpret_cast<Group<Acc>*>(s_ce + kGroup * q) = ce;
-    if (select) {
-      Group<Acc> sc;
-      if (randk) {
-        U uv[kGroup];
-        load_group(usr, i0, n, vec, uv);
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          sc.v[j] = (vm >> j & 1) ? to_ct(uv[j], Acc()) : (Acc)0;
-        *reinterpret_cast<Group<Acc>*>(s_sel + kGroup * q) = sc;
-      } else {
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) sc.v[j] = absv(ce.v[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (!(vm >> j & 1)) continue;
-        const Key key = okey(sc.v[j]);
-        kmax = key > kmax ? key : kmax;
-        kmin = key < kmin ? key : kmin;
-      }
-    }
-  }
-  if (select) {
-#pragma unroll
-    for (int s = 16; s; s >>= 1) {
-      const Key a = __shfl_xor_sync(kFull, kmax, s);
-      const Key b = __shfl_xor_sync(kFull, kmin, s);
-      kmax = a > kmax ? a : kmax;
-      kmin = b < kmin ? b : kmin;
-    }
-    if (lane == 0) {
-      sh.kmax[wid] = kmax;
-      sh.kmin[wid] = kmin;
-    }
-  }
-  __syncthreads();
-
-  // ---- select: thr = the k-th largest score
-  Acc thr = (Acc)0;
-  if (select) {
-    Key maxk = 0, mink = ~(Key)0;
-    for (int w = 0; w < W; ++w) {
-      maxk = (Key)sh.kmax[w] > maxk ? (Key)sh.kmax[w] : maxk;
-      mink = (Key)sh.kmin[w] < mink ? (Key)sh.kmin[w] : mink;
-    }
-    const Key dmax = maxk - mink;
-    Key ans = 0;  // the k-th smallest d
-    if (dmax != 0) {
-      int fs = top_bit(dmax) + 1;  // bits >= fs of d are decided: pref's
-      Key pref = 0;
-      int kk = k;        // rank of the answer among the candidates
-      int expect = n;    // candidates: the d that match pref
-      int cur = -1;      // where they are: -1 the row, else list cur
-      int cur_n = n;     //   holding cur_n entries (a superset)
-      auto matches = [&](Key d) { return fs >= kKeyBits || (d >> fs) == (pref >> fs); };
-      // visit the candidates of the current source: histogram digit
-      // [shift, shift + wbits) (if hist), append them to list `to` (if build)
-      auto visit = [&](bool hist, int shift, Key dmask, bool build, Key* to) {
-        if (cur < 0) {
-          for (int base = q0; base < q1; base += 32) {
-            const int q = base + lane;
-            Key d[kGroup];
-            bool m[kGroup];
-            int cnt = 0;
-            if (q < q1) {
-              const int vm = group_mask(kGroup * q - o, n);
-              const Group<Acc> ce = *reinterpret_cast<const Group<Acc>*>(s_ce + kGroup * q);
-              const Group<Acc> sc = scores(q, ce);
-#pragma unroll
-              for (int j = 0; j < kGroup; ++j) {
-                d[j] = maxk - okey(sc.v[j]);
-                m[j] = (vm >> j & 1) && matches(d[j]);
-                cnt += m[j];
-              }
-            } else {
-#pragma unroll
-              for (int j = 0; j < kGroup; ++j) m[j] = false;
-            }
-            if (hist) {
-#pragma unroll
-              for (int j = 0; j < kGroup; ++j)
-                if (m[j]) atomicAdd(&sh.hist[(int)((d[j] >> shift) & dmask)], 1);
-            }
-            if (build) {
-              int at = warp_reserve(cnt, &sh.misc[3]);
-#pragma unroll
-              for (int j = 0; j < kGroup; ++j)
-                if (m[j]) to[at++] = d[j];
-            }
-          }
-        } else {
-          const Key* from = lists + (size_t)cur * cap;
-          for (int base = 0; base < cur_n; base += TH) {
-            const int t = base + threadIdx.x;
-            const Key d = t < cur_n ? from[t] : (Key)0;
-            const bool m = t < cur_n && matches(d);
-            if (hist && m) atomicAdd(&sh.hist[(int)((d >> shift) & dmask)], 1);
-            if (build) {
-              const int at = warp_reserve(m ? 1 : 0, &sh.misc[3]);
-              if (m) to[at] = d;
-            }
-          }
-        }
-      };
-      while (true) {
-        const int wbits = fs < 8 ? fs : 8;
-        const int shift = fs - wbits;
-        const Key dmask = ((Key)1 << wbits) - 1;
-        // compact the candidates when they fit a list smaller than the source
-        const bool build = expect <= cap && expect < cur_n;
-        const int nxt = cur == 0 ? 1 : 0;
-        for (int b = threadIdx.x; b < 256; b += TH) sh.hist[b] = 0;
-        __syncthreads();
-        visit(true, shift, dmask, build, lists + (size_t)nxt * cap);
-        __syncthreads();
-        if (build) {
-          cur = nxt;
-          cur_n = expect;
-        }
-        if (wid == 0) choose_bin(sh.hist, sh.misc, kk);
-        __syncthreads();
-        pref |= (Key)sh.misc[0] << shift;
-        kk = sh.misc[1];
-        expect = sh.misc[2];
-        fs = shift;
-        if (fs == 0) {
-          ans = pref;
-          break;
-        }
-        if (expect <= kRank) {  // gather them into the other list and rank them
-          const int to = cur == 0 ? 1 : 0;
-          const Key* list = lists + (size_t)to * cap;
-          visit(false, 0, 0, true, lists + (size_t)to * cap);
-          __syncthreads();
-          if (wid == 0) {
-            const Key x = lane < expect ? list[lane] : ~(Key)0;
-            int less = 0, leq = 0;
-            for (int j = 0; j < expect; ++j) {
-              const Key y = __shfl_sync(kFull, x, j);
-              less += y < x;
-              leq += y <= x;
-            }
-            if (lane < expect && less < kk && kk <= leq) sh.ans = (unsigned long long)x;
-          }
-          __syncthreads();
-          ans = (Key)sh.ans;
-          break;
-        }
-      }
-    }
-    thr = from_okey((Key)(maxk - ans), Acc());
-  }
-
-  // ---- count: gt / tie columns per warp and their max |ceff|; each
-  // group's flags (bit j: column i0 + j is gt, bit 4 + j: tie) are kept
-  // for the write, whose lanes take the same groups
-  {
-    int ng = 0, nt = 0;
-    Acc mg = (Acc)0, mt = (Acc)0;  // |kept| >= 0: 0 is the identity
-    for (int q = q0 + lane; q < q1; q += 32) {
-      const int vm = group_mask(kGroup * q - o, n);
-      const Group<Acc> ce = *reinterpret_cast<const Group<Acc>*>(s_ce + kGroup * q);
-      const Group<Acc> sc = scores(q, ce);
-      int gtm = 0, tiem = 0;
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        if (!(vm >> j & 1)) continue;
-        // gt: kept outright (every column when k covers the row); tie:
-        // kept by rank among the ties
-        const bool gt = !select || sc.v[j] > thr;
-        const bool tie = select && sc.v[j] == thr;
-        if (gt) mg = max_nan(mg, absv(ce.v[j]));
-        if (tie) mt = max_nan(mt, absv(ce.v[j]));
-        gtm |= gt << j;
-        tiem |= tie << j;
-      }
-      s_flag[q] = (uint8_t)(gtm | tiem << kGroup);
-      ng += __popc(gtm);
-      nt += __popc(tiem);
-    }
-    ng = warp_sum(ng);
-    nt = warp_sum(nt);
-    mg = warp_max_nan(mg);
-    mt = warp_max_nan(mt);
-    if (lane == 0) {
-      sh.ng[wid] = ng;
-      sh.nt[wid] = nt;
-      sh.mg[wid] = (double)mg;
-      sh.mt[wid] = (double)mt;
-    }
-  }
-  __syncthreads();
-  int gbase = 0, tbase = 0, n_gt = 0, n_tie = 0;
-  Acc m_gt = (Acc)0, m_tie = (Acc)0;
-  for (int w = 0; w < W; ++w) {
-    if (w == wid) {
-      gbase = n_gt;
-      tbase = n_tie;
-    }
-    n_gt += sh.ng[w];
-    n_tie += sh.nt[w];
-    m_gt = max_nan(m_gt, (Acc)sh.mg[w]);
-    m_tie = max_nan(m_tie, (Acc)sh.mt[w]);
-  }
-  const int need = k - n_gt;                          // ties kept
-  const int kt = n_tie < need ? n_tie : need;
-  const int kept = n_gt + kt;                         // < k only for a NaN row
-
-  // Walk the warp's groups in column order: body(q, i0, fl, g, t) sees
-  // each of its lane's groups with its flags and g / t = the row's gt /
-  // tie columns before the group.
-  auto walk = [&](auto&& body) {
-    int g = gbase, t = tbase;
-    for (int base = q0; base < q1; base += 32) {
-      const int q = base + lane;
-      const int fl = q < q1 ? s_flag[q] : 0;
-      int total;
-      const int before = warp_scan(__popc(fl & 0xF) + (__popc(fl >> kGroup) << 16), &total);
-      if (q < q1) body(q, kGroup * q - o, fl, g + (before & 0xFFFF), t + (before >> 16));
-      g += total & 0xFFFF;
-      t += total >> 16;
-    }
-  };
-
-  // ---- the row's scale: max |kept|
-  Acc scl = (Acc)0;
-  if (qon) {
-    scl = m_gt;
-    if (kt > 0) {
-      if (!randk) {
-        scl = max_nan(scl, thr);  // a top-k tie's |ceff| is thr
-      } else if (kt == n_tie) {
-        scl = max_nan(scl, m_tie);
-      } else {  // rand-k keeps the first kt ties only
-        Acc mk = (Acc)0;
-        const int nt_w = sh.nt[wid];
-        if (tbase + nt_w <= kt) {
-          mk = (Acc)sh.mt[wid];
-        } else if (tbase < kt) {
-          walk([&](int q, int, int fl, int, int t) {
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j) {
-              if (!(fl >> (kGroup + j) & 1)) continue;
-              if (t < kt) mk = max_nan(mk, absv(s_ce[kGroup * q + j]));
-              ++t;
-            }
-          });
-          mk = warp_max_nan(mk);
-        }
-        if (lane == 0) sh.mk[wid] = (double)mk;
-        __syncthreads();
-        for (int w = 0; w < W; ++w) scl = max_nan(scl, (Acc)sh.mk[w]);
-      }
-    }
-  }
+  st.stage();
+  st.select_thr(n);
+  st.count();
+  const Acc scl = st.scale(qon);
+  const int need = st.need;
+  const int kept = st.kept;
   const Acc sq = from_host(s_host, Acc());
   Acc rq = (Acc)0, tq = (Acc)0;  // s / safe, safe * (1/s)
   if (qon) {
@@ -603,11 +163,11 @@ pack_kernel(const T* __restrict__ c, const T* __restrict__ e,
   const int pad = k - kept;
   auto write = [&](auto tag) {
     constexpr int E = decltype(tag)::value;
-    walk([&](int q, int i0, int fl, int g, int t) {
+    st.walk([&](int q, int i0, int fl, int g, int t) {
       U uv[kGroup];  // the rounding uniforms
       if (qon) load_group(urr, i0, n, vec, uv);
       const int vm = group_mask(i0, n);
-      const Group<Acc> ce = *reinterpret_cast<const Group<Acc>*>(s_ce + kGroup * q);
+      const Group<Acc> ce = st.ce(q);
       T out[kGroup], res[kGroup];
       int wcur = -1;  // the word this lane's narrow levels are or-ed into
       uint32_t wacc = 0;
@@ -703,8 +263,8 @@ pack_stream_kernel(const T* __restrict__ c, const T* __restrict__ e,
   const int64_t r = blockIdx.x;
   const int64_t off = r * n;
   Row<T, Acc, U> row{c + off, e ? e + off : nullptr,
-                     us ? us + off : nullptr, ur ? ur + off : nullptr,
-                     nullptr, nullptr, n, topk != 0};
+                     us ? us + off : nullptr, ur ? ur + off : nullptr, n,
+                     topk != 0};
   uint32_t* lv = lv_scratch ? lv_scratch + r * k : nullptr;
   const Selection<Acc> sel = select_row(row, k, sh);
   const Quant<Acc> qc = quant_row(row, sel, bits, s, inv_s, sh);
@@ -809,31 +369,12 @@ unpack_kernel(const void* __restrict__ data, const void* __restrict__ idx,
 }
 
 // ------------------------------------------------------------ launchers
-int sm_count() {
-  static int cached = -1;
-  if (cached < 0) {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    cached = v;
-  }
-  return cached;
-}
-
 // dynamic shared memory both staged instantiations may take
 template <typename T, typename Acc, typename U>
 int staged_limit() {
   const int a = max_dynamic_smem<pack_kernel<T, Acc, U, kSmall>>();
   const int b = max_dynamic_smem<pack_kernel<T, Acc, U, kBig>>();
   return a < b ? a : b;
-}
-
-// p is aligned for a vector of kGroup X (16 bytes at most)
-template <typename X>
-bool vec_aligned(const void* p) {
-  const size_t a = sizeof(X) * kGroup < 16 ? sizeof(X) * kGroup : 16;
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % a == 0;
 }
 
 template <typename T, typename Acc, typename U>

@@ -18,7 +18,7 @@ from ..core.types import tree_map
 from . import ref
 from .compress_correction import compress_correction_2d, compress_leaf
 from .flash_attention import flash_attention
-from .gt_update import gt_update
+from .gt_update import gt_update_many
 from .pack_payload import pack_payload_2d, unpack_payload_2d
 from .ssm_scan import plain_ssm_scan, ssm_scan
 
@@ -37,19 +37,42 @@ Pytree = Any
 
 def make_gt_update_fn() -> Callable:
     """The kernel-backed `update_fn` of the round engine:
-    update(z, g, c, eta, sign) applies `gt_update` leafwise.
+    update(z, g, c, eta, sign) applies `gt_update` to every leaf of the
+    tree in one launch (`gt_update_many`), and
+    update.pair(xs, gx, cx, eta_x, ys, gy, cy, eta_y) -> (xs', ys') updates
+    x (descent, sign -1) and y (ascent, +1) together, so that a local step
+    is one launch.  The engine calls `pair` where its `update_fn` has one.
 
     Unlike the JAX wrapper there is no padding to [rows, 128] (the kernel
     masks its own tail) and c is not cast up before the call: the kernel
     reads it in its stored type (bf16 / fp8), which is the point of the
     fusion."""
 
-    def update(z: Pytree, g: Pytree, c: Pytree, eta, sign: float) -> Pytree:
-        return tree_map(
-            lambda u, gv, cv: gt_update(u, gv, cv, eta=float(eta), sign=sign),
-            z, g, c,
-        )
+    def run(parts) -> list:
+        """parts: [(z, g, c, scale)] of trees; the updated z trees, from one
+        `gt_update_many` call over all their leaves."""
+        zs, gs, cs, scales = [], [], [], []
+        for z, g, c, s in parts:
+            def take(u, gv, cv, s=s):
+                zs.append(u)
+                gs.append(gv)
+                cs.append(cv)
+                scales.append(s)
 
+            tree_map(take, z, g, c)
+        outs = iter(gt_update_many(zs, gs, cs, scales))
+        return [tree_map(lambda _: next(outs), z) for z, *_ in parts]
+
+    def update(z: Pytree, g: Pytree, c: Pytree, eta, sign: float) -> Pytree:
+        return run([(z, g, c, float(sign) * float(eta))])[0]
+
+    def pair(xs: Pytree, gx: Pytree, cx: Pytree, eta_x, ys: Pytree, gy: Pytree,
+             cy: Pytree, eta_y) -> Tuple[Pytree, Pytree]:
+        xs1, ys1 = run([(xs, gx, cx, -1.0 * float(eta_x)),
+                        (ys, gy, cy, 1.0 * float(eta_y))])
+        return xs1, ys1
+
+    update.pair = pair
     return update
 
 

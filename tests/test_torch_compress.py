@@ -11,8 +11,18 @@ pins re-pinned inside torch.
     and the top-k feedback mechanics (`test_strategy_convergence.py:141,
     157`);
   * the kernel wrappers on CPU tensors: they run the plain versions, count
-    no launch, and raise on what the kernels do not take.
+    no launch, and raise on what the kernels do not take;
+  * a numpy model of the cluster route's select (`csrc/row_select.cuh`
+    `Staged` with kCluster: a row cut into contiguous slices of 4-column
+    groups over 1, 2, 4 or 8 CTAs, the slices' min / max keys and
+    histograms summed each pass, the last <= 32 candidates gathered in
+    rank order, each CTA's tie allowance k - #gt less the ties of the
+    lower ranks, the scale a NaN-propagating max over the CTAs) held
+    bitwise against the plain version's kept set and scale.
 """
+import functools
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +41,7 @@ from repro_torch.kernels import (
     ref,
     unpack_payload_2d,
 )
+from test_torch_pack_select import GROUP, RANK, UINT, from_okey, max_nan, okeys
 from test_torch_parity import BITS, DT, SHAPES, assert_same, ks_of, make_leaf, seed_of
 
 pytestmark = pytest.mark.torch
@@ -278,3 +289,167 @@ def test_fp8_cast_equals_jax_bitwise():
     want = np.asarray(jnp.asarray(v).astype(jnp.float8_e4m3fn)).view(np.uint8)
     got = ref.cast_to(torch.tensor(v), torch.float8_e4m3fn).view(torch.uint8)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------- the cluster route, modelled
+#: the shapes of chip_smoke's compress_cases: the main path's [16, 4096]
+#: and the ragged ones
+CLUSTER_SHAPES = [(16, 4096), (5, 4097), (3, 1000), (2, 37)]
+
+
+def slices_of(n: int, o: int, cs: int):
+    """Each CTA's columns [lo, hi) of a row of n whose position 0 is
+    column -o: rank r takes the r-th run of ceil(groups / cs) groups."""
+    groups = (o + n + GROUP - 1) // GROUP
+    per = -(-groups // cs)
+    out = []
+    for r in range(cs):
+        g_lo = min(groups, r * per)
+        g_hi = min(groups, g_lo + per)
+        hi = max(0, min(n, GROUP * g_hi - o))
+        out.append((min(hi, max(0, GROUP * g_lo - o)), hi))
+    return out
+
+
+def cluster_select(ceff: torch.Tensor, score: torch.Tensor, k: int, cs: int, o: int,
+                   randk: bool, stats: dict):
+    """(keep, scale) of one row as a cluster of cs CTAs computes them."""
+    n = score.numel()
+    u = UINT[score.dtype]
+    kbits = 8 * np.dtype(u).itemsize
+    sl = slices_of(n, o, cs)
+    assert sl[0][0] == 0 and sl[-1][1] == n
+    assert all(a[1] == b[0] or b[0] == b[1] for a, b in zip(sl, sl[1:]))
+    keys = okeys(score)
+    select = k < n
+    thr = None
+    if select:
+        live = [(a, b) for a, b in sl if b > a]
+        maxk = max(int(keys[a:b].max()) for a, b in live)
+        mink = min(int(keys[a:b].min()) for a, b in live)
+        d = (u(maxk) - keys).astype(u)
+        ans = 0
+        if maxk != mink:
+            fs, pref, kk = (maxk - mink).bit_length(), 0, k
+
+            def matching(part):
+                return part if fs >= kbits else part[(part >> u(fs)) == u(pref >> fs)]
+
+            while True:
+                wbits = min(fs, 8)
+                shift = fs - wbits
+                # each CTA's histogram of its candidates, summed
+                hist = sum(np.bincount(((matching(d[a:b]) >> u(shift))
+                                        & u((1 << wbits) - 1)).astype(np.int64),
+                                       minlength=256) for a, b in sl)
+                incl = np.cumsum(hist)
+                b = int(np.argmax(incl >= kk))
+                kk -= int(incl[b] - hist[b])
+                pref |= b << shift
+                fs = shift
+                stats["passes"] += 1
+                if fs == 0:
+                    ans = pref
+                    break
+                if hist[b] <= RANK:
+                    # the candidates gathered in rank order, ranked by one warp
+                    cand = np.concatenate([matching(d[a:b_]) for a, b_ in sl])
+                    assert cand.size == hist[b]
+                    ans = int(np.sort(cand)[kk - 1])
+                    stats["ranked"] += 1
+                    break
+        thr = from_okey(maxk - ans, score.dtype)
+    gt = (score > thr) if select else torch.ones(n, dtype=torch.bool)
+    tie = (score == thr) if select else torch.zeros(n, dtype=torch.bool)
+    mag = ceff.abs()
+    ng = [int(gt[a:b].sum()) for a, b in sl]
+    nt = [int(tie[a:b].sum()) for a, b in sl]
+    need = k - sum(ng)
+    kt = min(sum(nt), need)
+    keep = gt.clone()
+    before = 0  # ties of the lower ranks
+    for (a, b), t in zip(sl, nt):
+        rank_in = torch.cumsum(tie[a:b].to(torch.int64), 0) - 1 + before
+        keep[a:b] |= tie[a:b] & (rank_in < need)
+        before += t
+
+    def cta_max(mask, a, b):
+        m = 0.0
+        for v in mag[a:b][mask[a:b]].tolist():
+            m = max_nan(m, v)
+        return m
+
+    scale = 0.0
+    for a, b in sl:
+        scale = max_nan(scale, cta_max(gt, a, b))
+    if kt > 0:
+        if not randk:
+            scale = max_nan(scale, float(thr))
+        elif kt == sum(nt):
+            for a, b in sl:
+                scale = max_nan(scale, cta_max(tie, a, b))
+        else:
+            stats["dropped_ties"] += 1
+            kept_tie = tie & keep
+            for a, b in sl:
+                scale = max_nan(scale, cta_max(kept_tie, a, b))
+    return keep, scale
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_cases(dt: str, mode: str) -> list:
+    """(ceff, score, k, plain keep, plain scale, rows) of the leaves the
+    cluster model is held to, for one dtype and mode: `make_leaf`'s rows
+    (a row of five 3.0s, an all-zero row, NaN every third column of the
+    last row) at compress_cases' shapes, cast by torch (the model and the
+    plain version read the same torch bits; JAX is not involved)."""
+    rng = np.random.default_rng(seed_of(dt, mode))
+    tdt = DT[dt][1]
+    ct = ref.compute_dtype(tdt)
+    out = []
+    for R, C in CLUSTER_SHAPES:
+        scale = 50.0 if dt == "fp8" else 100.0
+        c = rng.standard_normal((R, C)) * scale
+        c[0, : min(5, C)] = 3.0
+        if R > 1:
+            c[1] = 0.0
+        c[-1, ::3] = np.nan
+        e = rng.standard_normal((R, C)) * scale * 0.1
+        us = torch.tensor(rng.random((R, C)))
+        if mode == "randk":  # tied scores: a quarter of each row on one value
+            us[:, ::4] = 0.5
+        ceff = (ref.cast_to(torch.tensor(c), tdt).to(ct)
+                + ref.cast_to(torch.tensor(e), tdt).to(ct))
+        score = ceff.abs() if mode == "topk" else us.to(ct)
+        # the leaf's tie row, zero row, a Gaussian row and its NaN row
+        rows = sorted({0, 1, 2, R - 1} & set(range(R)))
+        for k in ks_of(C) + [max(1, C // 4)]:
+            keep = ref.exact_k_mask(score, k)
+            scl = torch.amax(torch.where(keep, ceff, 0.0).abs(), dim=-1)
+            out.append((ceff, score, k, keep, scl, rows))
+    return out
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("dt", list(DT))
+def test_cluster_select_model_equals_plain_kept_set_and_scale(dt, mode, cs):
+    """The cluster model keeps the plain version's exact-k set and finds
+    its QSGD scale (max |kept|, NaN when a kept value is NaN) bit for bit,
+    over the leaves' ties (a row of five 3.0s, an all-zero row, the fp8 /
+    bf16 leaves' many equal values), NaN rows and tied rand-k scores (the
+    rows that carry them, and a Gaussian one), whether the rows start on a
+    vector group (o = row offset mod 4) or not (o = 0, an unaligned
+    leaf)."""
+    stats = {"passes": 0, "ranked": 0, "dropped_ties": 0}
+    for ceff, score, k, keep_want, scale_want, rows in _cluster_cases(dt, mode):
+        C = score.shape[1]
+        for r, aligned in itertools.product(rows, (True, False)):
+            o = (r * C) % GROUP if aligned else 0
+            keep, scale = cluster_select(ceff[r], score[r], k, cs, o, mode == "randk", stats)
+            assert torch.equal(keep, keep_want[r]), (C, k, r, o)
+            w = float(scale_want[r])
+            assert (scale != scale and w != w) or scale == w, (C, k, r, scale, w)
+    assert stats["passes"] and stats["ranked"]
+    if mode == "randk":
+        assert stats["dropped_ties"]

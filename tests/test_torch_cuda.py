@@ -25,12 +25,19 @@ from repro_torch.kernels import (
     flash_attention,
     grouped_flash_attention,
     gt_update,
+    gt_update_many,
+    make_gt_update_fn,
     pack_payload_2d,
     ref,
     ssm_scan,
     unpack_payload_2d,
 )
-from repro_torch.kernels.compress_correction import staged_in_shared_memory
+from repro_torch.kernels.compress_correction import (
+    CLUSTER_SIZES,
+    auto_cluster,
+    staged_in_shared_memory,
+)
+from repro_torch.kernels.gt_update import TABLE_CAP
 from repro_torch.kernels.pack_payload import pack_staged, payload_data_shape
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params, random_batch
@@ -105,7 +112,7 @@ def test_cuda_gt_update_raises_on_what_it_does_not_take(cuda_device):
 def test_cuda_round_through_kernel_equals_default_update(cuda_device, cdt):
     """FedGDA-GT rounds through the kernel reproduce the plain
     default_update's iterates bit for bit in f64, with (K-1)*2 launches
-    per round.  The data are scaled by 2^-8 (eta by 2^8) so that every
+    per round (x and y in one launch, (K-1) launches).  The data are scaled by 2^-8 (eta by 2^8) so that every
     correction lies inside fp8 e4m3's +-448 range."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     prob = make_quadratic_problem(gen, dim=32, num_samples=64, num_agents=6,
@@ -118,13 +125,14 @@ def test_cuda_round_through_kernel_equals_default_update(cuda_device, cdt):
                                       update_fn=core.default_update)
     x = y = torch.zeros(32, dtype=torch.float64, device=cuda_device)
     xp, yp = x, y
-    gt_update.launches = 0
+    gt_update.launches = gt_update.leaf_updates = 0
     for _ in range(4):
         x, y = kernel(x, y, data)
         xp, yp = plain(xp, yp, data)
         assert bool(torch.isfinite(x).all() and torch.isfinite(y).all())
         assert torch.equal(x, xp) and torch.equal(y, yp)
-    assert gt_update.launches == 4 * (K - 1) * 2
+    # x and y in one launch a local step
+    assert (gt_update.launches, gt_update.leaf_updates) == (4 * (K - 1), 4 * (K - 1) * 2)
 
 
 def test_cuda_fp8_correction_overflow_is_nan(cuda_device):
@@ -148,10 +156,110 @@ def test_cuda_engine_uses_the_kernel_by_default(cuda_device):
     prob = make_quadratic_problem(gen, dim=8, num_samples=16, num_agents=1,
                                   device=cuda_device)
     x = torch.zeros(8, dtype=torch.float64, device=cuda_device)
-    gt_update.launches = 0
+    gt_update.launches = gt_update.leaf_updates = 0
     core.make_round(prob.loss, GradientTracking(), 3, 1e-4)(x, x, prob.agent_data)
-    # m == 1: no fused anchor step, every local step is an update
-    assert gt_update.launches == 3 * 2
+    # m == 1: no fused anchor step, every local step is an update of x and
+    # y in one launch
+    assert (gt_update.launches, gt_update.leaf_updates) == (3, 3 * 2)
+
+
+def _many_leaves(dev, zdt, cdt, numels, seed, shift=()):
+    """Leaves z, g, c of the given sizes; those whose index is in `shift`
+    are contiguous views one element past an aligned base."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for i, n in enumerate(numels):
+        trip = []
+        for dt in (zdt, zdt, cdt):
+            t = (torch.randn(n + 1, generator=gen, device=dev) * 4).to(DT[dt])
+            trip.append(t[1:] if i in shift else t[:n].clone())
+        out.append(trip)
+    return [t[0] for t in out], [t[1] for t in out], [t[2] for t in out]
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_cuda_gt_update_many_bitwise_over_a_tree(cuda_device, pair):
+    """One launch over leaves of every size class: aligned (vectors and a
+    ragged tail), misaligned views (scalar accesses), an empty leaf, a
+    leaf of one element and one past a wave of blocks; each leaf's own
+    scale; every output bitwise the plain version."""
+    zdt, cdt = pair
+    numels = [1, 7, 1000, 4097, 0, (1 << 22) + 3, 333, 64]
+    zs, gs, cs = _many_leaves(cuda_device, zdt, cdt, numels, 3, shift={2, 6})
+    assert zs[2].data_ptr() % 16 and zs[6].data_ptr() % 16
+    scales = [(-1.0) ** i * ETA * (i + 1) for i in range(len(numels))]
+    gt_update.launches = gt_update.leaf_updates = 0
+    got = gt_update_many(zs, gs, cs, scales)
+    torch.cuda.synchronize()
+    assert (gt_update.launches, gt_update.leaf_updates) == (1, len(numels) - 1)
+    for z, g, c, s, o in zip(zs, gs, cs, scales, got):
+        want = ref.gt_update_ref(z, g, c, s, 1.0)
+        assert o.dtype == z.dtype and o.shape == z.shape
+        assert torch.equal(_bits(o), _bits(want))
+
+
+def test_cuda_gt_update_many_more_leaves_than_a_table(cuda_device):
+    """More leaves than one launch's table: ceil(leaves / TABLE_CAP)
+    launches, every leaf bitwise."""
+    n = TABLE_CAP + 45
+    zs, gs, cs = _many_leaves(cuda_device, "f32", "bf16", [(i * 37) % 300 + 1
+                                                           for i in range(n)], 5)
+    gt_update.launches = gt_update.leaf_updates = 0
+    got = gt_update_many(zs, gs, cs, [ETA] * n)
+    torch.cuda.synchronize()
+    assert (gt_update.launches, gt_update.leaf_updates) == (2, n)
+    for z, g, c, o in zip(zs, gs, cs, got):
+        assert torch.equal(_bits(o), _bits(ref.gt_update_ref(z, g, c, ETA, 1.0)))
+
+
+def test_cuda_gt_update_many_mixed_pairs_in_one_tree(cuda_device):
+    """Leaves of three (z, c) dtype pairs interleaved: one launch a pair,
+    outputs in the leaves' order; an all-empty call launches nothing."""
+    pairs = [("f64", "f64"), ("f32", "fp8"), ("bf16", "bf16")] * 3
+    zs, gs, cs = [], [], []
+    for i, (zdt, cdt) in enumerate(pairs):
+        z, g, c = _many_leaves(cuda_device, zdt, cdt, [100 + 31 * i], 20 + i,
+                               shift={0} if i % 4 == 1 else ())
+        zs += z
+        gs += g
+        cs += c
+    gt_update.launches = gt_update.leaf_updates = 0
+    got = gt_update_many(zs, gs, cs, [-ETA] * len(zs))
+    torch.cuda.synchronize()
+    assert (gt_update.launches, gt_update.leaf_updates) == (3, len(zs))
+    for z, g, c, o in zip(zs, gs, cs, got):
+        assert torch.equal(_bits(o), _bits(ref.gt_update_ref(z, g, c, ETA, -1.0)))
+    e = torch.empty(0, device=cuda_device)
+    assert gt_update_many([e, e], [e, e], [e, e], [ETA, ETA])[1].numel() == 0
+    assert (gt_update.launches, gt_update.leaf_updates) == (3, len(zs))
+
+
+@pytest.mark.parametrize("cdt", ["f64", "bf16", "fp8"])
+def test_cuda_gt_update_pair_is_one_launch(cuda_device, cdt):
+    """`make_gt_update_fn().pair` updates the leaves of x and y in one
+    launch, bitwise the engine's plain `default_update` (f64 corrections)
+    or the kernel's per-leaf plain version (narrow ones)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    rn = lambda *s, dt="f64": torch.randn(*s, generator=gen, device=cuda_device,
+                                          dtype=torch.float64).to(DT[dt])
+    xs = {"w": rn(8, 33), "b": rn(8, 5)}
+    ys = [rn(8, 1000), rn(8, 2)]
+    gx, gy = {k: rn(*v.shape) for k, v in xs.items()}, [rn(*v.shape) for v in ys]
+    cx = {k: rn(*v.shape, dt=cdt) for k, v in xs.items()}
+    cy = [rn(*v.shape, dt=cdt) for v in ys]
+    fn = make_gt_update_fn()
+    gt_update.launches = gt_update.leaf_updates = 0
+    x1, y1 = fn.pair(xs, gx, cx, 2e-3, ys, gy, cy, 3e-3)
+    torch.cuda.synchronize()
+    assert (gt_update.launches, gt_update.leaf_updates) == (1, 4)
+    if cdt == "f64":
+        wx = core.default_update(xs, gx, cx, 2e-3, -1.0)
+        wy = core.default_update(ys, gy, cy, 3e-3, 1.0)
+    else:
+        wx = {k: ref.gt_update_ref(xs[k], gx[k], cx[k], 2e-3, -1.0) for k in xs}
+        wy = [ref.gt_update_ref(a, b, c, 3e-3, 1.0) for a, b, c in zip(ys, gy, cy)]
+    assert all(torch.equal(x1[k], wx[k]) for k in xs)
+    assert all(torch.equal(a, b) for a, b in zip(y1, wy))
 
 
 # ------------------------------------------- compressed-correction kernels
@@ -357,6 +465,88 @@ def test_cuda_pack_stages_rows_that_fit(cuda_device):
     assert not pack_staged(60000, 15000, "topk", "quant", 3750, torch.float32)
 
 
+def _tied_rows(dev, R, C, dt, seed):
+    """R rows cycling Gaussian, all equal, a block of ties below a few
+    larger values (tied rand-k scores too), NaN every third column (NaN
+    rand-k scores too) and zeros; feedback only where it keeps the ties."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(generator=gen, device=dev, dtype=torch.float64)
+    scale = 50.0 if dt == "fp8" else 100.0
+    c = torch.randn(R, C, **f64) * scale
+    e = torch.randn(R, C, **f64) * (scale * 0.1)
+    us, ur = torch.rand(R, C, **f64), torch.rand(R, C, **f64)
+    kind = torch.arange(R, device=dev) % 5
+    col = torch.arange(C, device=dev)
+    third = (col % 3 == 0)[None]
+    c = torch.where((kind == 1)[:, None], 2.5, c)
+    us = torch.where((kind == 1)[:, None], 0.5, us)
+    two = (kind == 2)[:, None]
+    c = torch.where(two, torch.where(third, 7.0, 1.0), c)
+    c = torch.where(two & (col < max(1, C // 10))[None], 50.0, c)
+    us = torch.where(two & third, 0.75, us)
+    nan = (kind == 3)[:, None] & third
+    c = torch.where(nan, float("nan"), c)
+    us = torch.where(nan, float("nan"), us)
+    c = torch.where((kind == 4)[:, None], 0.0, c)
+    e = torch.where(((kind == 1) | (kind == 2) | (kind == 4))[:, None], 0.0, e)
+    return ref.cast_to(c, DT[dt]), ref.cast_to(e, DT[dt]), us, ur
+
+
+@pytest.mark.parametrize("R", [1, 3, 16, 17, 33, 132, 16384])
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_compress_correction_clusters_bitwise(cuda_device, dt, R):
+    """Every cluster size (1: one CTA a row; 2, 4, 8 CTAs a row joined
+    through distributed shared memory) and the launcher's own choice,
+    bitwise the plain version over rows of many equal scores, NaN rows
+    and zero rows, odd row lengths (rows starting off a vector boundary),
+    k from 1 to C, both modes, 8-bit and no quantization; the route each
+    call took is recorded."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    shapes = [(R, 255)] if R > 2 * sms else [(R, 4096), (R, 1001)]
+    for (rows, C), cs in itertools.product(shapes, CLUSTER_SIZES + (None,)):
+        c, e, us, ur = _tied_rows(cuda_device, rows, C, dt, rows + C)
+        for mode, k, bits in itertools.product(("topk", "randk"),
+                                               sorted({1, C // 10, C // 3, C - 1, C}),
+                                               (8, 32)):
+            got = compress_correction_2d(c, e, us, ur, k=k, bits=bits, mode=mode,
+                                         cluster=cs)
+            plan = compress_correction_2d.last_plan
+            want = ref.compress_correction_ref(c, e, us, ur, k=k, bits=bits, mode=mode)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, want, ("chat", "resid")):
+                assert _same(g, w), f"{name} {rows}x{C} cluster={cs} {mode} k={k} b{bits}"
+            size = auto_cluster(rows, C) if cs is None else cs
+            assert plan == {"route": "cluster" if size > 1 else "staged",
+                            "cluster": size,
+                            "threads": 256 if size > 1 or rows >= 2 * sms else 512}
+
+
+def test_cuda_compress_correction_cluster_choice_and_unaligned(cuda_device):
+    """The launcher's cluster size fills the SMs (8 CTAs a row at the
+    strategies' 16 rows, 1 at many), asks at least 128 columns a CTA, and
+    takes operands one element off an aligned base (scalar accesses) at
+    every size; a size outside 1, 2, 4, 8 is refused."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert auto_cluster(16, 4096) == 8 and auto_cluster(sms // 4, 4096) == 4
+    assert auto_cluster(2 * sms, 4096) == 1 and auto_cluster(16, 300) == 2
+    c, e, us, ur = _tied_rows(cuda_device, 5, 1000, "f32", 9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    leaf = tuple(map(shifted, (c, e, us, ur)))
+    assert leaf[0].data_ptr() % 16
+    for cs, mode in itertools.product(CLUSTER_SIZES, ("topk", "randk")):
+        got = compress_correction_2d(*leaf, k=250, bits=8, mode=mode, cluster=cs)
+        want = ref.compress_correction_ref(*leaf, k=250, bits=8, mode=mode)
+        assert all(_same(g, w) for g, w in zip(got, want)), (cs, mode)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        compress_correction_2d(c, e, us, ur, k=8, bits=8, cluster=3)
+
+
 def test_cuda_compress_kernels_count_launches_and_raise(cuda_device):
     c, e, us, ur = _leaf(cuda_device, 4, 256, "f32", True, 1)
     compress_correction_2d.launches = pack_payload_2d.launches = 0
@@ -467,8 +657,9 @@ def test_cuda_normal_within_its_ulp_of_cpu(cuda_device, dt):
 def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     """chip_smoke's stochastic main path at a reduced size: iterates and
     state through the kernels equal the plain path's bit for bit (the same
-    draws feed both), with gt_update launched K x 2 times a noisy round
-    ((K - 1) x 2 with the fused anchor step) and pack / unpack twice."""
+    draws feed both), with gt_update updating K x 2 leaves a noisy round
+    ((K - 1) x 2 with the fused anchor step), x and y in one launch a
+    step, and pack / unpack twice."""
     import dataclasses
 
     from repro_torch.fed import (
@@ -503,17 +694,19 @@ def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
                               proj_y=prob.proj_y, **kw)
         x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
         gt_update.launches = pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        gt_update.leaf_updates = 0
         (x, y, st), _ = core.run_strategy_rounds(
             rnd, x0, x0, prob.agent_data, rounds, s.init_state(x0, x0, m))
-        out[name] = (x, y, st, gt_update.launches, pack_payload_2d.launches,
-                     unpack_payload_2d.launches)
+        out[name] = (x, y, st, gt_update.launches, gt_update.leaf_updates,
+                     pack_payload_2d.launches, unpack_payload_2d.launches)
     assert torch.equal(out["kernels"][0], out["plain"][0])
     assert torch.equal(out["kernels"][1], out["plain"][1])
     for key in out["kernels"][2]:
         assert torch.equal(out["kernels"][2][key].cpu(), out["plain"][2][key].cpu())
     gt, packs = launches
-    assert out["kernels"][3:] == (gt * rounds, packs * rounds, packs * rounds)
-    assert out["plain"][3:] == (0, 0, 0)
+    assert out["kernels"][3:] == (gt // 2 * rounds, gt * rounds, packs * rounds,
+                                  packs * rounds)
+    assert out["plain"][3:] == (0, 0, 0, 0)
 
 
 # ------------------------------------------------------ elastic population
@@ -564,8 +757,9 @@ def test_cuda_scenario_and_sparse_schedules_equal_cpu(cuda_device):
 def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     """Flaky elastic rounds through `FederatedRunner`: iterates, strategy
     state and tracker through the kernels equal the plain path's bit for
-    bit; gt_update launches (K - 1) x 2 a round (K x 2 without the fused
-    anchor step), compress / pack / unpack 2 a round."""
+    bit; gt_update updates (K - 1) x 2 leaves a round (K x 2 without the
+    fused anchor step) in one launch a step, compress / pack / unpack 2 a
+    round."""
     import dataclasses
 
     from repro_torch import sim
@@ -595,10 +789,12 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
         x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
         gt_update.launches = compress_correction_2d.launches = 0
         pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        gt_update.leaf_updates = 0
         x, y = runner.run(x0, x0, rounds, schedule=sched, rebase=rebase)
         torch.cuda.synchronize()
         out[name] = (x, y, runner._state or {}, runner.elastic_state,
-                     (gt_update.launches, compress_correction_2d.launches,
+                     (gt_update.launches, gt_update.leaf_updates,
+                      compress_correction_2d.launches,
                       pack_payload_2d.launches, unpack_payload_2d.launches))
     k, p = out["kernels"], out["plain"]
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -606,8 +802,9 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
         assert torch.equal(k[2][key].cpu(), p[2][key].cpu())
     for key in k[3]["tracker"]:
         assert torch.equal(k[3]["tracker"][key], p[3]["tracker"][key])
-    assert k[4] == (gt * rounds, comp * rounds, packs * rounds, packs * rounds)
-    assert p[4] == (0, 0, 0, 0)
+    assert k[4] == (gt // 2 * rounds, gt * rounds, comp * rounds, packs * rounds,
+                    packs * rounds)
+    assert p[4] == (0, 0, 0, 0, 0)
 
 
 # ------------------------------------------- sparse engine and pod tree
@@ -654,9 +851,9 @@ def _sparse_setup(cuda_device, m=16, d=256, pods=4, rounds=5, K=4):
 def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
     """The O(active) engine (forced sparse, 8 of 16 active, 4 pods): x, y,
     strategy state and the tracker's sums and rows through the kernels
-    equal the plain path's bit for bit; gt_update launches (K - 1) x 2 a
-    round with the fused anchor step (K x 2 without), the compressors' and
-    the pod partials' kernels 2 a round."""
+    equal the plain path's bit for bit; gt_update updates (K - 1) x 2
+    leaves a round with the fused anchor step (K x 2 without) in one launch
+    a step, the compressors' and the pod partials' kernels 2 a round."""
     import dataclasses
 
     from repro_torch import sim
@@ -682,10 +879,12 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
                          device=cuda_device)
         gt_update.launches = compress_correction_2d.launches = 0
         pack_payload_2d.launches = unpack_payload_2d.launches = 0
+        gt_update.leaf_updates = 0
         x, y = eng.run(x0, x0, sched)
         torch.cuda.synchronize()
         out[name] = (x, y, eng._state, eng._tracker,
-                     (gt_update.launches, compress_correction_2d.launches,
+                     (gt_update.launches, gt_update.leaf_updates,
+                      compress_correction_2d.launches,
                       pack_payload_2d.launches, unpack_payload_2d.launches))
     k, p = out["kernels"], out["plain"]
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -694,8 +893,8 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
     assert torch.equal(k[3].sum_gx, p[3].sum_gx) and torch.equal(k[3].sum_gy, p[3].sum_gy)
     for a, b in zip(k[3]._gx_leaves, p[3]._gx_leaves):
         assert (a[:k[3].num_touched] == b[:p[3].num_touched]).all()
-    assert k[4] == tuple(n * rounds for n in launches)
-    assert p[4] == (0, 0, 0, 0)
+    assert k[4] == tuple(n * rounds for n in (launches[0] // 2, *launches))
+    assert p[4] == (0, 0, 0, 0, 0)
 
 
 def test_cuda_pod_partials_roundtrip_through_pack_and_unpack(cuda_device):
@@ -1142,31 +1341,32 @@ def test_cuda_phase_spans_equal_the_fused_round(cuda_device):
 
 def test_cuda_async_gt_update_launches_on_the_shard_streams(cuda_device, monkeypatch):
     """Every gt_update launch of an async run goes to its shard's stream:
-    (K - 1) x 2 a round on each of the 4 shard streams, none on the
-    server's."""
+    K - 1 a round (x and y in one launch a step) on each of the 4 shard
+    streams, none on the server's."""
     import collections
 
     from repro_torch import fed
     from repro_torch.kernels import ops
 
     seen = []
-    real = ops.gt_update
+    real = ops.gt_update_many
 
-    def spy(z, g, c, **kw):
-        seen.append(torch.cuda.current_stream(z.device).cuda_stream)
-        return real(z, g, c, **kw)
+    def spy(zs, gs, cs, scales):
+        seen.append(torch.cuda.current_stream(zs[0].device).cuda_stream)
+        return real(zs, gs, cs, scales)
 
-    monkeypatch.setattr(ops, "gt_update", spy)
+    monkeypatch.setattr(ops, "gt_update_many", spy)
     prob, x0 = _async_setup(cuda_device)
     K, rounds = 4, 3
     ar = fed.AsyncFederatedRunner(prob.loss, "fedgda_gt", prob.agent_data, K, 1e-4,
                                   devices=[cuda_device] * ASYNC_SHARDS)
-    gt_update.launches = 0
+    gt_update.launches = gt_update.leaf_updates = 0
     ar.run(x0, x0, rounds)
     torch.cuda.synchronize()
     handles = [s.cuda_stream for s in ar._streams]
-    assert collections.Counter(seen) == {h: (K - 1) * 2 * rounds for h in handles}
+    assert collections.Counter(seen) == {h: (K - 1) * rounds for h in handles}
     assert gt_update.launches == len(seen)
+    assert gt_update.leaf_updates == 2 * len(seen)
     assert torch.cuda.current_stream(cuda_device).cuda_stream not in handles
 
 
@@ -1234,7 +1434,8 @@ def test_cuda_multihost_exact_gt_matches_sync(cuda_device):
 @pytest.mark.parametrize("wire", [False, True], ids=["dense", "wire"])
 def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeypatch,
                                                             wire):
-    """Every shard's gt_update, and its compress_correction (dense) or
+    """Every shard's gt_update (x and y in one launch a step), and its
+    compress_correction (dense) or
     pack_payload (wire) launches, go to its own stream: 4 distinct streams
     of the runner, the same count on each, none on the server's; the
     server's unpack_payload launches stay on the server's stream.  The
@@ -1251,12 +1452,13 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
         real = getattr(mod, attr)
 
         def spy(z, *a, **kw):
-            seen[attr].append(torch.cuda.current_stream(z.device).cuda_stream)
+            lead = z[0] if isinstance(z, (list, tuple)) else z
+            seen[attr].append(torch.cuda.current_stream(lead.device).cuda_stream)
             return real(z, *a, **kw)
 
         monkeypatch.setattr(mod, attr, spy)
 
-    spying(ops, "gt_update")
+    spying(ops, "gt_update_many")
     spying(strategies, "compress_leaf")
     spying(transport, "pack_payload_2d")
     spying(transport, "unpack_payload_2d")
@@ -1270,8 +1472,8 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
     assert len(set(handles)) == ASYNC_SHARDS
     server = torch.cuda.current_stream(cuda_device).cuda_stream
     assert server not in handles
-    assert collections.Counter(seen["gt_update"]) == {h: K * 2 * rounds
-                                                      for h in handles}
+    assert collections.Counter(seen["gt_update_many"]) == {h: K * rounds
+                                                           for h in handles}
     shard_kernel = "pack_payload_2d" if wire else "compress_leaf"
     assert collections.Counter(seen[shard_kernel]) == {h: 2 * rounds for h in handles}
     assert collections.Counter(seen["unpack_payload_2d"]) == (

@@ -12,6 +12,15 @@ interpret mode and the JAX oracle on the same numpy inputs:
   * f64: bit for bit equal to `ref.gt_update_ref` (the Pallas body
     downcasts f64 to f32; the port computes in f64).
 
+`gt_update_many` (every leaf of a tree in one launch a (z, c) dtype
+pair) and `make_gt_update_fn().pair` (x and y together) run the same
+plain version per leaf on the CPU: bitwise `ref.gt_update_ref` leaf by
+leaf, and within the same ulp of JAX's interpret-mode kernel.  The
+launch planner (`plan_launches`) is pure Python; its tests walk the
+kernel's unit map (`csrc/gt_update.cu`) over the planned tables and
+check that every element of every leaf is covered once, by a 16-byte
+access only where the leaf's pointers are aligned.
+
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py
 holds it against the plain version there (bit for bit).
 """
@@ -24,7 +33,8 @@ from repro.kernels import gt_update_2d, make_gt_update_fn as jax_make_update
 from repro.kernels import ref as jax_ref
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.core import default_update
-from repro_torch.kernels import gt_update, make_gt_update_fn, ref
+from repro_torch.kernels import gt_update, gt_update_many, make_gt_update_fn, ref
+from repro_torch.kernels.gt_update import THREADS, VEC_BYTES, plan_launches
 
 pytestmark = pytest.mark.torch
 
@@ -166,3 +176,150 @@ class TestWrapper:
         assert ref.compute_dtype(torch.float64) == torch.float64
         for dt in (torch.float32, torch.bfloat16, torch.float8_e4m3fn):
             assert ref.compute_dtype(dt) == torch.float32
+
+
+# ------------------------------------------------- gt_update_many, pair
+SIZE = {"f64": 8, "f32": 4, "bf16": 2, "fp8": 1}
+
+
+class TestMany:
+    @pytest.mark.parametrize("pair", [("f64", "f64"), ("f64", "fp8")] + NARROW_PAIRS,
+                             ids=lambda p: f"{p[0]}-{p[1]}")
+    def test_many_bitwise_equals_per_leaf_plain_and_near_jax(self, pair):
+        """Ragged leaves with their own scales, an empty one among them:
+        each output is `gt_update_ref` of its leaf bit for bit, and within
+        the ulp rule of JAX's interpret-mode kernel (f64: JAX's oracle)."""
+        zdt, cdt = pair
+        shapes = [(17,), (3, 5), (0,), (130, 7), (1,)]
+        leaves = [_inputs(sh, zdt, cdt, seed=40 + i) for i, sh in enumerate(shapes)]
+        scales = [(-1.0) ** i * ETA * (1 + i) for i in range(len(shapes))]
+        got = gt_update_many([lv[1][0] for lv in leaves], [lv[1][1] for lv in leaves],
+                             [lv[1][2] for lv in leaves], scales)
+        for (jx, (tz, tg, tc)), s, out in zip(leaves, scales, got):
+            assert out.dtype == tz.dtype and out.shape == tz.shape
+            assert torch.equal(out, ref.gt_update_ref(tz, tg, tc, s, 1.0))
+            if tz.numel() == 0:
+                continue
+            if zdt == "f64":
+                want = np.asarray(jax_ref.gt_update_ref(*jx, abs(s), np.sign(s)))
+                assert np.array_equal(out.numpy(), want)
+            else:
+                jz, jg, jc = ({"a": a} for a in jx)
+                want = jax_make_update(interpret=True, use_kernel=True)(
+                    jz, jg, jc, abs(s), float(np.sign(s)))["a"]
+                _assert_within_one_ulp(out, want, zdt, tz, tg, tc)
+
+    def test_pair_bitwise_equals_two_default_updates(self):
+        """`pair` on trees of f64 leaves: x descends with eta_x, y ascends
+        with eta_y, both bitwise the engine's plain `default_update`."""
+        rng = np.random.default_rng(7)
+        mk = lambda *sh: torch.tensor(rng.standard_normal(sh))
+        xs, ys = {"w": mk(4, 9), "b": mk(4, 3)}, [mk(4, 11)]
+        gx, gy = {k: mk(*v.shape) for k, v in xs.items()}, [mk(4, 11)]
+        cx, cy = {k: mk(*v.shape) for k, v in xs.items()}, [mk(4, 11)]
+        x1, y1 = make_gt_update_fn().pair(xs, gx, cx, 2e-3, ys, gy, cy, 5e-3)
+        wx = default_update(xs, gx, cx, 2e-3, -1.0)
+        wy = default_update(ys, gy, cy, 5e-3, 1.0)
+        assert all(torch.equal(x1[k], wx[k]) for k in xs)
+        assert torch.equal(y1[0], wy[0])
+
+    def test_pair_equals_jax_update_of_each_side(self):
+        """`pair` against JAX's `make_gt_update_fn` (interpret mode) on each
+        side: f32 leaves within one ulp, as the single-tree update."""
+        leaves = [_inputs(sh, "f32", "bf16", seed=60 + i)
+                  for i, sh in enumerate([(5, 40), (3,), (2, 2, 9)])]
+        jt = [{f"l{i}": lv[0][j] for i, lv in enumerate(leaves)} for j in range(3)]
+        tt = [{f"l{i}": lv[1][j] for i, lv in enumerate(leaves)} for j in range(3)]
+        x1, y1 = make_gt_update_fn().pair(*tt, ETA, *tt, 2 * ETA)
+        jax_update = jax_make_update(interpret=True, use_kernel=True)
+        for got, (eta, sign) in ((x1, (ETA, -1.0)), (y1, (2 * ETA, 1.0))):
+            want = jax_update(*jt, eta, sign)
+            for k in want:
+                _assert_within_one_ulp(got[k], want[k], "f32", tt[0][k], tt[1][k],
+                                       tt[2][k])
+
+    def test_many_checks_every_leaf_and_counts_nothing_on_the_cpu(self):
+        z = torch.zeros(4, 8)
+        with pytest.raises(ValueError, match="shapes"):
+            gt_update_many([z, z], [z, z], [z, torch.zeros(4, 7)], [ETA, ETA])
+        with pytest.raises(ValueError, match="scales"):
+            gt_update_many([z], [z], [z], [ETA, ETA])
+        gt_update.launches = gt_update.leaf_updates = 0
+        gt_update_many([z, z.double()], [z, z.double()], [z, z.double()], [ETA, ETA])
+        make_gt_update_fn().pair(z, z, z, ETA, z, z, z, ETA)
+        assert (gt_update.launches, gt_update.leaf_updates) == (0, 0)
+
+
+# ------------------------------------------------------- the launch plan
+def _walk(rec, z_size):
+    """The elements the kernel's threads touch for one table entry, as
+    csrc/gt_update.cu's unit map gives them: [(element, vector?)]."""
+    z, g, c, out, n, s, blocks, vec = rec
+    v = VEC_BYTES // z_size
+    nvec = n // v if vec else 0
+    units = nvec + (n - nvec * v)
+    stride = blocks * THREADS
+    seen = []
+    for start in range(stride):  # every thread of the leaf's blocks
+        for u in range(start, units, stride):
+            if u < nvec:
+                seen += [(u * v + j, True) for j in range(v)]
+            else:
+                seen.append((nvec * v + (u - nvec), False))
+    return seen
+
+
+class TestPlan:
+    def test_every_element_once_vectors_only_where_aligned(self):
+        """Leaves of every (z, c) size pair, aligned and misaligned, of
+        ragged lengths, some longer than `max_blocks` x THREADS units (the
+        grid-stride case): every element is touched once, by a vector only
+        where z, g, out sit on 16 bytes and c on its V values."""
+        leaves, base = [], 1 << 20
+        cases = [("f64", "f64"), ("f64", "fp8"), ("f32", "bf16"), ("bf16", "fp8"),
+                 ("bf16", "bf16"), ("f32", "f32")]
+        for i, (zdt, cdt) in enumerate(cases):
+            for n, shift in ((1, 0), (13, 0), (4099, 0), (4099, 1), (9000, 0)):
+                zs, cs = SIZE[zdt], SIZE[cdt]
+                z = base + shift * zs
+                leaves.append(((0, zdt, cdt), z, z + (1 << 16), base + (2 << 16) + shift * cs,
+                               z + (3 << 16), n, zs, cs, 1.0 + i))
+                base += 1 << 18
+        plan = plan_launches(leaves, max_blocks=4)
+        entries = [(key, rec) for key, recs in plan for rec in recs]
+        assert len(entries) == len(leaves)
+        for (key, rec), leaf in zip(sorted(entries, key=lambda e: e[1][0]),
+                                    sorted(leaves, key=lambda l: l[1])):
+            zs, cs = SIZE[key[1]], SIZE[key[2]]
+            aligned = leaf[1] % 16 == 0 and leaf[3] % (16 // zs * cs) == 0
+            assert rec[7] == int(aligned) and rec[5] == leaf[8]
+            assert 1 <= rec[6] <= 4
+            seen = _walk(rec, zs)
+            assert sorted(e for e, _ in seen) == list(range(rec[4]))
+            assert any(vec for _, vec in seen) == (aligned and rec[4] >= 16 // zs)
+
+    def test_groups_by_pair_in_first_appearance_and_cuts_tables(self):
+        """Leaves grouped by (device, z, c) in the order their first leaf
+        comes, each group cut into tables of `cap`; empty leaves dropped;
+        each leaf keeps its own scale."""
+        keys = [(0, "f32", "f32"), (0, "f64", "f64"), (1, "f32", "f32")]
+        leaves = []
+        for i in range(23):
+            key = keys[i % 3] if i < 21 else keys[0]
+            n = 0 if i == 4 else 100 + i
+            leaves.append((key, 16 * i, 16 * i, 16 * i, 16 * i, n, 4, 4, float(i)))
+        plan = plan_launches(leaves, max_blocks=100, cap=3)
+        assert [k for k, _ in plan] == [keys[0]] * 3 + [keys[1]] * 2 + [keys[2]] * 3
+        assert [len(r) for _, r in plan] == [3, 3, 3, 3, 3, 3, 3, 1]
+        scales = [rec[5] for _, recs in plan for rec in recs]
+        assert sorted(scales) == [float(i) for i in range(23) if i != 4]
+        assert [rec[5] for rec in plan[0][1]] == [0.0, 3.0, 6.0]
+        assert plan_launches([(keys[0], 0, 0, 0, 0, 0, 4, 4, 1.0)], 8) == []
+
+    def test_blocks_cover_the_units_up_to_the_wave(self):
+        """One block per THREADS units, at most `max_blocks`."""
+        for n, blocks in ((1, 1), (4 * THREADS, 1), (4 * THREADS + 1, 2),
+                          (10 ** 7, 7)):
+            (_, (rec,)), = plan_launches([((0, "f32", "f32"), 0, 0, 0, 0, n, 4, 4, 1.0)],
+                                         max_blocks=7)
+            assert rec[6] == blocks and rec[7] == 1
