@@ -60,11 +60,16 @@ phases of `--claims 1` and `--claims 2` are marked so):
              encoding, at the main path's [16, 4096] f64, ragged rows,
              rows longer than shared memory and rows with NaN; pack also
              on all-tie, one-exponent and split-tie rows at odd lengths,
-             more rows than twice the SMs and unaligned operands; times at
+             more rows than twice the SMs and unaligned operands; unpack
+             also through one `unpack_payload_many` call over the whole
+             matrix (null indices and scales as the transport passes
+             them) and into out views at an odd offset, and the round's
+             x and y in one launch against two one-leaf calls; times at
              [16, 4096] f64 and [16384, 4096] f32 (pack: top-k and rand-k
              8-bit) against the HBM bound and `torch.topk` of the scores
-             (the library yardstick); pack's main-shape device time per
-             call (profiler) beside its wall time, and each `pack_kernel`
+             (the library yardstick); pack's and unpack's main-shape
+             device time per call (profiler) beside its wall time
+             (unpack's also at the large shape), and each `pack_kernel`
              instantiation's registers, spills and shared memory.
              compress_correction's matrix runs at the launcher's cluster
              size and again at one CTA a row, and its main shape is timed
@@ -137,8 +142,9 @@ phases of `--claims 1` and `--claims 2` are marked so):
              QuantizedGT 8-bit top-k 0.25 over the packed wire
              (pack_payload / unpack_payload): iterates equal the
              use_kernel=False run's bit for bit, each kernel launches
-             exactly rounds x 2 times, the gap falls, and the PackedTree
-             moves exactly the LeafSpec price
+             exactly rounds x 2 times (unpack: rounds, x and y in one
+             launch, over rounds x 2 leaves), the gap falls, and the
+             PackedTree moves exactly the LeafSpec price
   compressed_profile
              device time by kernel over one round of (b)
   fig2       [--claims 1] the paper's Sec 5.2 at its own size (d=20, n=100, m=10,
@@ -186,7 +192,7 @@ phases of `--claims 1` and `--claims 2` are marked so):
              kernels equal the plain path's bit for bit; gt_update
              100 launches over 200 leaves (noisy: no fused anchor step)
              and 90 over 180 (partial), x and y in one launch a step,
-             pack / unpack 20; ms per round, the device's busy share and
+             pack 20, unpack 10 over 20 leaves; ms per round, the device's busy share and
              launches of a round under the profiler, and the draws' share
              of them and of the device time (one broadcast draws several
              rounds in one pass: per round is a pass over its rounds)
@@ -224,8 +230,8 @@ phases of `--claims 1` and `--claims 2` are marked so):
              under a flaky schedule (seed 0) through `FederatedRunner`:
              FedGDA-GT with rebasing (gt_update, 90 launches over 180
              leaves) and CompressedGT top-k 0.1 over the wire (gt_update
-             100 over 200, pack /
-             unpack 20), each bitwise equal to the plain path (iterates,
+             100 over 200, pack 20,
+             unpack 10 over 20 leaves), each bitwise equal to the plain path (iterates,
              state, tracker); ms and kernel launches per round beside the
              static FedGDA-GT round's, one round of each under the
              profiler; a stable round forced through the elastic round
@@ -243,13 +249,14 @@ phases of `--claims 1` and `--claims 2` are marked so):
              densified schedule; ms a round beside that runner's, launches
              and host syncs a round, one profiled round, peak memory, and
              the last pod payload decoded through unpack_payload bitwise
+             (one launch for its two leaves)
   async_main_path
              the main path's problem (d=4096, m=16, f64, K=10, 10 rounds)
              through `AsyncFederatedRunner(devices=[cuda] * 4)`: 4 shards,
              one CUDA stream each, for FedGDA-GT (gt_update 360 launches:
              4 shards x 9 x 10, over 720 leaves), CompressedGT top-k 0.1
-             over the wire (400 over 800, pack /
-             unpack 20), FullSync, and FedGDA-GT under a flaky schedule
+             over the wire (400 over 800, pack 20,
+             unpack 10 over 20 leaves), FullSync, and FedGDA-GT under a flaky schedule
              (MarkovChurn 0.6 / 0.4, stragglers 0.3 / 0.5, seed 0) that
              skips whole shards (the shard_skipped events as the host mask
              says); each within rtol 1e-9 / atol 1e-12 of the sync runner
@@ -384,8 +391,8 @@ COMPRESSED_ROUNDS = {"thm1": 300, "quad6": 1000}  # of 500 and 1500
 LARGE = (16384, 4096)
 #: the CUDA sources the port builds (src/repro_torch/kernels/csrc/<name>.cu)
 KERNEL_SOURCES = ("gt_update", "compress_correction", "pack_payload",
-                  "flash_attention", "flash_attention_bwd", "ssm_scan",
-                  "ssm_scan_bwd")
+                  "unpack_payload", "flash_attention", "flash_attention_bwd",
+                  "ssm_scan", "ssm_scan_bwd")
 #: H100 SXM dense peak rates by input type (data sheet): f32 outside the
 #: tensor cores, bf16 on them; the bound of the model kernels' operations
 PEAK_FLOPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
@@ -1073,22 +1080,73 @@ def phase_pack_payload(torch, card: str, shared: dict) -> dict:
                        "for top-k, u_sel for rand-k)"}
 
 
-def phase_unpack_payload(torch, card: str, shared: dict) -> dict:
-    from repro_torch.kernels import ref, unpack_payload_2d
+#: the unpack kernel's name in the profiler's trace
+UNPACK_KERNEL = "unpack_table_kernel"
 
-    n = 0
+
+def phase_unpack_payload(torch, card: str, shared: dict) -> dict:
+    """unpack_payload against its plain version, bit for bit, over
+    `pack_cases`: each case as a one-leaf call with its indices and scale
+    made, then the whole matrix through one `unpack_payload_many` call (a
+    table a dtype of up to TABLE_CAP leaves, every encoding and spec
+    mixed) with the null indices and scale the transport passes; some
+    cases into out views at an odd offset and row stride.  Wall times
+    (CUDA events) at the main path's [16, 4096] f64 and the large f32
+    payload against the bytes bound, the round's x and y in one launch
+    against two one-leaf calls; then device times (the profiler) of the
+    same calls, and of a fill and a copy of the main output (PyTorch's,
+    the floor of a kernel that writes those bytes)."""
+    from repro_torch.kernels import ref, unpack_payload_2d
+    from repro_torch.kernels.pack_payload import TABLE_CAP, UnpackSpec, unpack_payload_many
+
+    leaves = []
     for tag, args, k, bits, mode, enc, idt in pack_cases(torch):
         c, e, us, ur = _leaf_from(torch, args)
-        payload = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits, mode=mode,
-                                       encoding=enc, index_dtype=idt)[:3]
-        dk = dict(cols=c.shape[1], dtype=c.dtype, k=k, bits=bits, encoding=enc)
-        got = unpack_payload_2d(*payload, **dk)
-        want = ref.decode_payload_ref(*payload, **dk)
+        data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits, mode=mode,
+                                                encoding=enc, index_dtype=idt)[:3]
+        spec = UnpackSpec(c.shape[1], c.dtype, k, bits, enc)
+        got = unpack_payload_2d(data, idx, scale, **spec._asdict())
+        want = ref.decode_payload_ref(data, idx, scale, **spec._asdict())
         torch.cuda.synchronize()
         check(bitwise(torch, got, want), f"unpack_payload {tag}: differs from the "
                                          "plain version")
-        n += 1
-    timing = {}
+        # null where the transport passes none: the iota's indices, no scale
+        leaves.append((tag, data,
+                       None if k == spec.cols or enc in ("quant_dense", "dense") else idx,
+                       scale if enc.startswith("quant") else None, spec, want))
+    del c, e, us, ur, got
+    args = [[leaf[i] for leaf in leaves] for i in (1, 2, 3, 4)]
+    per_dtype = collections.Counter(leaf[4].dtype for leaf in leaves)
+    tables = {"leaves": len(leaves),
+              "launches": sum(-(-n // TABLE_CAP) for n in per_dtype.values())}
+    zero_counts()
+    gots = unpack_payload_many(*args)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    for leaf, got in zip(leaves, gots):
+        check(bitwise(torch, got, leaf[5]), f"unpack_payload_many {leaf[0]}: differs "
+                                            "from the plain version")
+    check((counts["unpack_payload"], counts["unpack_leaves"])
+          == (tables["launches"], tables["leaves"]),
+          f"unpack_payload_many: {counts['unpack_payload']} launches, "
+          f"{counts['unpack_leaves']} leaves for the matrix, expected {tables}")
+    del gots
+    # out views one value past an aligned base, 3 values of padding a row
+    odd = [leaf for leaf in leaves if "nan-row" in leaf[0] or "k1024" in leaf[0]]
+    for tag, data, idx, scale, spec, want in odd:
+        buf = torch.empty((data.shape[0], spec.cols + 3), dtype=spec.dtype, device=DEVICE)
+        buf.view(torch.uint8).fill_(0x55)
+        out = buf[:, 1:1 + spec.cols]
+        unpack_payload_many([data], [idx], [scale], [spec], [out])
+        torch.cuda.synchronize()
+        rest = torch.cat([buf[:, :1], buf[:, 1 + spec.cols:]], dim=1)
+        check(bitwise(torch, out, want) and bool((rest.view(torch.uint8) == 0x55).all()),
+              f"unpack_payload {tag}: differs in an out view at an odd offset")
+    n_odd = len(odd)
+    del leaves, args, odd
+    torch.cuda.empty_cache()
+
+    timing, runs = {}, {}
     for name, reps in (("main", 200), ("large", 10)):
         payload, C, dtype, k = shared["payloads"][name]
         dk = dict(cols=C, dtype=dtype, k=k, bits=8, encoding="quant")
@@ -1096,20 +1154,65 @@ def phase_unpack_payload(torch, card: str, shared: dict) -> dict:
         want = ref.decode_payload_ref(*payload, **dk)
         err = max_abs_err(torch, (got,), (want,))
         check(err == 0.0, f"unpack_payload {name}: max |err| {err}")
+        runs[name] = run = lambda p=payload, d=dk: unpack_payload_2d(*p, **d)
         timing[name] = {
             "shape": [payload[0].shape[0], C], "dtype": str(dtype), "k": k,
-            "bits": 8, "encoding": "quant", "max_abs_err": err,
+            "bits": 8, "encoding": "quant", "max_abs_err": err, "kernel": UNPACK_KERNEL,
             # no single PyTorch call unpacks bit-packed levels
-            **time_case(torch, lambda: unpack_payload_2d(*payload, **dk),
-                        lambda: ref.decode_payload_ref(*payload, **dk), None,
-                        nbytes(*payload, got), reps, 20 if name == "main" else 3,
+            **time_case(torch, run, lambda p=payload, d=dk: ref.decode_payload_ref(*p, **d),
+                        None, nbytes(*payload, got), reps, 20 if name == "main" else 3,
                         card),
         }
         del got, want
+    # the round's decode of x and y ([16, 4096] f64 each): one launch, as
+    # the transport's `decode_corrections` makes it, and two one-leaf calls
+    px, C, dtype, k = shared["payloads"]["main"]
+    c, e, us, ur = make_leaf(torch, 16, C, "f64", True, 12)
+    py = ref.pack_payload_ref(c, e, None, ur, k=k, bits=8, mode="topk",
+                              encoding="quant", index_dtype=torch.uint16)[:3]
+    spec = UnpackSpec(C, dtype, k, 8, "quant")
+    one = lambda: unpack_payload_many(*zip(px, py), [spec, spec])
+    two = lambda: (unpack_payload_2d(*px, **spec._asdict()),
+                   unpack_payload_2d(*py, **spec._asdict()))
+    want = [ref.decode_payload_ref(*p, **spec._asdict()) for p in (px, py)]
+
+    def counted(run) -> tuple:
+        zero_counts()
+        got = run()
+        torch.cuda.synchronize()
+        check(all(bitwise(torch, g, w) for g, w in zip(got, want)),
+              "unpack_payload x and y: the kernel differs from the plain version")
+        return kernel_counts()["unpack_payload"], kernel_counts()["unpack_leaves"]
+
+    check(counted(one) == (1, 2) and counted(two) == (2, 2),
+          "unpack_payload x and y: not one launch for both leaves")
+    nb = 2 * nbytes(*px, want[0])
+    timing["main_xy"] = {
+        "shape": [2, 16, C], "dtype": str(dtype), "k": k, "bits": 8, "leaves": 2,
+        "one_call_ms": time_ms(torch, one, reps=200),
+        "two_calls_ms": time_ms(torch, two, reps=200), "bytes": nb,
+        "bound_ms": nb / HBM_BYTES_PER_S * 1e3, "card": card}
+    # device times, after every wall time (a profiler session slows later
+    # launches on the host)
+    for name, run in runs.items():
+        t = timing[name]
+        dev = t["device_ms_per_call"] = device_ms_per_call(torch, run, UNPACK_KERNEL)
+        t["host_ms_per_call"] = None if dev is None else t["ms"] - dev
+        t["device_share_of_bound"] = None if dev is None else t["bound_ms"] / dev
+    t = timing["main_xy"]
+    t["one_call_device_ms"] = device_ms_per_call(torch, one, UNPACK_KERNEL)
+    t["two_calls_device_ms"] = device_ms_per_call(torch, two, UNPACK_KERNEL)
+    # the floor of a kernel that writes the main payload's output: PyTorch's
+    # fill of it, and its copy (which also reads it)
+    buf = torch.empty_like(want[0])
+    timing["main"]["fill_device_ms"] = device_ms_per_call(torch, buf.zero_, "elementwise")
+    timing["main"]["copy_device_ms"] = device_ms_per_call(
+        torch, lambda: buf.copy_(want[1]), "")
     shared.pop("payloads")
     torch.cuda.empty_cache()
     shared.setdefault("timing", {})["unpack_payload"] = timing
-    return {"cases_bitwise": n, "timing": timing}
+    return {"cases_bitwise": tables["leaves"], "tables": tables,
+            "odd_offset_cases": n_odd, "timing": timing}
 
 
 def _kernel_fns() -> dict:
@@ -1126,12 +1229,15 @@ def _kernel_fns() -> dict:
 
 
 def kernel_counts() -> dict:
-    """Each kernel's launches, and gt_update's leaf updates (one launch
-    updates every leaf of x and y) as "gt_update_leaves"."""
+    """Each kernel's launches, gt_update's leaf updates (one launch
+    updates every leaf of x and y) as "gt_update_leaves" and unpack's leaf
+    decodes (one launch decodes every leaf of an exchange) as
+    "unpack_leaves"."""
     from repro_torch import kernels
 
     return {**{name: fn.launches for name, fn in _kernel_fns().items()},
-            "gt_update_leaves": kernels.gt_update.leaf_updates}
+            "gt_update_leaves": kernels.gt_update.leaf_updates,
+            "unpack_leaves": kernels.unpack_payload_2d.leaf_decodes}
 
 
 def zero_counts() -> None:
@@ -1140,6 +1246,14 @@ def zero_counts() -> None:
     for fn in _kernel_fns().values():
         fn.launches = 0
     kernels.gt_update.leaf_updates = 0
+    kernels.unpack_payload_2d.leaf_decodes = 0
+
+
+def unpack_counts(exchanges: int, leaves: int = 2) -> dict:
+    """unpack_payload's counts over `exchanges` decodes of packed
+    corrections: one launch an exchange (every leaf of cx and cy, of
+    every shard, in one table), `leaves` leaves an exchange."""
+    return {"unpack_payload": exchanges, "unpack_leaves": exchanges * leaves}
 
 
 def gt_counts(steps: int, leaves: int = 2) -> dict:
@@ -1588,7 +1702,7 @@ def train_launch_prediction(cfg, K: int, leaves: int) -> dict:
             "ssm_scan": (2 * K + 1) * cfg.num_layers,
             "ssm_scan_bwd": K * cfg.num_layers,
             **gt_counts(K - 1, leaves),
-            "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
+            "compress_correction": 0, "pack_payload": 0, **unpack_counts(0)}
 
 
 def phase_train_main_path(torch, np, card: str, shared: dict) -> dict:
@@ -1648,7 +1762,7 @@ def spmd_train_prediction(cfg, K: int, leaves: int) -> dict:
             "flash_attention_bwd": K * shared_blocks,
             "ssm_scan": 2 * K * cfg.num_layers, "ssm_scan_bwd": K * cfg.num_layers,
             **gt_counts(K, leaves),
-            "compress_correction": 0, "pack_payload": 0, "unpack_payload": 0}
+            "compress_correction": 0, "pack_payload": 0, **unpack_counts(0)}
 
 
 def phase_spmd_train(torch, card: str) -> dict:
@@ -2894,7 +3008,7 @@ def phase_compressed_main_path(torch, card: str, shared: dict, rounds: int) -> d
                                          wire_transport=True),
                              {"compress_correction": 0,
                               "pack_payload": 2 * rounds,
-                              "unpack_payload": 2 * rounds}),
+                              **unpack_counts(rounds)}),
     }
     out = {}
     for tag, (strategy, expected) in runs.items():
@@ -2968,7 +3082,7 @@ def phase_compressed_profile(torch, shared: dict) -> dict:
     x0, data, m = shared["x0"], shared["data"], shared["problem"].num_agents
     st = strategy.init_state(x0, x0, m)
     return profile_round(torch, lambda: rnd(x0, x0, data, st), {
-        "pack_payload": "pack_kernel", "unpack_payload": "unpack_kernel",
+        "pack_payload": "pack_kernel", "unpack_payload": UNPACK_KERNEL,
         "gt_update": "gt_update_kernel"})
 
 
@@ -3136,7 +3250,7 @@ def phase_stochastic_main_path(torch, card: str, shared: dict, rounds: int) -> d
             QuantizedGT(bits=8, ratio=0.25, mode="topk", wire_transport=True,
                         noise=noise),
             {**gt_counts(K * rounds), "pack_payload": 2 * rounds,
-             "unpack_payload": 2 * rounds}),
+             **unpack_counts(rounds)}),
     }
 
     def record(x, y):
@@ -3181,7 +3295,7 @@ def phase_stochastic_main_path(torch, card: str, shared: dict, rounds: int) -> d
         x1, y1, st1 = rnd(x0, x0, data, st0)
         prof = profile_round(torch, lambda: rnd(x1, y1, data, st1), {
             "gt_update": "gt_update_kernel", "pack_payload": "pack_kernel",
-            "unpack_payload": "unpack_kernel"})
+            "unpack_payload": UNPACK_KERNEL})
         info = {"strategy": repr(strategy), "rounds": rounds, "K": K,
                 "ms_per_round_kernels": kernel_s / rounds * 1e3,
                 "ms_per_round_plain": plain_s / rounds * 1e3,
@@ -3380,7 +3494,7 @@ def phase_elastic_main_path(torch, np, card: str, shared: dict, rounds: int) -> 
             CompressedGT(compression_ratio=0.1, mode="topk", wire_transport=True,
                          use_kernel=False),
             {**gt_counts(K * rounds), "pack_payload": 2 * rounds,
-             "unpack_payload": 2 * rounds}),
+             **unpack_counts(rounds)}),
     }
     out = {"schedule": {"n_active": sched.active.sum(axis=1).tolist(),
                         "draw_s": draw_s}}
@@ -3786,14 +3900,19 @@ def phase_sparse_main_path(torch, np, card: str, shared: dict, rounds: int) -> d
         if wire:
             info["pod_wire_bytes"] = [h["pod_wire_bytes"] for h in ke.history]
             partials, packed = ke.last_pod_wire
-            unpacks = kernel_counts()["unpack_payload"]
+            zero_counts()
             back = fpods.decode_pod_partials(packed)
             torch.cuda.synchronize()
             info["pod_roundtrip"] = {
                 "bitwise": all(torch.equal(a, b) for a, b in zip(partials, back)),
-                "unpack_payload_launches": kernel_counts()["unpack_payload"] - unpacks}
+                "unpack_payload_launches": kernel_counts()["unpack_payload"],
+                "unpack_leaves": kernel_counts()["unpack_leaves"]}
             check(info["pod_roundtrip"]["bitwise"],
                   f"sparse_main_path {tag}: pod partials do not round-trip")
+            check((info["pod_roundtrip"]["unpack_payload_launches"],
+                   info["pod_roundtrip"]["unpack_leaves"]) == (1, len(packed.payloads)),
+                  f"sparse_main_path {tag}: the pod partials' decode is not one launch "
+                  f"({info['pod_roundtrip']})")
         out[tag] = info
     return out
 
@@ -3848,8 +3967,8 @@ def kernel_streams_by(torch, run, matchers: dict) -> dict:
 LAUNCH_SITES = {"gt_update": ("repro_torch.kernels.ops", "gt_update_many"),
                 "pack_payload": ("repro_torch.fed.transport", "pack_payload_2d"),
                 "compress_correction": ("repro_torch.fed.strategies", "compress_leaf")}
-#: the kernels' names in the profiler's trace (unpack_kernel also holds
-#: "pack_kernel")
+#: the kernels' names in the profiler's trace (the unpack kernel's name
+#: holds "pack_")
 TRACE_NAMES = {
     "gt_update": lambda n: "gt_update_kernel" in n,
     "pack_payload": lambda n: ("pack_kernel" in n or "pack_stream_kernel" in n)
@@ -3928,7 +4047,7 @@ def phase_async_main_path(torch, np, card: str, shared: dict, rounds: int) -> di
             lambda: CompressedGT(compression_ratio=0.1, mode="topk",
                                  wire_transport=True), None,
             {**gt_counts(S * K * rounds), "pack_payload": 2 * rounds,
-             "unpack_payload": 2 * rounds}),
+             **unpack_counts(rounds)}),
         "full_sync": (FullSync, None, gt_counts(0)),
         "gt_flaky": (GradientTracking, sched, gt_counts(n_live * (K - 1))),
     }
@@ -4196,12 +4315,12 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
             lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk",
                                       wire_transport=True, **kw),
             {**steps, "pack_payload": 2 * S * rounds,
-             "unpack_payload": 2 * S * rounds}),
+             **unpack_counts(rounds, 2 * S)}),
         "c_quantized_randk_wire": (
             lambda **kw: QuantizedGT(bits=8, ratio=0.25, mode="randk",
                                      wire_transport=True, **kw),
             {**steps, "pack_payload": 2 * S * rounds,
-             "unpack_payload": 2 * S * rounds}),
+             **unpack_counts(rounds, 2 * S)}),
         "d_compressed_dense": (
             lambda **kw: CompressedGT(compression_ratio=0.1, mode="topk", **kw),
             {**steps, "compress_correction": 2 * S * rounds}),
@@ -4243,7 +4362,8 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
         xm, ym, mh_ms = timed(mr)
         launches = kernel_counts()
         for name in ("gt_update", "gt_update_leaves", "compress_correction",
-                     "pack_payload", "unpack_payload", "flash_attention", "ssm_scan"):
+                     "pack_payload", "unpack_payload", "unpack_leaves",
+                     "flash_attention", "ssm_scan"):
             want = expected.get(name, 0)
             check(launches[name] == want, f"multihost_main_path {tag}: "
                   f"{launches[name]} {name} launches, expected {want}")
@@ -4310,7 +4430,7 @@ def phase_multihost_main_path(torch, np, card: str, shared: dict, rounds: int) -
         sync_syncs = count_syncs(torch, lambda: s2.run(x0, x0, 2)) - count_syncs(
             torch, lambda: s1.run(x0, x0, 1))
         names = {"gt_update": "gt_update_kernel", "gemv": "gemv",
-                 "compress_correction": "compress_", "unpack": "unpack_kernel"}
+                 "compress_correction": "compress_", "unpack": UNPACK_KERNEL}
         prof = profile_round(torch, lambda: make_mh(make).run(x0, x0, 1), names)
         sync_prof = profile_round(torch, lambda: make_sync(make).run(x0, x0, 1), names)
         # the shards' kernels: the current stream at the launch site and the
@@ -4635,7 +4755,7 @@ COMPRESSED_KERNELS = {
         "src/repro/kernels/pack_payload.py:66", "b_quantized_wire",
         "torch.topk(|c + e|, k): the select alone"),
     "unpack_payload": (
-        "src/repro_torch/kernels/csrc/pack_payload.cu",
+        "src/repro_torch/kernels/csrc/unpack_payload.cu",
         "src/repro/kernels/pack_payload.py:141", "b_quantized_wire",
         "null: no single PyTorch call unpacks bit-packed levels"),
 }
@@ -4708,15 +4828,20 @@ def compressed_entry(name: str, shared: dict, card: str) -> dict:
     shape ([16, 4096] f64), measured in its own phase."""
     source, replaces, run, library = COMPRESSED_KERNELS[name]
     t = shared["timing"][name]["main"]
-    return {
+    launches = shared["compressed"][run]["launches"]
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": shared["compressed"][run]["launches"][name],
+        "launches": launches[name],
         "max_abs_err": t["max_abs_err"], "tolerance": 0.0,
         "bitwise_vs_plain": t["max_abs_err"] == 0.0, "shape": t["shape"],
         "dtypes": [t["dtype"]], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "device_ms_per_call": t.get("device_ms_per_call"),
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
         "library_ms": t["library_ms"], "library": library, "card": card,
     }
+    if name == "unpack_payload":
+        entry["leaf_decodes"] = launches["unpack_leaves"]
+    return entry
 
 
 #: the model kernels: (source, TPU kernel it replaces); their launches

@@ -519,12 +519,11 @@ def make_phases(
             cx, cy = tracking_corrections(g0.gx, g0.gy, gbar_x, gbar_y, cdt)
             cx, cy, state = strategy.transform_correction(cx, cy, rs.state)
             # wire-transport strategies hand back packed payloads
-            # (`fed.transport.PackedTree`, duck-typed on its `decode`
-            # hook): scatter them back to dense corrections
-            if hasattr(cx, "decode"):
-                cx = cx.decode()
-            if hasattr(cy, "decode"):
-                cy = cy.decode()
+            # (`fed.transport.PackedTree`): scatter both back to dense
+            # corrections in one decode
+            from ..fed.transport import decode_corrections
+
+            cx, cy = decode_corrections(cx, cy)
             # momentum folds the correction into a velocity, so the first
             # step is no longer the plain anchor update
             fused = bool(strategy.exact_correction) and not momentum

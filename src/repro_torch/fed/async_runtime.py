@@ -83,6 +83,7 @@ from ..obs.telemetry import maybe_span
 from ..sim.elastic import tracker_exchange
 from .runtime import RoundStats, RunnerHistoryMixin
 from .strategies import resolve_strategy
+from .transport import decode_corrections
 
 
 def _num_agents(agent_data: Pytree) -> int:
@@ -455,10 +456,7 @@ class AsyncFederatedRunner(ShardStreams, RunnerHistoryMixin):
         gbar_y = agent_mean(gy, weights)
         cx, cy = tracking_corrections(gx, gy, gbar_x, gbar_y, self._cdt)
         cx, cy, state = self._strategy.transform_correction(cx, cy, state)
-        if hasattr(cx, "decode"):
-            cx = cx.decode()
-        if hasattr(cy, "decode"):
-            cy = cy.decode()
+        cx, cy = decode_corrections(cx, cy)
         return cx, cy, gbar_x, gbar_y, state
 
     def _run_fullsync_round(self, x, y, weights=None, shard_live=None):

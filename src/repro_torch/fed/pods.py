@@ -82,5 +82,6 @@ def pod_payload_bytes(x: Pytree, y: Pytree, *, measured: bool = True,
 
 
 def decode_pod_partials(tree: PackedTree) -> Pytree:
-    """Inverse of `encode_pod_partials` (bitwise, dense specs)."""
+    """Inverse of `encode_pod_partials` (bitwise, dense specs), every leaf
+    in one decode (one launch on the card)."""
     return tree.decode()

@@ -10,14 +10,19 @@
                 lengths.
   LeafPayload   the packed buffers of one leaf: uint32 words (or raw
                 values), uint16 / int32 indices, per-row scales.
-  encode_leaf / decode_leaf
-                pack one flattened [R, C] leaf / scatter it back to the
-                dense correction, through the `pack_payload_2d` /
-                `unpack_payload_2d` kernels (plain versions on CPU
-                tensors); decode(encode(c)) is the dense compressed
-                correction, bit for bit.
+  encode_leaf / decode_leaf / decode_payloads
+                pack one flattened [R, C] leaf / scatter leaves back to
+                the dense correction, through the `pack_payload_2d` /
+                `unpack_payload_many` kernels (plain versions on CPU
+                tensors; many leaves decode in one launch);
+                decode(encode(c)) is the dense compressed correction,
+                bit for bit.
   PackedTree    what a wire-transport strategy returns from
-                `transform_correction`; the engine calls its `decode()`.
+                `transform_correction`; its `decode()` decodes every leaf
+                in one call.
+  decode_corrections
+                an exchange's cx and cy decoded together, in one launch:
+                what the engine and the runtimes call.
   measured_bytes_per_round
                 the bytes of the buffers `encode_leaf` really emits, next
                 to the analytic price.
@@ -33,13 +38,17 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from ..core.types import leaf_groups, tree_leaves
 from ..kernels import ref
-from ..kernels.pack_payload import pack_payload_2d, unpack_payload_2d
+from ..kernels.pack_payload import (
+    pack_payload_2d,
+    unpack_payload_many,
+    unpack_payload_plain,
+)
 
 Pytree = Any
 
@@ -197,20 +206,26 @@ def decode_leaf(payload: LeafPayload, spec: LeafSpec, *,
     """Scatter the packed payload back to the dense [rows, cols]
     compressed correction (bitwise the chat that produced it, but for a
     kept -0.0, which lands as +0.0 as in JAX's scatter-add)."""
-    data = payload.data
-    rows = data.shape[0]
-    idx = payload.indices
-    if idx is None:  # dense, or k == cols: indices are implicit
-        idx = torch.arange(spec.k, dtype=torch.int32,
-                           device=data.device).expand(rows, spec.k).contiguous()
-    scale = payload.scales
-    if scale is None:
-        scale = torch.zeros((rows, 1), dtype=spec.scale_dtype, device=data.device)
-    kw = dict(cols=spec.cols, dtype=spec.dtype, k=spec.k, bits=spec.bits,
-              encoding=spec.encoding)
+    return decode_payloads([payload], [spec], use_kernel=use_kernel)[0]
+
+
+def decode_payloads(payloads: Sequence[LeafPayload], specs: Sequence[LeafSpec], *,
+                    use_kernel: bool = True,
+                    outs: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """`decode_leaf` of every payload, through the kernel in one
+    `unpack_payload_many` call (one launch per device and dtype), which
+    takes the implicit indices and zero scale as null; `use_kernel=False`
+    runs the plain version on any device, which makes them (the iota of
+    k == cols, or of an encoding without indices, and a zero scale).
+    outs[i], where given, is the [rows, cols] view leaf i is decoded
+    into."""
     if use_kernel:
-        return unpack_payload_2d(data, idx, scale, **kw)
-    return ref.decode_payload_ref(data, idx, scale, **kw)
+        return unpack_payload_many([p.data for p in payloads],
+                                   [p.indices for p in payloads],
+                                   [p.scales for p in payloads], specs, outs)
+    outs = [None] * len(payloads) if outs is None else outs
+    return [unpack_payload_plain(*payload, spec, out)
+            for payload, spec, out in zip(payloads, specs, outs)]
 
 
 class PackedTree:
@@ -232,10 +247,13 @@ class PackedTree:
         self.headers = len(payloads) if headers is None else headers
 
     def decode(self) -> Pytree:
-        return self.unflatten([
-            decode_leaf(p, s, use_kernel=self.use_kernel).reshape(shape)
-            for p, s, shape in zip(self.payloads, self.specs, self.shapes)
-        ])
+        """The dense tree, every leaf decoded in one call."""
+        return self.unflatten(self.reshape(decode_payloads(
+            self.payloads, self.specs, use_kernel=self.use_kernel)))
+
+    def reshape(self, dense: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Decoded [rows, cols] leaves in the tree's [m, *leaf_shape]."""
+        return [d.reshape(shape) for d, shape in zip(dense, self.shapes)]
 
     def wire_bytes(self) -> int:
         """Actual packed buffer bytes across all leaves and agents."""
@@ -243,6 +261,21 @@ class PackedTree:
 
     def total_bytes(self) -> int:
         return self.wire_bytes() + HEADER_BYTES * self.headers
+
+
+def decode_corrections(cx: Pytree, cy: Pytree) -> Tuple[Pytree, Pytree]:
+    """The dense corrections of one exchange: cx and cy as a wire-transport
+    strategy's `transform_correction` hands them back (`PackedTree`s) are
+    decoded together, every leaf of both in one call (one launch per
+    device and dtype); a dense tree passes through unchanged."""
+    packed = [t for t in (cx, cy) if isinstance(t, PackedTree)]
+    if len(packed) == 2 and cx.use_kernel == cy.use_kernel:
+        dense = decode_payloads(cx.payloads + cy.payloads, cx.specs + cy.specs,
+                                use_kernel=cx.use_kernel)
+        n = len(cx.payloads)
+        return (cx.unflatten(cx.reshape(dense[:n])),
+                cy.unflatten(cy.reshape(dense[n:])))
+    return tuple(t.decode() if hasattr(t, "decode") else t for t in (cx, cy))
 
 
 # --------------------------------------------------------------------------

@@ -6,7 +6,9 @@ version (`ref`):
   * compress_correction_2d — feedback + exact-k select + QSGD + residual
     (CUDA C++, `csrc/compress_correction.cu`)
   * pack_payload_2d / unpack_payload_2d — the same select and quantize
-    into packed wire buffers, and back (CUDA C++, `csrc/pack_payload.cu`)
+    into packed wire buffers (CUDA C++, `csrc/pack_payload.cu`), and back
+    (`csrc/unpack_payload.cu`: `pack_payload.unpack_payload_many` decodes
+    a table of leaves in one launch)
   * flash_attention — blocked online-softmax attention with causal /
     window masks, softcap and native GQA, on the tensor cores (CUDA C++,
     `csrc/flash_attention.cu`), differentiable through

@@ -37,6 +37,7 @@ SOURCE_FLAGS = {
     "gt_update": ("-fmad=false",),
     "compress_correction": ("-fmad=false",),
     "pack_payload": ("-fmad=false", "--split-compile=0"),
+    "unpack_payload": ("-fmad=false",),
     "flash_attention": ("--split-compile=0",),
     "flash_attention_bwd": ("--split-compile=0",),
     "ssm_scan": (),

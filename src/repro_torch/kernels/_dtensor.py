@@ -12,9 +12,9 @@ leader through a map {leader dim: its dim}: `Shard` of the mapped dim,
 `Replicate` where the dim is missing or has size 1 (a broadcast operand).
 An output that sums over a sharded leader dim it lacks or broadcasts is
 `Partial()` (`reduces`).  Operands are redistributed to those placements
-(`redistribute_inputs`).  `gt_update_many`, whose one launch takes many
-leaves, places each leaf by the same rule through `local_operands`
-instead."""
+(`redistribute_inputs`).  `gt_update_many` and `unpack_payload_many`,
+whose one launch takes many leaves, place each leaf by the same rule
+through `local_operands` and `local_rows` instead."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence
@@ -84,6 +84,27 @@ def local_operands(operands: Sequence[torch.Tensor]):
 
     def wrap(out: torch.Tensor):
         return DTensor.from_local(out, mesh, pl, run_check=False)
+
+    return local, wrap
+
+
+def local_rows(operands: Sequence[Optional[torch.Tensor]], out_shape: Sequence[int]):
+    """Operands of a row-wise kernel, the first a DTensor: their local
+    shards under `local_call(..., keep=(0,))`'s placements, each operand's
+    dim 0 following the leader's (None and plain tensors pass through),
+    and wrap(out), which makes a local output the DTensor of global
+    `out_shape` that `local_call` would return."""
+    from torch.distributed.tensor import DTensor
+
+    lead = operands[0]
+    mesh = lead.device_mesh
+    lead_pl = _leader_placements(lead, (0,))
+    local = tuple(t.redistribute(mesh, _follow(lead_pl, t.shape, {0: 0})).to_local()
+                  if is_dtensor(t) else t for t in operands)
+    out_pl = _follow(lead_pl, out_shape, {0: 0})
+
+    def wrap(out: torch.Tensor):
+        return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
     return local, wrap
 

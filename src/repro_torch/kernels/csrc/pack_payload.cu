@@ -1,21 +1,14 @@
-// Fused wire-payload kernels for Hopper (sm_90a).
+// Fused wire-payload pack for Hopper (sm_90a): one CTA per row of a
+// flattened correction leaf [R, C]: the select and quantize of
+// compress_correction, then the wire buffers of the row -- ascending kept
+// column indices, the levels q + s bit-packed into uint32 words, the kept
+// values, or the whole compressed row, per encoding -- plus the row's
+// scale and the feedback residual ceff - chat.
 //
-// pack_payload:   one CTA per row of a flattened correction leaf [R, C]:
-//                 the select and quantize of compress_correction, then the
-//                 wire buffers of the row -- ascending kept column indices,
-//                 the levels q + s bit-packed into uint32 words, the kept
-//                 values, or the whole compressed row, per encoding --
-//                 plus the row's scale and the feedback residual
-//                 ceff - chat.
-// unpack_payload: one CTA per row: unpack the words, dequantize with
-//                 dequantize_levels' expression, and write the dense row;
-//                 kept slots land as 0 + v, as JAX's scatter-add into zeros
-//                 does (a kept -0.0 decodes to +0.0).
-//
-// Replace `repro/kernels/pack_payload.py` `pack_payload_2d` and
-// `unpack_payload_2d` (the Pallas TPU kernels behind the packed wire
-// transport, `fed/transport.py`).  Both equal the plain versions
-// (`kernels/ref.py` `pack_payload_ref`, `decode_payload_ref`) bit for bit.
+// Replaces `repro/kernels/pack_payload.py` `pack_payload_2d` (the Pallas
+// TPU kernel behind the packed wire transport, `fed/transport.py`).  It
+// equals the plain version (`kernels/ref.py` `pack_payload_ref`) bit for
+// bit.  Its inverse, the unpack, is `unpack_payload.cu`.
 //
 // Encodings (codes shared with kernels/pack_payload.py):
 //   0 quant        words [R, W]: the k kept levels, storage_bits each
@@ -30,8 +23,7 @@
 // scatter does.
 //
 // Bound: HBM bytes -- c, e, u_sel, u_rnd read once; data, idx, scale and
-// resid written once (pack); data, idx, scale read and the dense row
-// written once (unpack).
+// resid written once.
 //
 // Pack has two routes, chosen at launch from the row's shared-memory
 // footprint:
@@ -327,47 +319,6 @@ pack_stream_kernel(const T* __restrict__ c, const T* __restrict__ e,
   }
 }
 
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-unpack_kernel(const void* __restrict__ data, const void* __restrict__ idx,
-              const Acc* __restrict__ scale, T* __restrict__ out, int cols,
-              int k, int bits, int enc, int idx_u16, int words, double s,
-              double inv_s) {
-  const int64_t r = blockIdx.x;
-  T* o = out + r * cols;
-  if (enc == kDense) {
-    const T* d = static_cast<const T*>(data) + r * cols;
-    for (int j = threadIdx.x; j < cols; j += kThreads) o[j] = d[j];
-    return;
-  }
-  const Acc sc = scale[r];
-  const Acc safe = sc > (Acc)0 ? sc : (Acc)1;
-  const Acc t = mul_rn(safe, from_host(inv_s, Acc()));
-  const Acc sa = from_host(s, Acc());
-  const int sb = storage_bits(bits);
-  const int pw = 32 / sb;
-  const uint32_t mask = sb == 32 ? 0xFFFFFFFFu : ((1u << sb) - 1u);
-  const uint32_t* w = static_cast<const uint32_t*>(data) + r * words;
-  auto value = [&](int slot) -> T {  // dequantized level of one slot
-    const uint32_t lev = (w[slot / pw] >> ((slot % pw) * sb)) & mask;
-    return Store<T>::of(mul_rn(sub_rn(from_i32((int)lev, Acc()), sa), t));
-  };
-  if (enc == kQuantDense) {
-    for (int j = threadIdx.x; j < cols; j += kThreads) o[j] = value(j);
-    return;
-  }
-  for (int j = threadIdx.x; j < cols; j += kThreads) o[j] = Store<T>::of((Acc)0);
-  __syncthreads();
-  const T* vals = static_cast<const T*>(data) + r * k;
-  for (int j = threadIdx.x; j < k; j += kThreads) {
-    const int col = idx_u16 ? (int)static_cast<const uint16_t*>(idx)[r * k + j]
-                            : static_cast<const int32_t*>(idx)[r * k + j];
-    if (col < 0 || col >= cols) continue;  // dropped, as JAX's scatter does
-    const T v = enc == kSparse ? vals[j] : value(j);
-    o[col] = Store<T>::of(add_rn((Acc)0, to_ct(v, Acc())));
-  }
-}
-
 // ------------------------------------------------------------ launchers
 // dynamic shared memory both staged instantiations may take
 template <typename T, typename Acc, typename U>
@@ -422,16 +373,6 @@ int pack_by_uniform(int u_dtype, const void* c, const void* e, const void* us,
     return launch_pack<T, Acc, float>(c, e, us, ur, data, idx, scale, resid, scratch,
                                       rows, n, k, bits, topk, enc, idx_u16, words, s, inv_s, st);
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, typename Acc>
-int launch_unpack(const void* data, const void* idx, const void* scale, void* out,
-                  long long rows, int cols, int k, int bits, int enc, int idx_u16,
-                  int words, double s, double inv_s, cudaStream_t stream) {
-  unpack_kernel<T, Acc><<<(unsigned)rows, kThreads, 0, stream>>>(
-      data, idx, static_cast<const Acc*>(scale), static_cast<T*>(out), cols, k,
-      bits, enc, idx_u16, words, s, inv_s);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, typename Acc>
@@ -490,30 +431,6 @@ extern "C" int pack_payload_staged(int n, int k, int topk, int enc, int idx_u16,
     case kFP8E4M3: return staged_for<__nv_fp8_e4m3, float>(n, k, topk, enc, idx_u16, words);
   }
   return -1;
-}
-
-// Launch unpack on `stream`: data / idx / scale as pack wrote them (idx
-// is read for quant and sparse only, scale for quant and quant_dense),
-// out [rows, cols] of dtype.
-extern "C" int unpack_payload_launch(
-    const void* data, const void* idx, const void* scale, void* out,
-    long long rows, int cols, int k, int bits, int enc, int idx_u16,
-    int words, int dtype, double s, double inv_s, void* stream) {
-  if (rows <= 0) return 0;
-  if (cols <= 0 || k <= 0 || enc < 0 || enc > 3 || rows > 0x7FFFFFFFLL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF64:
-      return launch_unpack<double, double>(data, idx, scale, out, rows, cols, k, bits, enc, idx_u16, words, s, inv_s, st);
-    case kF32:
-      return launch_unpack<float, float>(data, idx, scale, out, rows, cols, k, bits, enc, idx_u16, words, s, inv_s, st);
-    case kBF16:
-      return launch_unpack<__nv_bfloat16, float>(data, idx, scale, out, rows, cols, k, bits, enc, idx_u16, words, s, inv_s, st);
-    case kFP8E4M3:
-      return launch_unpack<__nv_fp8_e4m3, float>(data, idx, scale, out, rows, cols, k, bits, enc, idx_u16, words, s, inv_s, st);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pack_payload_error_string(int err) {

@@ -3,34 +3,49 @@
 Port of `repro/kernels/pack_payload.py`.  They produce and consume the
 packed wire format of `fed/transport.py`:
 
-  pack_payload_2d    c [R, C] -> (data, idx, scale, resid): feedback
-                     injection, exact-k selection, QSGD quantization,
-                     ascending kept indices, uint32 bit-packing of the
-                     levels, and the residual, one pass per row
-  unpack_payload_2d  (data, idx, scale) -> the dense chat [R, cols]: word
-                     unpack, dequantization and the scatter back into a
-                     zero row
+  pack_payload_2d      c [R, C] -> (data, idx, scale, resid): feedback
+                       injection, exact-k selection, QSGD quantization,
+                       ascending kept indices, uint32 bit-packing of the
+                       levels, and the residual, one pass per row
+                       (`csrc/pack_payload.cu`: one CTA per row, any row
+                       length; a row that fits shared memory is staged
+                       there, a longer one streams)
+  unpack_payload_many  (data, idx, scale) of many leaves -> their dense
+                       chat [R, cols]: word unpack, dequantization and the
+                       scatter into a zero row, every leaf of one (device,
+                       dtype) in one launch (`csrc/unpack_payload.cu`: a
+                       table of leaves, each block one row's tile of
+                       columns, assembled in shared memory and stored
+                       once in 16-byte vectors); `unpack_payload_2d` is
+                       its one-leaf case
 
-Both run the CUDA kernels of `csrc/pack_payload.cu` on CUDA tensors (one
-CTA per row, any row length: a row that fits shared memory is staged
-there, a longer one streams) and their plain versions
+Unpack's contract: a row's indices are unique, as every producer writes
+them (`ref.pack_payload_ref`, the pack kernel, the implicit iota); an
+index past the row is dropped, as JAX's scatter drops it.  The plain
+version sums a repeated index; the kernel keeps one of them.
+
+Both run their CUDA kernels on CUDA tensors and their plain versions
 (`ref.pack_payload_ref`, `ref.decode_payload_ref`) on CPU tensors; every
 output is bitwise equal between the two.  There is no fallback: a CUDA
-tensor the kernels do not take raises.  `launches` on each wrapper counts
-kernel launches only.  On DTensors (`_dtensor`) `unpack_payload_2d` runs
-on the local shards, rows sharded and columns replicated; `pack_payload_2d`
-runs replicated, as a row's k is chosen over the whole row.
+tensor the kernels do not take raises.  `pack_payload_2d.launches` and
+`unpack_payload_2d.launches` count kernel launches only, and
+`unpack_payload_2d.leaf_decodes` the leaves those launches decoded.  On
+DTensors (`_dtensor`) unpack runs on the local shards, rows sharded and
+columns replicated; `pack_payload_2d` runs replicated, as a row's k is
+chosen over the whole row.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import itertools
+import struct
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build, ref
-from ._dtensor import is_dtensor, local_call
+from ._dtensor import is_dtensor, local_call, local_rows
 from .compress_correction import (
     DTYPE_CODES,
     UNIFORM_CODES,
@@ -53,10 +68,6 @@ def _library() -> ctypes.CDLL:
             i, i, d, d, p,
         ]
         lib.pack_payload_launch.restype = i
-        lib.unpack_payload_launch.argtypes = [
-            p, p, p, p, ctypes.c_longlong, i, i, i, i, i, i, i, d, d, p,
-        ]
-        lib.unpack_payload_launch.restype = i
         lib.pack_payload_staged.argtypes = [i, i, i, i, i, i, i]
         lib.pack_payload_staged.restype = i
         lib.pack_payload_error_string.argtypes = [i]
@@ -180,67 +191,256 @@ def pack_payload_2d(
 pack_payload_2d.launches = 0
 
 
-def unpack_payload_2d(
-    data: torch.Tensor,
-    idx: torch.Tensor,
-    scale: torch.Tensor,
-    *,
-    cols: int,
-    dtype: torch.dtype,
-    k: int,
-    bits: int = 32,
-    encoding: str = "quant",
-) -> torch.Tensor:
-    """The dense [R, cols] compressed correction of a packed payload,
-    bitwise equal to `ref.decode_payload_ref`."""
-    cols, k, bits = int(cols), int(k), int(bits)
+# ------------------------------------------------------------------ unpack
+#: the unpack kernel's threads per block, leaves per launch and most output
+#: bytes a block's tile holds (`csrc/unpack_payload.cu` kThreads, kLargeCap,
+#: kTileBytes)
+UNPACK_THREADS = 256
+TABLE_CAP = 256
+TILE_BYTES = 16384
+#: the least output bytes of a tile where a leaf's rows are cut to fill the
+#: SMs (a whole row is one tile where it is shorter), and a vector's bytes
+MIN_TILE_BYTES = 512
+VEC_BYTES = 16
+#: one leaf of the launch table as the C launcher reads it (`Leaf`): data,
+#: idx, scale, out, out's row stride, s, 1/s, rows, cols, k, bits,
+#: encoding, uint16 indices, words, tile, tiles a row, blocks
+_UNPACK_LEAF = "4Qqdd10i"
+
+_unpack_lib = None
+_sms: Dict[int, int] = {}
+
+
+class UnpackSpec(NamedTuple):
+    """The layout `unpack_payload_many` reads of one leaf; a
+    `fed.transport.LeafSpec` carries the same fields and serves as one."""
+
+    cols: int
+    dtype: torch.dtype
+    k: int
+    bits: int = 32
+    encoding: str = "quant"
+
+
+def _unpack_library() -> ctypes.CDLL:
+    global _unpack_lib
+    if _unpack_lib is None:
+        lib = _build.load("unpack_payload")
+        fn = lib.unpack_payload_many_launch
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.unpack_payload_error_string.argtypes = [ctypes.c_int]
+        lib.unpack_payload_error_string.restype = ctypes.c_char_p
+        for name, want in (("unpack_payload_table_capacity", TABLE_CAP),
+                           ("unpack_payload_threads", UNPACK_THREADS),
+                           ("unpack_payload_tile_bytes", TILE_BYTES)):
+            got = getattr(lib, name)()
+            if got != want:
+                raise RuntimeError(f"unpack_payload: the library's {name} is {got}, "
+                                   f"the wrapper's {want}")
+        _unpack_lib = lib
+    return _unpack_lib
+
+
+def _sm_count(index: int) -> int:
+    n = _sms.get(index)
+    if n is None:
+        n = _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def unpack_tile(rows: int, cols: int, itemsize: int, sms: int) -> int:
+    """Columns one block of the unpack kernel owns in a leaf of `rows` x
+    `cols` values of `itemsize` bytes: a row cut into about sms // rows
+    tiles, so that a few rows still fill the SMs ([16, 4096] f64 on 132
+    SMs: 8 tiles of 512), each a whole number of 16-byte vectors of at
+    least MIN_TILE_BYTES and at most TILE_BYTES; the whole row where that
+    is shorter."""
+    v = VEC_BYTES // itemsize
+    want = -(-cols // max(1, sms // rows))
+    tile = max(-(-want // v) * v, MIN_TILE_BYTES // itemsize)
+    return min(tile, TILE_BYTES // itemsize, cols)
+
+
+def plan_unpack(leaves: Sequence[tuple], sms: Callable[[object], int],
+                cap: int = TABLE_CAP) -> List[Tuple[object, list]]:
+    """The launches of one `unpack_payload_many` call: leaves = (key, data,
+    idx, scale, out, out_stride, rows, cols, k, bits, encoding, idx_u16,
+    words, itemsize) with key the (device, dtype) a launch holds and the
+    pointers as ints (idx and scale 0 where null); sms(key) is the SM
+    count of the key's device, which sizes its leaves' tiles.  Returns [(key,
+    [record, ...])], one entry per launch: the leaves grouped by key in
+    order of first appearance, each group cut into tables of at most
+    `cap`; leaves without rows take no entry.  A record is the table's
+    `_UNPACK_LEAF`."""
+    groups: Dict[object, list] = {}
+    for (key, data, idx, scale, out, stride, rows, cols, k, bits, encoding,
+         idx_u16, words, itemsize) in leaves:
+        if not rows:
+            continue
+        tile = unpack_tile(rows, cols, itemsize, sms(key))
+        tiles = -(-cols // tile)
+        s, inv_s = quant_constants(bits)
+        groups.setdefault(key, []).append(
+            (data, idx, scale, out, stride, s, inv_s, rows, cols, k, bits,
+             ENCODING_CODES[encoding], idx_u16, words, tile, tiles, rows * tiles))
+    return [(key, recs[i:i + cap]) for key, recs in groups.items()
+            for i in range(0, len(recs), cap)]
+
+
+@functools.lru_cache(maxsize=None)
+def _unpack_table(count: int) -> struct.Struct:
+    return struct.Struct("<" + _UNPACK_LEAF * count)
+
+
+def _check_unpack(data, idx, scale, out, cols: int, dtype, k: int, bits: int,
+                  encoding: str) -> None:
     _check_encoding("unpack_payload", encoding, bits)
     if dtype not in DTYPE_CODES:
         raise TypeError(f"unpack_payload: unsupported dtype {dtype}")
     R = data.shape[0]
     ct = ref.compute_dtype(dtype)
     want = payload_data_shape(encoding, R, cols, k, bits)
-    quant = encoding in ("quant", "quant_dense")
-    if tuple(data.shape) != want or data.dtype != (torch.uint32 if quant else dtype):
-        raise ValueError(f"unpack_payload: data must be {want} of "
-                         f"{torch.uint32 if quant else dtype}, got "
+    wdt = torch.uint32 if encoding in ("quant", "quant_dense") else dtype
+    if tuple(data.shape) != want or data.dtype != wdt:
+        raise ValueError(f"unpack_payload: data must be {want} of {wdt}, got "
                          f"{tuple(data.shape)} of {data.dtype}")
-    if tuple(idx.shape) != (R, k) or idx.dtype not in INDEX_DTYPES:
+    if idx is not None and (tuple(idx.shape) != (R, k) or idx.dtype not in INDEX_DTYPES):
         raise ValueError(f"unpack_payload: idx must be ({R}, {k}) uint16 or "
                          f"int32, got {tuple(idx.shape)} of {idx.dtype}")
-    if tuple(scale.shape) != (R, 1) or scale.dtype != ct:
+    if scale is not None and (tuple(scale.shape) != (R, 1) or scale.dtype != ct):
         raise ValueError(f"unpack_payload: scale must be ({R}, 1) of {ct}")
-    if not (data.device == idx.device == scale.device):
+    if any(t is not None and t.device != data.device for t in (idx, scale, out)):
         raise ValueError("unpack_payload: operands on different devices")
-    if not (data.is_contiguous() and idx.is_contiguous() and scale.is_contiguous()):
+    if not all(t is None or t.is_contiguous() for t in (data, idx, scale)):
         raise ValueError("unpack_payload: operands must be contiguous")
-    if is_dtensor(data, idx, scale):
-        rows = {0: 0}
-        return local_call(
-            lambda d, i, s: unpack_payload_2d(d, i, s, cols=cols, dtype=dtype, k=k,
-                                              bits=bits, encoding=encoding),
-            (data, idx, scale), (rows,) * 3, keep=(0,), out_maps=(rows,),
-            out_shapes=((R, cols),))
-    if data.device.type == "cpu":
-        return ref.decode_payload_ref(data, idx, scale, cols=cols, dtype=dtype,
-                                      k=k, bits=bits, encoding=encoding)
-    if data.device.type != "cuda":
-        raise ValueError(f"unpack_payload: no kernel for device {data.device}")
-    out = torch.empty((R, cols), dtype=dtype, device=data.device)
-    if R == 0:
-        return out
-    s, inv_s = quant_constants(bits)
-    lib = _library()
-    with torch.cuda.device(data.device):
-        err = lib.unpack_payload_launch(
-            data.data_ptr(), idx.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            R, cols, k, bits, ENCODING_CODES[encoding],
-            int(idx.dtype == torch.uint16), want[1] if quant else 0,
-            DTYPE_CODES[dtype], s, inv_s, stream_of(data),
-        )
-    _raise_on(lib, err, "unpack_payload")
-    unpack_payload_2d.launches += 1
-    return out
+    if out is not None and (tuple(out.shape) != (R, cols) or out.dtype != dtype
+                            or (cols > 1 and out.stride(1) != 1)
+                            or (R > 1 and out.stride(0) < cols)):
+        raise ValueError(f"unpack_payload: out must be ({R}, {cols}) of {dtype} "
+                         f"with unit column stride and rows that do not overlap, "
+                         f"got {tuple(out.shape)} of {out.dtype}, strides "
+                         f"{tuple(out.stride())}")
+
+
+def unpack_payload_plain(data: torch.Tensor, idx: Optional[torch.Tensor],
+                         scale: Optional[torch.Tensor], spec,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of one leaf of `unpack_payload_many`, on any
+    device: `ref.decode_payload_ref` with the implicit iota and a zero
+    scale made where they are null, copied into `out` where given."""
+    R, k = data.shape[0], int(spec.k)
+    if idx is None:
+        idx = torch.arange(k, dtype=torch.int32, device=data.device).expand(R, k)
+    if scale is None:
+        scale = torch.zeros((R, 1), dtype=ref.compute_dtype(spec.dtype),
+                            device=data.device)
+    dense = ref.decode_payload_ref(data, idx, scale, cols=int(spec.cols),
+                                   dtype=spec.dtype, k=k, bits=int(spec.bits),
+                                   encoding=spec.encoding)
+    return dense if out is None else out.copy_(dense)
+
+
+def _launch_unpack(plan) -> None:
+    lib = _unpack_library()
+    for (index, dtype), recs in plan:
+        table = _unpack_table(len(recs)).pack(*itertools.chain.from_iterable(recs))
+        err = lib.unpack_payload_many_launch(table, len(recs), DTYPE_CODES[dtype], index,
+                                             torch.cuda.current_stream(index).cuda_stream)
+        if err != 0:
+            raise RuntimeError("unpack_payload kernel launch failed: "
+                               + lib.unpack_payload_error_string(err).decode())
+        unpack_payload_2d.launches += 1
+        unpack_payload_2d.leaf_decodes += len(recs)
+
+
+def unpack_payload_many(
+    datas: Sequence[torch.Tensor],
+    idxs: Sequence[Optional[torch.Tensor]],
+    scales: Sequence[Optional[torch.Tensor]],
+    specs: Sequence,
+    outs: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> List[torch.Tensor]:
+    """The dense [R, cols] compressed correction of each packed leaf,
+    bitwise equal to `ref.decode_payload_ref`; specs[i] holds the leaf's
+    cols, dtype, k, bits and encoding (`UnpackSpec`, or a
+    `fed.transport.LeafSpec`).
+
+    idxs[i] None is the implicit iota (k == cols, or an encoding that
+    carries no indices), scales[i] None a zero scale (an encoding that
+    carries none).  Indices are unique within a row, as every producer
+    writes them (`ref.pack_payload_ref`, the pack kernel, the iota); an
+    index past the row is dropped.  The plain version sums a repeated
+    index, the kernel keeps one of them: a repeat is outside the
+    contract.  outs[i], where given, is the [R, cols] view (unit column
+    stride, rows that do not overlap, any offset) the leaf is decoded into
+    and returned.
+
+    The CUDA leaves of one (device, dtype) go to one launch per table of
+    `TABLE_CAP` leaves, whatever their encodings and specs; a CPU leaf
+    runs the plain version.  DTensor leaves go in as their local shards,
+    rows sharded and columns replicated, and come back as DTensors."""
+    n = len(datas)
+    outs = [None] * n if outs is None else list(outs)
+    if not (len(idxs) == len(scales) == len(specs) == len(outs) == n):
+        raise ValueError(f"unpack_payload_many: {n} data, {len(idxs)} idx, "
+                         f"{len(scales)} scale, {len(specs)} specs and {len(outs)} out")
+    result: List = [None] * n
+    leaves, wraps = [], []
+    for i in range(n):
+        data, idx, scale, spec, out = datas[i], idxs[i], scales[i], specs[i], outs[i]
+        cols, dtype, k, bits = int(spec.cols), spec.dtype, int(spec.k), int(spec.bits)
+        encoding = spec.encoding
+        _check_unpack(data, idx, scale, out, cols, dtype, k, bits, encoding)
+        R = data.shape[0]
+        if is_dtensor(data, idx, scale):
+            if out is not None:
+                raise ValueError("unpack_payload: DTensor leaves take no out rows")
+            (data, idx, scale), wrap = local_rows((data, idx, scale), (R, cols))
+            wraps.append((i, wrap))
+            R = data.shape[0]
+        if not data.is_cuda:
+            if data.device.type != "cpu":
+                raise ValueError(f"unpack_payload: no kernel for device {data.device}")
+            result[i] = unpack_payload_plain(data, idx, scale, spec, out)
+            continue
+        if out is None:
+            out = torch.empty((R, cols), dtype=dtype, device=data.device)
+        result[i] = out
+        leaves.append(((data.get_device(), dtype), data.data_ptr(),
+                       0 if idx is None else idx.data_ptr(),
+                       0 if scale is None else scale.data_ptr(), out.data_ptr(),
+                       out.stride(0), R, cols, k, bits, encoding,
+                       int(idx is not None and idx.dtype == torch.uint16),
+                       data.shape[1] if encoding in ("quant", "quant_dense") else 0,
+                       out.element_size()))
+    if leaves:
+        _launch_unpack(plan_unpack(leaves, lambda key: _sm_count(key[0])))
+    for i, wrap in wraps:
+        result[i] = wrap(result[i])
+    return result
+
+
+def unpack_payload_2d(
+    data: torch.Tensor,
+    idx: Optional[torch.Tensor],
+    scale: Optional[torch.Tensor],
+    *,
+    cols: int,
+    dtype: torch.dtype,
+    k: int,
+    bits: int = 32,
+    encoding: str = "quant",
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The dense [R, cols] compressed correction of one packed leaf, bitwise
+    equal to `ref.decode_payload_ref`: `unpack_payload_many`'s one-leaf
+    case (see there for null idx / scale and `out`)."""
+    return unpack_payload_many([data], [idx], [scale],
+                               [UnpackSpec(cols, dtype, k, bits, encoding)],
+                               None if out is None else [out])[0]
 
 
 unpack_payload_2d.launches = 0
+unpack_payload_2d.leaf_decodes = 0

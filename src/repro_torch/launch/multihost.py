@@ -21,10 +21,11 @@ interconnect.  This module is the launch path where they are shipped:
     shards compute anchor gradients, the server forms gbar, each shard
     ENCODES its correction on its stream (`transform_correction` with its
     own state) and ships only its packed buffers (`PackedTree.payloads`);
-    the server gathers them, rebuilds the `PackedTree`s from the specs,
-    DECODES, and re-stacks the agent axis.  The decoded correction slices
-    ride the down-link into per-shard local steps, and the server combines
-    the partial sums.  Every round's gathered byte count (counted from the
+    the server gathers them, rebuilds the `PackedTree`s from the specs and
+    DECODES every shard's cx and cy in one call, each shard's leaves
+    straight into its rows of the stacked agent axis.  The decoded
+    correction slices ride the down-link into per-shard local steps, and
+    the server combines the partial sums.  Every round's gathered byte count (counted from the
     buffers) lands in `wire_log`, and in a telemetry sink as the
     "gathered_payload_bytes" counter;
   * `leaf_specs` / `payload_structs` / `expected_gather_bytes` — the wire
@@ -74,7 +75,9 @@ from ..fed.transport import (
     LeafPayload,
     LeafSpec,
     PackedTree,
+    decode_corrections,
     decode_leaf,
+    decode_payloads,
     encode_leaf,
 )
 from ..obs.telemetry import maybe_span
@@ -278,25 +281,36 @@ class MultiHostRunner(ShardStreams):
                 cx, cy, self._state_s[i])
         return cx, cy
 
-    def _gather_decode(self, trees: List[PackedTree], which: int
-                       ) -> Tuple[Pytree, int, int]:
-        """Server side of the exchange: pull every shard's packed buffers to
-        the server (the wire transfer: its size is the payload), rebuild the
-        `PackedTree`s from the specs, decode on the server's stream and
-        re-stack the agent axis.  Returns (decoded [m, ...] tree, payload
-        bytes, payload + header bytes)."""
-        parts, payload_bytes, total_bytes = [], 0, 0
-        for i, t in enumerate(trees):
-            tree = PackedTree(list(self._up([t.payloads], [i])), self._specs[which],
-                              self._unflatten[which], self._shapes[which],
-                              use_kernel=self._use_kernel, headers=t.headers)
-            payload_bytes += tree.wire_bytes()
-            total_bytes += tree.total_bytes()
-            parts.append(tree.decode())
-        if len(parts) == 1:
-            return parts[0], payload_bytes, total_bytes
-        return (tree_map(lambda *u: torch.cat(u, dim=0), *parts), payload_bytes,
-                total_bytes)
+    def _gather_decode(self, enc: List[Tuple[PackedTree, PackedTree]]
+                       ) -> Tuple[Tuple[Pytree, Pytree], int, int]:
+        """Server side of the exchange: pull every shard's packed buffers of
+        cx and cy to the server (the wire transfer: its size is the
+        payload), rebuild the `PackedTree`s from the specs, and decode
+        them on the server's stream in one call (one launch on the card),
+        each shard's leaves straight into its rows of the stacked [m, ...]
+        outputs.  Returns ((cx, cy), payload bytes, payload + header
+        bytes)."""
+        payloads, specs, outs, stacked = [], [], [], []
+        payload_bytes = total_bytes = 0
+        for which in (0, 1):
+            leaves = [torch.empty((self._m,) + shape[1:], dtype=spec.dtype,
+                                  device=self._server)
+                      for shape, spec in zip(self._shapes[which], self._specs[which])]
+            stacked.append(leaves)
+            for i, e in enumerate(enc):
+                tree = PackedTree(list(self._up([e[which].payloads], [i])),
+                                  self._specs[which], self._unflatten[which],
+                                  self._shapes[which], use_kernel=self._use_kernel,
+                                  headers=e[which].headers)
+                payload_bytes += tree.wire_bytes()
+                total_bytes += tree.total_bytes()
+                payloads += tree.payloads
+                specs += tree.specs
+                outs += [u[i * self._per:(i + 1) * self._per].view(spec.rows, spec.cols)
+                         for u, spec in zip(leaves, tree.specs)]
+        decode_payloads(payloads, specs, use_kernel=self._use_kernel, outs=outs)
+        return ((self._unflatten[0](stacked[0]), self._unflatten[1](stacked[1])),
+                payload_bytes, total_bytes)
 
     def _log_wire(self, payload_bytes: int, total_bytes: int) -> None:
         """The one owner of the per-round wire record: the `wire_log` entry
@@ -315,14 +329,14 @@ class MultiHostRunner(ShardStreams):
         if not self._wire or self.last_exchange is None:
             raise ValueError("no packed exchange to decode: run a wire-transport "
                              "strategy first")
-        out = []
-        for which in (0, 1):
-            parts = []
-            for i, enc in enumerate(self.last_exchange["encoded"]):
-                with self._on(i):
-                    parts.append(enc[which].decode())
-            out.append(self._up(parts, range(self._n_shards)))
-        return out[0], out[1]
+        xs, ys = [], []
+        for i, (ex, ey) in enumerate(self.last_exchange["encoded"]):
+            with self._on(i):
+                dx, dy = decode_corrections(ex, ey)
+            xs.append(dx)
+            ys.append(dy)
+        shards = range(self._n_shards)
+        return self._up(xs, shards), self._up(ys, shards)
 
     # ------------------------------------------------------------- run loop
     def run(self, x: Pytree, y: Pytree, num_rounds: int):
@@ -351,9 +365,8 @@ class MultiHostRunner(ShardStreams):
                         gb = (self._down(i, gbar_x), self._down(i, gbar_y))
                     enc.append(self._shard_encode(i, gs[i], *gb))
                 if self._wire:
-                    cx, pbx, tbx = self._gather_decode([e[0] for e in enc], 0)
-                    cy, pby, tby = self._gather_decode([e[1] for e in enc], 1)
-                    self._log_wire(pbx + pby, tbx + tby)
+                    (cx, cy), payload_bytes, total_bytes = self._gather_decode(enc)
+                    self._log_wire(payload_bytes, total_bytes)
                 else:
                     # dense strategies: the gathered "payload" is the dense
                     # correction stack itself

@@ -98,10 +98,9 @@ def tracker_exchange(strategy, gx, gy, state, active, tab_x, tab_y, cdt=None,
     gbar_y = agent_mean(tab_y, None)
     cx, cy = tracking_corrections(tab_x, tab_y, gbar_x, gbar_y, cdt)
     cx, cy, state = strategy.transform_correction(cx, cy, state)
-    if hasattr(cx, "decode"):
-        cx = cx.decode()
-    if hasattr(cy, "decode"):
-        cy = cy.decode()
+    from ..fed.transport import decode_corrections
+
+    cx, cy = decode_corrections(cx, cy)
     return cx, cy, gbar_x, gbar_y, state, tab_x, tab_y
 
 

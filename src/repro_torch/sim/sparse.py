@@ -368,10 +368,9 @@ class SparseElasticEngine:
             cdt = getattr(self._strategy, "correction_dtype", None)
             cx, cy = tracking_corrections(g.gx, g.gy, gbar_x, gbar_y, cdt)
             cx, cy, state2 = self._strategy.transform_correction(cx, cy, rs.state)
-            if hasattr(cx, "decode"):
-                cx = cx.decode()
-            if hasattr(cy, "decode"):
-                cy = cy.decode()
+            from ..fed.transport import decode_corrections
+
+            cx, cy = decode_corrections(cx, cy)
             rs = dataclasses.replace(
                 rs, cx=cx, cy=cy, gbar_x=gbar_x, gbar_y=gbar_y,
                 fused=bool(self._strategy.exact_correction) and not self._momentum,

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, held against their plain versions
 (`gt_update`, `compress_correction_2d`, `pack_payload_2d`,
-`unpack_payload_2d`, bit for bit; `flash_attention` and `ssm_scan`, to a
+`unpack_payload_2d` and its table `unpack_payload_many`, bit for bit; `flash_attention` and `ssm_scan`, to a
 tolerance), rounds through them against rounds through the plain
 versions, and a reduced model's prefill and decode through the kernels
 against the plain path.
@@ -38,7 +38,13 @@ from repro_torch.kernels.compress_correction import (
     staged_in_shared_memory,
 )
 from repro_torch.kernels.gt_update import TABLE_CAP
-from repro_torch.kernels.pack_payload import pack_staged, payload_data_shape
+from repro_torch.kernels.pack_payload import (
+    UnpackSpec,
+    pack_staged,
+    payload_data_shape,
+    unpack_payload_many,
+)
+from repro_torch.kernels.pack_payload import TABLE_CAP as UNPACK_TABLE_CAP
 from repro_torch.launch import serve
 from repro_torch.models import init_caches, init_params, random_batch
 from repro_torch.problems import make_quadratic_problem
@@ -465,6 +471,186 @@ def test_cuda_pack_stages_rows_that_fit(cuda_device):
     assert not pack_staged(60000, 15000, "topk", "quant", 3750, torch.float32)
 
 
+# ------------------------------------------------------- the unpack table
+def _unpack_cases(dev, dt):
+    """(tag, data, idx, scale, spec, want) of chip_smoke.py's `pack_cases`
+    matrix for one dtype, packed by the plain version: the main path's
+    [16, 4096] at k 410 / 1024 / 4096 with uint16 / int32 indices, every
+    encoding and bits, top-k and rand-k; ragged 5x4097 / 3x1000 / 2x37
+    rows (f64, f32); rows of NaN whose padding indices fall past the row
+    (f64, f32, bf16); the streamed 4x40000 / 2x60000 rows.  want is
+    `ref.decode_payload_ref`'s."""
+    def case(tag, R, C, fb, seed, k, bits, mode, enc, idt, nan_every=0):
+        c, e, us, ur = _leaf(dev, R, C, dt, fb, seed, nan_every)
+        data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits, mode=mode,
+                                                encoding=enc, index_dtype=idt)[:3]
+        spec = UnpackSpec(C, DT[dt], k, bits, enc)
+        return (f"{dt} {tag} {mode} b{bits} {enc} {R}x{C} k{k}", data, idx, scale, spec,
+                ref.decode_payload_ref(data, idx, scale, **spec._asdict()))
+
+    for (enc, bits), mode in itertools.product(PACK_CASES, ("topk", "randk")):
+        for j, k in enumerate((410, 1024, 4096)):
+            yield case("main", 16, 4096, True, 6, k, bits, mode, enc,
+                       (torch.uint16, torch.int32)[j % 2])
+    if dt in ("f64", "f32"):
+        for (R, C), (enc, bits) in itertools.product([(5, 4097), (3, 1000), (2, 37)],
+                                                     PACK_CASES):
+            for k in sorted({1, max(1, C // 4), C}):
+                yield case("ragged", R, C, False, 7, k, bits, "topk", enc, torch.int32)
+    if dt != "fp8":
+        for enc, mode in itertools.product(ENCODINGS, ("topk", "randk")):
+            yield case("nan-row", 3, 1000, True, 8, 250, 8, mode, enc, torch.int32, 3)
+    streamed = {"f64": (4, 40000, "randk"), "f32": (2, 60000, "topk")}
+    if dt in streamed:
+        R, C, mode = streamed[dt]
+        for enc, bits in [("quant", 4), ("quant_dense", 4), ("sparse", 32), ("dense", 8)]:
+            yield case("streamed", R, C, True, 9, C // 10, bits, mode, enc, torch.uint16)
+
+
+def _wire_nulls(data, idx, scale, spec):
+    """The operands as the transport passes them: no indices where they
+    are the iota (k == cols) or the encoding has none, no scale where the
+    encoding has none."""
+    no_idx = spec.k == spec.cols or spec.encoding in ("quant_dense", "dense")
+    return (data, None if no_idx else idx,
+            scale if spec.encoding.startswith("quant") else None)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_unpack_table_bitwise_over_the_pack_matrix(cuda_device, dt):
+    """Each case alone, then the dtype's whole matrix in one
+    `unpack_payload_many` call with the transport's null indices and
+    scales (one launch a table of TABLE_CAP leaves: every encoding, spec
+    and index width mixed), bit for bit."""
+    cases = list(_unpack_cases(cuda_device, dt))
+    for tag, data, idx, scale, spec, want in cases:
+        assert _same(unpack_payload_2d(data, idx, scale, **spec._asdict()), want), tag
+    unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
+    leaves = [_wire_nulls(*c[1:5]) for c in cases]
+    got = unpack_payload_many(*zip(*leaves), [c[4] for c in cases])
+    torch.cuda.synchronize()
+    assert (unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (
+        -(-len(cases) // UNPACK_TABLE_CAP), len(cases))
+    for c, g in zip(cases, got):
+        assert _same(g, c[5]), c[0]
+
+
+def test_cuda_unpack_one_table_mixes_encodings_and_specs(cuda_device):
+    """Leaves of every encoding, bits, k, index width, null indices and
+    scale, row count and length in one call: one launch, each leaf bit
+    for bit."""
+    leaves = []
+    for j, ((R, C), (enc, bits)) in enumerate(itertools.product(
+            [(16, 4096), (3, 1000), (1, 37), (130, 64)], PACK_CASES)):
+        c, e, us, ur = _leaf(cuda_device, R, C, "f32", j % 2 == 0, j)
+        k = max(1, C // (2 + j % 5))
+        idt = (torch.uint16, torch.int32)[j % 2]
+        data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits,
+                                                encoding=enc, index_dtype=idt)[:3]
+        spec = UnpackSpec(C, torch.float32, k, bits, enc)
+        leaves.append((_wire_nulls(data, idx, scale, spec), spec,
+                       ref.decode_payload_ref(data, idx, scale, **spec._asdict())))
+    unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
+    got = unpack_payload_many(*zip(*[lv[0] for lv in leaves]), [lv[1] for lv in leaves])
+    torch.cuda.synchronize()
+    assert (unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (1, len(leaves))
+    for (_, spec, want), g in zip(leaves, got):
+        assert _same(g, want), spec
+
+
+def test_cuda_unpack_more_leaves_than_a_table(cuda_device):
+    n = UNPACK_TABLE_CAP + 7
+    c, e, us, ur = _leaf(cuda_device, 2 * n, 96, "bf16", True, 5)
+    spec = UnpackSpec(96, torch.bfloat16, 24, 4, "quant")
+    data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=24, bits=4,
+                                            index_dtype=torch.uint16)[:3]
+    want = ref.decode_payload_ref(data, idx, scale, **spec._asdict())
+    rows = [slice(2 * i, 2 * i + 2) for i in range(n)]
+    unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
+    got = unpack_payload_many([data[r] for r in rows], [idx[r] for r in rows],
+                              [scale[r] for r in rows], [spec] * n)
+    torch.cuda.synchronize()
+    assert (unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (2, n)
+    assert _same(torch.cat(got), want)
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32", "bf16", "fp8"])
+def test_cuda_unpack_out_view_at_a_misaligned_offset(cuda_device, dt):
+    """Out views one or more values past an aligned base, with a row
+    stride off the 16-byte grid: the tile's columns before the first
+    boundary and after the last take scalar stores; the padding around
+    the view is left as it was."""
+    for (R, C), enc, off in [((16, 4096), "quant", 1), ((3, 1000), "sparse", 3),
+                             ((5, 4097), "quant_dense", 5), ((2, 37), "dense", 1),
+                             ((4, 600), "quant", 7)]:
+        c, e, us, ur = _leaf(cuda_device, R, C, dt, True, R + off)
+        k = max(1, C // 4)
+        data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=k, bits=8, encoding=enc)[:3]
+        spec = UnpackSpec(C, DT[dt], k, 8, enc)
+        want = ref.decode_payload_ref(data, idx, scale, **spec._asdict())
+        buf = torch.empty((R, C + off + 2), dtype=DT[dt], device=cuda_device)
+        buf.view(torch.uint8).fill_(0x55)
+        out = buf[:, off:off + C]
+        res = unpack_payload_2d(*_wire_nulls(data, idx, scale, spec), out=out,
+                                **spec._asdict())
+        torch.cuda.synchronize()
+        assert res.data_ptr() == out.data_ptr() and _same(out, want), (R, C, enc)
+        rest = torch.cat([buf[:, :off], buf[:, off + C:]], dim=1)
+        assert bool((rest.view(torch.uint8) == 0x55).all()), (R, C, enc)
+
+
+@pytest.mark.parametrize("enc", ["quant", "sparse"])
+@pytest.mark.parametrize("idt", [torch.uint16, torch.int32], ids=["u16", "i32"])
+def test_cuda_unpack_unique_indices_in_any_order(cuda_device, enc, idt):
+    """Each row's (index, slot) pairs shuffled: the kernel takes no sorted
+    order.  Indices past the row (and, as int32, below 0) are dropped."""
+    R, C, k, bits = 16, 4096, 1024, 8
+    c, e, us, ur = _leaf(cuda_device, R, C, "f64", True, 21)
+    data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=k, bits=bits, encoding=enc,
+                                            index_dtype=idt)[:3]
+    spec = UnpackSpec(C, torch.float64, k, bits, enc)
+    want = ref.decode_payload_ref(data, idx, scale, **spec._asdict())
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    perm = torch.argsort(torch.rand(R, k, generator=gen, device=cuda_device), dim=1)
+    sidx = torch.gather(idx.to(torch.int64), 1, perm)
+    if enc == "sparse":
+        sdata = torch.gather(data, 1, perm)
+    else:
+        levels = ref.unpack_words(data, k, bits)
+        sdata = ref.pack_words(torch.gather(levels, 1, perm), bits)
+    # drop a few slots: past the row, and below 0 where the indices are signed
+    past = torch.zeros((R, k), dtype=torch.bool, device=cuda_device)
+    past[:, ::97] = True
+    want = ref.decode_payload_ref(sdata, torch.where(past, C + 3, sidx).to(idt), scale,
+                                  **spec._asdict())
+    bad = -2 if idt == torch.int32 else C + 3
+    got = unpack_payload_2d(sdata, torch.where(past, bad, sidx).to(idt), scale,
+                            **spec._asdict())
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert not _same(want, ref.decode_payload_ref(data, idx, scale, **spec._asdict()))
+
+
+def test_cuda_unpack_null_idx_and_scale_equal_the_materialized(cuda_device):
+    """The implicit iota (k == cols) and the zero scale the transport no
+    longer makes give the bits the made ones give."""
+    for dt in ("f64", "bf16"):
+        c, e, us, ur = _leaf(cuda_device, 16, 4096, dt, True, 2)
+        for enc, bits in [("quant", 8), ("sparse", 32), ("dense", 32), ("quant_dense", 4)]:
+            data, idx, scale = ref.pack_payload_ref(c, e, us, ur, k=4096, bits=bits,
+                                                    encoding=enc)[:3]
+            spec = UnpackSpec(4096, DT[dt], 4096, bits, enc)
+            iota = torch.arange(4096, dtype=torch.int32, device=cuda_device).expand(16, 4096)
+            zero = torch.zeros_like(scale)
+            made = unpack_payload_2d(data, iota.contiguous(),
+                                     scale if enc.startswith("quant") else zero,
+                                     **spec._asdict())
+            null = unpack_payload_2d(data, None, scale if enc.startswith("quant") else None,
+                                     **spec._asdict())
+            assert _same(made, null) and _same(null, ref.decode_payload_ref(
+                data, idx, scale, **spec._asdict())), (dt, enc)
+
+
 def _tied_rows(dev, R, C, dt, seed):
     """R rows cycling Gaussian, all equal, a block of ties below a few
     larger values (tied rand-k scores too), NaN every third column (NaN
@@ -550,12 +736,12 @@ def test_cuda_compress_correction_cluster_choice_and_unaligned(cuda_device):
 def test_cuda_compress_kernels_count_launches_and_raise(cuda_device):
     c, e, us, ur = _leaf(cuda_device, 4, 256, "f32", True, 1)
     compress_correction_2d.launches = pack_payload_2d.launches = 0
-    unpack_payload_2d.launches = 0
+    unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
     compress_correction_2d(c, e, us, ur, k=8, bits=8)
     data, idx, scale, _ = pack_payload_2d(c, e, us, ur, k=8, bits=8)
     unpack_payload_2d(data, idx, scale, cols=256, dtype=c.dtype, k=8, bits=8)
     assert (compress_correction_2d.launches, pack_payload_2d.launches,
-            unpack_payload_2d.launches) == (1, 1, 1)
+            unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (1, 1, 1, 1)
     with pytest.raises(TypeError, match="unsupported dtype"):
         compress_correction_2d(c.half(), None, None, ur, k=8, bits=8)
     with pytest.raises(ValueError, match="different devices"):
@@ -565,7 +751,7 @@ def test_cuda_compress_kernels_count_launches_and_raise(cuda_device):
     with pytest.raises(ValueError, match="different devices"):
         unpack_payload_2d(data, idx.cpu(), scale, cols=256, dtype=c.dtype, k=8, bits=8)
     assert (compress_correction_2d.launches, pack_payload_2d.launches,
-            unpack_payload_2d.launches) == (1, 1, 1)
+            unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (1, 1, 1, 1)
 
 
 @pytest.mark.parametrize("mk", [
@@ -590,18 +776,20 @@ def test_cuda_compressed_rounds_through_kernels_equal_plain(cuda_device, mk, wir
         rnd = core.make_round(prob.loss, s, K, 1e-4, explicit_state=True)
         x0 = torch.zeros(64, dtype=torch.float64, device=cuda_device)
         compress_correction_2d.launches = pack_payload_2d.launches = 0
-        unpack_payload_2d.launches = 0
+        unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
         (x, y, st), _ = core.run_strategy_rounds(
             rnd, x0, x0, prob.agent_data, rounds, s.init_state(x0, x0, 8))
         out[use] = (x, y, st, compress_correction_2d.launches,
-                    pack_payload_2d.launches, unpack_payload_2d.launches)
+                    pack_payload_2d.launches, unpack_payload_2d.launches,
+                    unpack_payload_2d.leaf_decodes)
     assert torch.equal(out[True][0], out[False][0])
     assert torch.equal(out[True][1], out[False][1])
     for key in out[True][2]:
         assert torch.equal(out[True][2][key].cpu(), out[False][2][key].cpu())
-    want = (0, 2 * rounds, 2 * rounds) if wire else (2 * rounds, 0, 0)
+    # the wire: x and y decoded in one launch a round, two leaves
+    want = (0, 2 * rounds, rounds, 2 * rounds) if wire else (2 * rounds, 0, 0, 0)
     assert out[True][3:] == want
-    assert out[False][3:] == (0, 0, 0)
+    assert out[False][3:] == (0, 0, 0, 0)
 
 
 def test_cuda_wire_transform_returns_packed_trees(cuda_device):
@@ -659,7 +847,7 @@ def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     state through the kernels equal the plain path's bit for bit (the same
     draws feed both), with gt_update updating K x 2 leaves a noisy round
     ((K - 1) x 2 with the fused anchor step), x and y in one launch a
-    step, and pack / unpack twice."""
+    step, pack twice and unpack once (x and y in one launch)."""
     import dataclasses
 
     from repro_torch.fed import (
@@ -694,19 +882,20 @@ def test_cuda_stochastic_rounds_through_kernels_equal_plain(cuda_device, tag):
                               proj_y=prob.proj_y, **kw)
         x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
         gt_update.launches = pack_payload_2d.launches = unpack_payload_2d.launches = 0
-        gt_update.leaf_updates = 0
+        gt_update.leaf_updates = unpack_payload_2d.leaf_decodes = 0
         (x, y, st), _ = core.run_strategy_rounds(
             rnd, x0, x0, prob.agent_data, rounds, s.init_state(x0, x0, m))
         out[name] = (x, y, st, gt_update.launches, gt_update.leaf_updates,
-                     pack_payload_2d.launches, unpack_payload_2d.launches)
+                     pack_payload_2d.launches, unpack_payload_2d.launches,
+                     unpack_payload_2d.leaf_decodes)
     assert torch.equal(out["kernels"][0], out["plain"][0])
     assert torch.equal(out["kernels"][1], out["plain"][1])
     for key in out["kernels"][2]:
         assert torch.equal(out["kernels"][2][key].cpu(), out["plain"][2][key].cpu())
     gt, packs = launches
     assert out["kernels"][3:] == (gt // 2 * rounds, gt * rounds, packs * rounds,
-                                  packs * rounds)
-    assert out["plain"][3:] == (0, 0, 0, 0)
+                                  packs // 2 * rounds, packs * rounds)
+    assert out["plain"][3:] == (0, 0, 0, 0, 0)
 
 
 # ------------------------------------------------------ elastic population
@@ -758,8 +947,8 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     """Flaky elastic rounds through `FederatedRunner`: iterates, strategy
     state and tracker through the kernels equal the plain path's bit for
     bit; gt_update updates (K - 1) x 2 leaves a round (K x 2 without the
-    fused anchor step) in one launch a step, compress / pack / unpack 2 a
-    round."""
+    fused anchor step) in one launch a step, compress / pack 2 a round,
+    unpack 1 (x and y in one launch, 2 leaves)."""
     import dataclasses
 
     from repro_torch import sim
@@ -789,13 +978,14 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
         x0 = torch.zeros(d, dtype=torch.float64, device=cuda_device)
         gt_update.launches = compress_correction_2d.launches = 0
         pack_payload_2d.launches = unpack_payload_2d.launches = 0
-        gt_update.leaf_updates = 0
+        gt_update.leaf_updates = unpack_payload_2d.leaf_decodes = 0
         x, y = runner.run(x0, x0, rounds, schedule=sched, rebase=rebase)
         torch.cuda.synchronize()
         out[name] = (x, y, runner._state or {}, runner.elastic_state,
                      (gt_update.launches, gt_update.leaf_updates,
                       compress_correction_2d.launches,
-                      pack_payload_2d.launches, unpack_payload_2d.launches))
+                      pack_payload_2d.launches, unpack_payload_2d.launches,
+                      unpack_payload_2d.leaf_decodes))
     k, p = out["kernels"], out["plain"]
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     for key in k[2]:
@@ -803,8 +993,8 @@ def test_cuda_elastic_rounds_through_kernels_equal_plain(cuda_device, tag):
     for key in k[3]["tracker"]:
         assert torch.equal(k[3]["tracker"][key], p[3]["tracker"][key])
     assert k[4] == (gt // 2 * rounds, gt * rounds, comp * rounds, packs * rounds,
-                    packs * rounds)
-    assert p[4] == (0, 0, 0, 0, 0)
+                    packs // 2 * rounds, packs * rounds)
+    assert p[4] == (0, 0, 0, 0, 0, 0)
 
 
 # ------------------------------------------- sparse engine and pod tree
@@ -853,7 +1043,8 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
     strategy state and the tracker's sums and rows through the kernels
     equal the plain path's bit for bit; gt_update updates (K - 1) x 2
     leaves a round with the fused anchor step (K x 2 without) in one launch
-    a step, the compressors' and the pod partials' kernels 2 a round."""
+    a step, the compressors' and the pod partials' kernels 2 a round, and
+    unpack 1 (x and y in one launch, 2 leaves)."""
     import dataclasses
 
     from repro_torch import sim
@@ -861,10 +1052,10 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
     rounds, K = 5, 4
     prob, pop, sched = _sparse_setup(cuda_device, rounds=rounds, K=K)
     strategy, wire_pods, launches = {
-        "gt_wire_pods": (GradientTracking(), True, (2 * (K - 1), 0, 2, 0)),
+        "gt_wire_pods": (GradientTracking(), True, (2 * (K - 1), 0, 2, 0, 0)),
         "cgt_wire": (CompressedGT(compression_ratio=0.1, wire_transport=True), False,
-                     (2 * K, 0, 2, 2)),
-        "qgt_dense": (QuantizedGT(bits=8, ratio=0.25), False, (2 * K, 2, 0, 0)),
+                     (2 * K, 0, 2, 1, 2)),
+        "qgt_dense": (QuantizedGT(bits=8, ratio=0.25), False, (2 * K, 2, 0, 0, 0)),
     }[tag]
     plain = (dataclasses.replace(strategy, use_kernel=False)
              if hasattr(strategy, "use_kernel") else strategy)
@@ -879,13 +1070,14 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
                          device=cuda_device)
         gt_update.launches = compress_correction_2d.launches = 0
         pack_payload_2d.launches = unpack_payload_2d.launches = 0
-        gt_update.leaf_updates = 0
+        gt_update.leaf_updates = unpack_payload_2d.leaf_decodes = 0
         x, y = eng.run(x0, x0, sched)
         torch.cuda.synchronize()
         out[name] = (x, y, eng._state, eng._tracker,
                      (gt_update.launches, gt_update.leaf_updates,
                       compress_correction_2d.launches,
-                      pack_payload_2d.launches, unpack_payload_2d.launches))
+                      pack_payload_2d.launches, unpack_payload_2d.launches,
+                      unpack_payload_2d.leaf_decodes))
     k, p = out["kernels"], out["plain"]
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     for key in k[2]:
@@ -894,13 +1086,15 @@ def test_cuda_sparse_engine_through_kernels_equals_plain(cuda_device, tag):
     for a, b in zip(k[3]._gx_leaves, p[3]._gx_leaves):
         assert (a[:k[3].num_touched] == b[:p[3].num_touched]).all()
     assert k[4] == tuple(n * rounds for n in (launches[0] // 2, *launches))
-    assert p[4] == (0, 0, 0, 0, 0)
+    assert p[4] == (0, 0, 0, 0, 0, 0)
 
 
 def test_cuda_pod_partials_roundtrip_through_pack_and_unpack(cuda_device):
     """Dense pod payloads: encode through `pack_payload` and decode through
     `unpack_payload` give the partials back bit for bit, the packed
-    buffers equal the plain encoder's, one launch per leaf each way."""
+    buffers equal the plain encoder's, one pack launch per leaf and one
+    unpack launch a dtype (the partials hold an f64 and an f32 leaf; two
+    f64 leaves share one launch)."""
     from repro_torch.fed import pods
 
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -908,12 +1102,20 @@ def test_cuda_pod_partials_roundtrip_through_pack_and_unpack(cuda_device):
                             device=cuda_device),
                 {"a": torch.randn(37, 3, 5, generator=gen, device=cuda_device)})
     pack_payload_2d.launches = unpack_payload_2d.launches = 0
+    unpack_payload_2d.leaf_decodes = 0
     packed = pods.encode_pod_partials(partials)
     back = pods.decode_pod_partials(packed)
     torch.cuda.synchronize()
-    assert (pack_payload_2d.launches, unpack_payload_2d.launches) == (2, 2)
+    assert (pack_payload_2d.launches, unpack_payload_2d.launches,
+            unpack_payload_2d.leaf_decodes) == (2, 2, 2)
     assert torch.equal(back[0], partials[0]) and torch.equal(back[1]["a"],
                                                              partials[1]["a"])
+    same = (partials[0], partials[0][:5])
+    unpack_payload_2d.launches = unpack_payload_2d.leaf_decodes = 0
+    back = pods.decode_pod_partials(pods.encode_pod_partials(same))
+    torch.cuda.synchronize()
+    assert (unpack_payload_2d.launches, unpack_payload_2d.leaf_decodes) == (1, 2)
+    assert torch.equal(back[0], same[0]) and torch.equal(back[1], same[1])
     plain = pods.encode_pod_partials(partials, use_kernel=False)
     for a, b in zip(packed.payloads, plain.payloads):
         assert torch.equal(a.data, b.data)
@@ -1438,9 +1640,9 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
     compress_correction (dense) or
     pack_payload (wire) launches, go to its own stream: 4 distinct streams
     of the runner, the same count on each, none on the server's; the
-    server's unpack_payload launches stay on the server's stream.  The
-    spies sit at the callers' names (a wrapper counts its launches through
-    its own)."""
+    server's unpack_payload launches stay on the server's stream, one a
+    round for every shard's x and y.  The spies sit at the callers' names
+    (a wrapper counts its launches through its own)."""
     import collections
 
     from repro_torch.fed import strategies, transport
@@ -1461,7 +1663,7 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
     spying(ops, "gt_update_many")
     spying(strategies, "compress_leaf")
     spying(transport, "pack_payload_2d")
-    spying(transport, "unpack_payload_2d")
+    spying(transport, "unpack_payload_many")
     prob, x0 = _async_setup(cuda_device)
     K, rounds = 4, 2
     mr = _multihost(prob, CompressedGT(compression_ratio=0.25, wire_transport=wire),
@@ -1476,8 +1678,8 @@ def test_cuda_multihost_kernels_launch_on_the_shard_streams(cuda_device, monkeyp
                                                            for h in handles}
     shard_kernel = "pack_payload_2d" if wire else "compress_leaf"
     assert collections.Counter(seen[shard_kernel]) == {h: 2 * rounds for h in handles}
-    assert collections.Counter(seen["unpack_payload_2d"]) == (
-        {server: 2 * ASYNC_SHARDS * rounds} if wire else {})
+    assert collections.Counter(seen["unpack_payload_many"]) == (
+        {server: rounds} if wire else {})
 
 
 # ------------------------------------------------- the backward kernels
